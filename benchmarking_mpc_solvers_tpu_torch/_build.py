@@ -30,7 +30,8 @@ from .models import REGISTRY
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_mppi.cu", "fused_rollout.cu")
+SOURCES = ("fused_mppi.cu", "fused_rollout.cu", "fused_cem.cu", "riccati_backward.cu",
+           "fused_linesearch.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -116,6 +117,14 @@ SIGNATURES = {
         [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _U, _I, _I, _W, _P]),
     "fused_rollout_costs_launch": (
         "fused_rollout.cu", [_I, _P, _P, _P, _P, _I, _I, _W, _P]),
+    "fused_cem_step_launch": (
+        "fused_cem.cu",
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _W, _P]),
+    "riccati_backward_launch": (
+        "riccati_backward.cu", [_P] * 12 + [_I, _I, _I, _I, _P]),
+    "fused_linesearch_launch": (
+        "fused_linesearch.cu",
+        [_I] + [_P] * 10 + [_I, _I, _I, _F, _F, _I, _W, _W, _P]),
 }
 
 
@@ -139,12 +148,13 @@ def model_id(model) -> int:
     raise NotImplementedError(f"no CUDA device function for model {model.name!r}")
 
 
-def quad_weights(model):
-    """The stage cost's nonzero (i, j, w) terms as the dense upper-triangle
-    (MAX_Z*MAX_Z,) float array the kernels take (zeros are skipped there)."""
-    nz = getattr(model.state_cost, "nz", None)
+def quad_weights(cost):
+    """A ``quad_cost``'s nonzero (i, j, w) terms (a model's stage or
+    terminal cost) as the dense upper-triangle (MAX_Z*MAX_Z,) float array
+    the kernels take (zeros are skipped there)."""
+    nz = getattr(cost, "nz", None)
     if nz is None:
-        raise NotImplementedError(f"model {model.name!r} has no quad_cost stage cost")
+        raise NotImplementedError("the kernels need a quad_cost cost")
     w = (ctypes.c_float * (MAX_Z * MAX_Z))()
     for i, j, v in nz:
         w[i * MAX_Z + j] = v

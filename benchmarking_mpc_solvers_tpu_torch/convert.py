@@ -16,7 +16,23 @@ import torch
 from .device import default_generator, resolve_device
 from .models import REGISTRY
 from .models.base import nonzero_pairs
+from .ops.fused_mppi import scenario_seeds
+from .solvers.cem import CEMState
+from .solvers.ilqr import ILQRState
 from .solvers.mppi import MPPIState
+
+
+def _plan_state(planned_us, generator, device):
+    """(plan tensor, generator, and for a (B, T, A) plan the batched tiers'
+    per-scenario seeds and zero draw counts, else None, None)."""
+    device = resolve_device(device)
+    planned = torch.tensor(np.asarray(planned_us, np.float32), device=device)
+    gen = default_generator(generator, device)
+    if planned.ndim != 3:
+        return planned, gen, None, None
+    B = planned.shape[0]
+    return (planned, gen, scenario_seeds(B, gen, device),
+            torch.zeros((B,), dtype=torch.int64, device=device))
 
 
 def mppi_state_from_numpy(planned_us, delta_u=None,
@@ -24,13 +40,26 @@ def mppi_state_from_numpy(planned_us, delta_u=None,
                           device="cuda") -> MPPIState:
     """MPPIState from a (T, A) or (B, T, A) plan and, optionally, the (K, T, A)
     fixed perturbations of the sample-once mode."""
-    device = resolve_device(device)
-    planned = torch.tensor(np.asarray(planned_us, np.float32), device=device)
+    planned, gen, seeds, calls = _plan_state(planned_us, generator, device)
     if delta_u is None:
         delta = planned.new_zeros((1, 1, 1))
     else:
-        delta = torch.tensor(np.asarray(delta_u, np.float32), device=device)
-    return MPPIState(planned, delta, default_generator(generator, device))
+        delta = torch.tensor(np.asarray(delta_u, np.float32), device=planned.device)
+    return MPPIState(planned, delta, gen, seeds, calls)
+
+
+def cem_state_from_numpy(planned_us, generator: Optional[torch.Generator] = None,
+                         device="cuda") -> CEMState:
+    """CEMState from a (T, A) or (B, T, A) plan mean."""
+    return CEMState(*_plan_state(planned_us, generator, device))
+
+
+def ilqr_state_from_numpy(planned_us, generator: Optional[torch.Generator] = None,
+                          device="cuda") -> ILQRState:
+    """ILQRState from a (T, A) or (B, T, A) plan, e.g. the reference's
+    ``init_state`` draw, so both packages start from the same plan."""
+    planned, gen, _, _ = _plan_state(planned_us, generator, device)
+    return ILQRState(planned, gen)
 
 
 def plan_tm_from_numpy(planned_tm, device="cuda") -> torch.Tensor:

@@ -1,0 +1,181 @@
+// Single-kernel CEM refinement for Hopper (sm_90a).
+//
+// Replaces the TPU kernel benchmarking_mpc_solvers_tpu/ops/fused_cem.py:
+// fused_cem_step (kernel body :111). For each of B scenarios it runs all
+// max_iter CEM iterations in one launch; per iteration:
+//   pass 1: K samples u = clip(mean_t + std_t*delta, lo, hi), each scored by
+//           a horizon-T rollout (clipped nonzero-W quadratic stage cost);
+//   select: non-finite cost -> 1e30, then n_elite rounds of masked-min with
+//           exclusion offset 4*T*1e30; every tied candidate is marked and the
+//           weights are 1/count;
+//   pass 2: m1 = sum_k w_k u_k, m2 = sum_k w_k u_k^2 (in k order), then
+//           std_e = sqrt(max(m2 - m1^2, 0)) and the alpha-smoothing of mean
+//           and std. std starts at std0 on every call; no epsilon exit.
+//
+// Noise: the reference's interpret-mode stream, bit for bit, under the
+// combined seed seed + it*15485863 + k*7919 + pid*104729 (uint32 wrap), with
+// scenario b in the slot of the reference's padded (T, 8, Bp/8) tiling
+// (lanes, C, pid, counter indices as in fused_mppi.cu).
+//
+// Bound on the H100: operations. At the CEM sweep shape (B=10240, K=64,
+// T=50, max_iter=3, cart-pole) the kernel moves 4.3 MB (plan in and out,
+// states), 1.3 us at 3.35 TB/s, while it does B*K*T*max_iter = 98 M rollout
+// steps, each with one noise draw (two hashes, logf, sqrtf, cosf), the clip
+// and the model's sinf/cosf, ~72 FP32 operations: 0.11 ms at 67 TFLOP/s.
+// Design: one warp per scenario, one lane per sample k (K=64 is two per
+// lane), so 10240 scenarios give 327,680 threads. mean, std, costs and the
+// elite mask sit in shared memory (2T + 2K floats per warp); the selection
+// is warp-shuffle minima. Pass 2 gives lane j the steps t = j, j+32, ...
+// and sums over k in order, as the reference does, so the moments round
+// exactly as the plain version; it redraws the noise of the elite samples
+// only (w = 0 adds nothing), n_elite*T draws instead of caching K*T
+// samples. Faster designs (fewer transcendentals, occupancy) are later work.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "models.cuh"
+
+namespace {
+
+constexpr int kWarpsPerBlock = 4;
+constexpr uint32_t kItStride = 15485863u, kKStride = 7919u, kPidStride = 104729u;
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <class M>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
+                 const float* __restrict__ gz, float* __restrict__ out,
+                 float* __restrict__ masks, int T, int B, int K, int n_elite,
+                 int max_iter, float alpha, float one_minus_alpha, float std0,
+                 float lo, float hi, uint32_t seed, int lanes, int C,
+                 bmpc::QuadW q) {
+  constexpr int S = M::S;
+  constexpr int Z = S + 1;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;  // uniform per warp: shuffles below see full warps
+  float* mean = smem + warp * (2 * T + 2 * K);
+  float* stdv = mean + T;
+  float* cost = stdv + T;
+  float* sel = cost + K;
+
+  const int s = b / C, col = b % C;
+  const int pid = col / lanes, l = col % lanes;
+  const uint32_t i1 = (uint32_t)(s * lanes + l);
+  const uint32_t i2 = (uint32_t)((8 + s) * lanes + l);
+  const uint32_t seed_p = seed + (uint32_t)pid * kPidStride;
+  const float excl = (float)(4.0 * (double)T * 1e30);  // as the reference rounds it
+
+  for (int t = lane; t < T; t += 32) {
+    mean[t] = plan[t * B + b];
+    stdv[t] = std0;
+  }
+  float xs0[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) xs0[i] = x0[i * B + b];
+  __syncwarp();
+
+  for (int it = 0; it < max_iter; ++it) {
+    const uint32_t seed_it = seed_p + (uint32_t)it * kItStride;
+    // pass 1: score this lane's samples
+    for (int k = lane; k < K; k += 32) {
+      const uint32_t seed_c = seed_it + (uint32_t)k * kKStride;
+      float x[S], xn[S], z[Z];
+#pragma unroll
+      for (int i = 0; i < S; ++i) x[i] = xs0[i];
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) {
+        const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
+        const float u = bmpc::clampf(mean[t] + stdv[t] * d, lo, hi);
+        M::transform(x, u, z);
+        const float c = bmpc::quad_cost<Z>(z, gz + t * Z, q);
+        M::dynamics(x, u, xn);
+#pragma unroll
+        for (int i = 0; i < S; ++i) x[i] = xn[i];
+        acc = acc + c;
+      }
+      cost[k] = isfinite(acc) ? acc : 1e30f;  // failure guard
+      sel[k] = 0.0f;
+    }
+    __syncwarp();
+
+    // select: n_elite rounds of masked-min; ties are all marked
+    for (int j = 0; j < n_elite; ++j) {
+      float m = INFINITY;
+      for (int k = lane; k < K; k += 32) m = fminf(m, cost[k] + sel[k] * excl);
+      m = warp_min(m);
+      for (int k = lane; k < K; k += 32)
+        if (cost[k] + sel[k] * excl == m && sel[k] < 0.5f) sel[k] = 1.0f;
+      __syncwarp();
+    }
+    float cnt = 0.0f;
+    for (int k = lane; k < K; k += 32) cnt += sel[k];
+    const float wsum = fmaxf(warp_sum(cnt), 1.0f);
+    if (masks != nullptr)
+      for (int k = lane; k < K; k += 32) masks[((size_t)it * K + k) * B + b] = sel[k];
+
+    // pass 2: elite moments per t, summed over k in order
+    for (int t = lane; t < T; t += 32) {
+      float m1 = 0.0f, m2 = 0.0f;
+      for (int k = 0; k < K; ++k) {
+        if (sel[k] == 0.0f) continue;  // w = 0: the term adds nothing
+        const float w = sel[k] / wsum;
+        const uint32_t seed_c = seed_it + (uint32_t)k * kKStride;
+        const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
+        const float u = bmpc::clampf(mean[t] + stdv[t] * d, lo, hi);
+        m1 = m1 + w * u;
+        m2 = m2 + w * (u * u);
+      }
+      const float e_std = sqrtf(fmaxf(m2 - m1 * m1, 0.0f));
+      mean[t] = alpha * mean[t] + one_minus_alpha * m1;
+      stdv[t] = alpha * stdv[t] + one_minus_alpha * e_std;
+    }
+    __syncwarp();
+  }
+  for (int t = lane; t < T; t += 32) out[t * B + b] = mean[t];
+}
+
+}  // namespace
+
+// plan/out (T, B), x0 (S, B), gz (T, S+1): float32, contiguous, on the device;
+// masks (max_iter, K, B) float32 or null. w: host array of MAX_Z*MAX_Z
+// upper-triangle cost weights. Returns the launch's cudaGetLastError().
+extern "C" int fused_cem_step_launch(int model_id, const float* plan,
+                                     const float* x0, const float* gz,
+                                     float* out, float* masks, int T, int B,
+                                     int K, int n_elite, int max_iter,
+                                     float alpha, float one_minus_alpha,
+                                     float std0, float lo, float hi,
+                                     uint32_t seed, int lanes, int C,
+                                     const float* w, cudaStream_t stream) {
+  bmpc::QuadW q;
+  for (int i = 0; i < bmpc::kMaxZ * bmpc::kMaxZ; ++i) q.w[i] = w[i];
+  const dim3 block(32 * kWarpsPerBlock);
+  const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const size_t smem = sizeof(float) * (2 * T + 2 * K) * kWarpsPerBlock;
+  BMPC_DISPATCH_MODEL(model_id, {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fused_cem_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    fused_cem_kernel<M><<<grid, block, smem, stream>>>(
+        plan, x0, gz, out, masks, T, B, K, n_elite, max_iter, alpha,
+        one_minus_alpha, std0, lo, hi, seed, lanes, C, q);
+  });
+  return (int)cudaGetLastError();
+}

@@ -116,14 +116,26 @@ def run_episode(env: Env, solver: Solver, cfg: EpisodeConfig, x0=None,
     return _result(x0, recs, ws, batch_first=False)
 
 
+def _initial_plans(init_plans, B: int, T: int, A: int, device):
+    """The caller's (B, T, A) starting plans as a float32 tensor on device."""
+    plans = torch.as_tensor(init_plans, dtype=torch.float32, device=device)
+    if plans.shape != (B, T, A):
+        raise ValueError(f"init_plans has shape {tuple(plans.shape)}, expected {(B, T, A)}")
+    return plans
+
+
 def _run_episodes_two_stage(env: Env, solver, cfg: EpisodeConfig, x0s, gen,
-                            use_fused: bool) -> EpisodeResult:
+                            use_fused: bool, init_plans=None) -> EpisodeResult:
     """B episodes through ``solver.solve_batch``, with the agent layer's
-    clip / log / shift semantics written out over the batch."""
+    clip / log / shift semantics written out over the batch. ``init_plans``
+    (B, T, A) replaces the solver's initial plans."""
     model = env.model
     device = x0s.device
     g_z = _goal(cfg, solver, device)
     sstates = solver.init_state_batch(x0s.shape[0], gen, device)
+    if init_plans is not None:
+        sstates = sstates._replace(planned_us=_initial_plans(
+            init_plans, x0s.shape[0], solver.T, model.action_size, device))
 
     ws = None
     if cfg.warmstart > 0:
@@ -156,38 +168,45 @@ def _run_episodes_two_stage(env: Env, solver, cfg: EpisodeConfig, x0s, gen,
 
 def run_episodes_batch(env: Env, solver, cfg: EpisodeConfig, x0s,
                        generator: Optional[torch.Generator] = None,
-                       device="cuda") -> EpisodeResult:
-    """B scenarios x0s (B, S) through the plain batched solve (no kernels)."""
+                       init_plans=None, device="cuda") -> EpisodeResult:
+    """B scenarios x0s (B, S) through the plain batched solve (no kernels).
+    ``init_plans`` (B, T, A) replaces the solver's initial plans."""
     device = resolve_device(device)
     x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)
     return _run_episodes_two_stage(env, solver, cfg, x0s,
-                                   default_generator(generator, device), use_fused=False)
+                                   default_generator(generator, device), use_fused=False,
+                                   init_plans=init_plans)
 
 
 def run_episodes_fused(env: Env, solver, cfg: EpisodeConfig, x0s,
                        generator: Optional[torch.Generator] = None,
-                       use_kernel: bool = True, seeds=None,
+                       use_kernel: bool = True, seeds=None, init_plans=None,
                        device="cuda") -> EpisodeResult:
     """Batched closed-loop episodes on the fused tiers (the bench path).
 
     With ``use_kernel`` and a solver whose ``kernel_ok()`` holds, every MPC
     step is one ``solve_batch_tm`` launch (``_run_episodes_kernel``; ``seeds``
-    are its per-call noise seeds). Otherwise the two-stage tier runs, its
-    B·K rollouts per step in one ``fused_rollout_costs_tm`` launch."""
+    are its per-call noise seeds). Otherwise the two-stage tier runs
+    ``solve_batch(use_fused=True)``: for MPPI and CEM the B·K rollouts of a
+    step (of an iteration, for CEM) in one ``fused_rollout_costs_tm``
+    launch, for iLQR each iteration's backward pass and line search in one
+    launch each. ``init_plans`` (B, T, A) replaces the initial plans."""
     device = resolve_device(device)
     x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)
     gen = default_generator(generator, device)
     if use_kernel and getattr(solver, "kernel_ok", None) and solver.kernel_ok():
         return _run_episodes_kernel(env, solver, cfg, x0s, seeds=seeds, generator=gen,
-                                    device=device)
-    return _run_episodes_two_stage(env, solver, cfg, x0s, gen, use_fused=True)
+                                    init_plans=init_plans, device=device)
+    return _run_episodes_two_stage(env, solver, cfg, x0s, gen, use_fused=True,
+                                   init_plans=init_plans)
 
 
 def _run_episodes_kernel(env: Env, solver, cfg: EpisodeConfig, x0s, seeds=None,
                          generator: Optional[torch.Generator] = None,
-                         device="cuda") -> EpisodeResult:
+                         init_plans=None, device="cuda") -> EpisodeResult:
     """Single-kernel episode tier: one ``solve_batch_tm`` per solver call,
-    the plan carried time-major (T, B).
+    the plan carried time-major (T, B), zero at the start unless
+    ``init_plans`` (B, T, 1) is given.
 
     ``seeds`` holds one int32 per solver call (warm-start iterations, then
     episode steps), as the reference derives them from its keys; without it
@@ -209,7 +228,10 @@ def _run_episodes_kernel(env: Env, solver, cfg: EpisodeConfig, x0s, seeds=None,
     g_z = _goal(cfg, solver, device)
     lo, hi = float(model.bounds_low[0]), float(model.bounds_high[0])
 
-    planned_tm = torch.zeros((solver.T, B), dtype=torch.float32, device=device)
+    if init_plans is None:
+        planned_tm = torch.zeros((solver.T, B), dtype=torch.float32, device=device)
+    else:
+        planned_tm = _initial_plans(init_plans, B, solver.T, 1, device)[..., 0].T.contiguous()
     x0s_tm = x0s.T.contiguous()
     ws = []
     for seed in seeds[: cfg.warmstart]:

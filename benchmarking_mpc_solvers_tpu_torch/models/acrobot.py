@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from .base import Model, quad_cost
+from .base import Model, clip, quad_cost
 
 DT = 0.2
 L1 = 1.0
@@ -81,8 +81,8 @@ def dynamics(x, u):
         [
             wrap(ns[..., 0], -math.pi, math.pi),
             wrap(ns[..., 1], -math.pi, math.pi),
-            torch.clamp(ns[..., 2], -MAX_VEL_1, MAX_VEL_1),
-            torch.clamp(ns[..., 3], -MAX_VEL_2, MAX_VEL_2),
+            clip(ns[..., 2], -MAX_VEL_1, MAX_VEL_1),
+            clip(ns[..., 3], -MAX_VEL_2, MAX_VEL_2),
         ],
         dim=-1,
     )

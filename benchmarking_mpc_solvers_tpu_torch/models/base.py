@@ -66,6 +66,19 @@ class Model:
         return torch.clamp(u, self.lo(u.device), self.hi(u.device))
 
 
+def clip(x, lo: float, hi: float):
+    """``jnp.clip`` in value and in derivative: min(max(x, lo), hi).
+
+    The value is ``torch.clamp``'s (NaN propagates). At x == lo or x == hi
+    the derivative is 1/2, as JAX's max/min split a tie and as
+    ``torch.maximum``/``torch.minimum`` do; ``torch.clamp`` gives 1 there.
+    It matters to iLQR's Jacobians, whose plans sit on the action bounds.
+    The bounds are 0-dim CPU tensors, which add no device launch."""
+    lo_t = torch.tensor(lo, dtype=x.dtype)
+    hi_t = torch.tensor(hi, dtype=x.dtype)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
 def nonzero_pairs(W) -> list:
     """Upper-triangle nonzero entries of sym(W) as (i, j, weight) with the
     off-diagonal weights doubled: the terms of (z-g)ᵀ W (z-g) that the

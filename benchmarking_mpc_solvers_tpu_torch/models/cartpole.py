@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import Model, quad_cost
+from .base import Model, clip, quad_cost
 
 G = 9.82
 M_C = 0.5
@@ -39,7 +39,7 @@ W_T = np.diag(np.array([-5.0, 0.0, -10.0, 0.0, 0.0], dtype=np.float32))
 
 def dynamics(x, u):
     """x = (..., [pos, pos_dot, theta, theta_dot]); u = (..., [force])."""
-    action = torch.clamp(u[..., 0], -1.0, 1.0) * FORCE_MAG
+    action = clip(u[..., 0], -1.0, 1.0) * FORCE_MAG
     xc, x_dot, theta, theta_dot = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
     s = torch.sin(theta)
     c = torch.cos(theta)

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from .base import Model, quad_cost
+from .base import Model, clip, quad_cost
 
 MAX_TORQUE = 2.0
 MAX_SPEED = 8.0
@@ -36,14 +36,14 @@ def angle_normalize(x):
 
 def dynamics(x, u):
     """x = (..., [th, thdot]); u = (..., [torque])."""
-    torque = torch.clamp(u[..., 0], -MAX_TORQUE, MAX_TORQUE)
+    torque = clip(u[..., 0], -MAX_TORQUE, MAX_TORQUE)
     th, thdot = x[..., 0], x[..., 1]
     newthdot = thdot + (
         (-3.0 * G / (2.0 * L)) * torch.sin(th + math.pi)
         + (3.0 / (M * L**2)) * torque
     ) * DT
     newth = th + newthdot * DT
-    newthdot = torch.clamp(newthdot, -MAX_SPEED, MAX_SPEED)
+    newthdot = clip(newthdot, -MAX_SPEED, MAX_SPEED)
     return torch.stack([newth, newthdot], dim=-1)
 
 

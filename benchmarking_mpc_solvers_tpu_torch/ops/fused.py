@@ -44,7 +44,7 @@ def fused_rollout_costs_tm(model: Model, x0_tm, us_tm, g_z):
     if x0_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {x0_tm.device}")
     mid = _build.model_id(model)
-    w = _build.quad_weights(model)
+    w = _build.quad_weights(model.state_cost)
     dev = x0_tm.device
     _build.check_cuda_args("fused_rollout_costs_tm", dev, x0_tm=x0_tm, us_tm=us_tm, g_z=g_z)
     out = torch.empty((N,), dtype=torch.float32, device=dev)

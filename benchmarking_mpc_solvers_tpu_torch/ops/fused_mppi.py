@@ -50,8 +50,10 @@ def _mul32(a, c: int):
     return (lo + hi) & _MASK
 
 
-def _hash(seed_c, t: int, idx):
-    x = (_mul32(seed_c, 0x9E3779B9) + ((t * 0x85EBCA6B) & _MASK) + idx) & _MASK
+def _hash(seed_c, t, idx):
+    """murmur3 finalizer over (seed, t, index), all in [0, 2**32): ints or
+    int64 tensors."""
+    x = (_mul32(seed_c, 0x9E3779B9) + _mul32(t, 0x85EBCA6B) + idx) & _MASK
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -63,7 +65,7 @@ def _u01(x):
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _normals(seed_c, t: int, i1, i2):
+def _normals(seed_c, t, i1, i2):
     """Box-Muller cos half from the uniforms at counter indices i1, i2."""
     u1 = _u01(_hash(seed_c, t, i1)) + 1e-7
     u2 = _u01(_hash(seed_c, t, i2))
@@ -88,6 +90,28 @@ def noise_layout(B: int, lanes: int, device=None):
     s, col = b // C, b % C
     pid, lane = col // lanes, col % lanes
     return pid, s * lanes + lane, (SUBLANES + s) * lanes + lane
+
+
+def scenario_seeds(batch: int, generator: torch.Generator, device) -> torch.Tensor:
+    """(B,) int64 noise seeds, one per scenario, drawn once from the
+    generator (on the generator's device, then moved to ``device``)."""
+    return torch.randint(0, 2**63 - 1, (batch,), generator=generator, dtype=torch.int64,
+                         device=generator.device).to(device)
+
+
+def scenario_normals(seeds, calls, K: int, T: int):
+    """(B, K, T) standard normals of the batched tiers' per-scenario streams.
+
+    Entry [b, k, t] is a function of (seeds[b], calls[b], k, t) alone: the
+    stream of a (scenario, draw) pair is the hash of the seed's low word,
+    the draw count and the seed's high word, and within it (k, t) takes the
+    uniforms at counter indices 2k and 2k+1 of timestep t. So a scenario's
+    draws do not depend on its batch slot or on B, and permuting the
+    scenarios (with their seeds and counts) permutes the draws."""
+    stream = _hash(seeds & _MASK, calls & _MASK, (seeds >> 32) & _MASK)
+    k = torch.arange(K, dtype=torch.int64, device=seeds.device)[None, :, None]
+    t = torch.arange(T, dtype=torch.int64, device=seeds.device)[None, None, :]
+    return _normals(stream[:, None, None], t, 2 * k, 2 * k + 1)
 
 
 def _seeds(seed: int, K: int, pid):
@@ -146,7 +170,7 @@ def fused_mppi_step(model: Model, K: int, std: float, lam: float, lanes: int,
     if planned_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {planned_tm.device}")
     mid = _build.model_id(model)
-    w = _build.quad_weights(model)
+    w = _build.quad_weights(model.state_cost)
     dev = planned_tm.device
     _build.check_cuda_args("fused_mppi_step", dev, planned_tm=planned_tm, x0_tm=x0_tm, gz=gz)
     if B == 0 or T == 0:

@@ -1,0 +1,138 @@
+"""Batched scalar-action Riccati backward pass in one launch.
+
+Counterpart of ``benchmarking_mpc_solvers_tpu/ops/riccati_pallas.py:
+riccati_backward_batch``. On CUDA tensors ``riccati_backward_batch``
+launches the hand-written kernel in ``csrc/riccati_backward.cu`` (one thread
+per scenario, V_x and V_xx in registers over the horizon); on CPU tensors it
+runs ``riccati_backward_batch_reference``, the plain PyTorch version with
+the reference kernel's arithmetic written out element by element in the
+same order. ``riccati_backward_batch.launches`` counts kernel launches.
+
+Semantics (the reference kernel's, ``solvers/ilqr.py:ILQR.backward_pass``
+for a scalar action):
+- μ enters the gain solve only: q_uu + μ·Σf_u² and q_ux + μ·f_uᵀf_x;
+- the value recursion is unregularised, and V_xx is symmetrised each step;
+- with ``check_pd`` a step whose regularised q_uu is not > 0 divides by 1
+  and the recursion carries on; ``ok`` is the product over all t;
+- with ``with_c`` the Q-terms contract V_x + V_xx·c (the TV-LQR residual).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+MAX_STATE = 8  # the kernel's largest state size (a template parameter)
+
+
+def pallas_riccati_applicable(state_size: int, action_size: int) -> bool:
+    """Shape gate of the solvers' dispatch to ``riccati_backward_batch``
+    (the reference's name, kept for its callers)."""
+    return action_size == 1 and state_size <= MAX_STATE
+
+
+def _check_shapes(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c, with_c):
+    B, Tp1, S = l_x.shape
+    T = Tp1 - 1
+    want = {"l_u": (B, T, 1), "l_xx": (B, T + 1, S, S), "l_uu": (B, T, 1, 1),
+            "l_ux": (B, T, 1, S), "f_x": (B, T, S, S), "f_u": (B, T, S, 1), "mu": (B,)}
+    if with_c:
+        want["c"] = (B, T, S)
+    got = {"l_u": l_u, "l_xx": l_xx, "l_uu": l_uu, "l_ux": l_ux, "f_x": f_x, "f_u": f_u,
+           "mu": mu, "c": c}
+    for key, shape in want.items():
+        if got[key] is None or tuple(got[key].shape) != shape:
+            raise ValueError(f"riccati_backward_batch: {key} has shape "
+                             f"{None if got[key] is None else tuple(got[key].shape)}, "
+                             f"expected {shape}")
+    return B, T, S
+
+
+def riccati_backward_batch_reference(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c=None,
+                                     check_pd: bool = True, with_c: bool = False):
+    """Plain version over the batch: the horizon as a loop, every matrix
+    entry a (B,) tensor, each sum in the reference kernel's order."""
+    B, Tp1, S = l_x.shape
+    T = Tp1 - 1
+    rs = range(S)
+    vx = [l_x[:, T, i] for i in rs]
+    vxx = [[l_xx[:, T, i, j] for j in rs] for i in rs]
+    ok = torch.ones((B,), dtype=torch.float32, device=l_x.device)
+    ks = [None] * T
+    Ks = [None] * T
+    for t in reversed(range(T)):
+        fx = [[f_x[:, t, i, j] for j in rs] for i in rs]
+        fu = [f_u[:, t, i, 0] for i in rs]
+        if with_c:
+            vxc = [vx[i] + sum(vxx[i][k] * c[:, t, k] for k in rs) for i in rs]
+        else:
+            vxc = vx
+        q_x = [l_x[:, t, j] + sum(fx[i][j] * vxc[i] for i in rs) for j in rs]
+        q_u = l_u[:, t, 0] + sum(fu[i] * vxc[i] for i in rs)
+        m = [[sum(vxx[i][k] * fx[k][j] for k in rs) for j in rs] for i in rs]
+        q_xx = [[l_xx[:, t, j, jp] + sum(fx[i][j] * m[i][jp] for i in rs) for jp in rs]
+                for j in rs]
+        w = [sum(vxx[i][k] * fu[k] for k in rs) for i in rs]
+        q_uu = l_uu[:, t, 0, 0] + sum(fu[i] * w[i] for i in rs)
+        q_ux = [l_ux[:, t, 0, j] + sum(fu[i] * m[i][j] for i in rs) for j in rs]
+        fufu = sum(fu[i] * fu[i] for i in rs)
+        q_uu_r = q_uu + mu * fufu
+        q_ux_r = [q_ux[j] + mu * sum(fu[i] * fx[i][j] for i in rs) for j in rs]
+        if check_pd:
+            pd = q_uu_r > 0.0
+            ok = ok * pd.to(torch.float32)
+            inv = 1.0 / torch.where(pd, q_uu_r, torch.ones_like(q_uu_r))
+        else:
+            inv = 1.0 / q_uu_r
+        k = -q_u * inv
+        K = [-q_ux_r[j] * inv for j in rs]
+        vx = [q_x[j] + K[j] * (q_uu * k + q_u) + q_ux[j] * k for j in rs]
+        vnew = [[q_xx[j][jp] + K[j] * q_uu * K[jp] + K[j] * q_ux[jp] + q_ux[j] * K[jp]
+                 for jp in rs] for j in rs]
+        vxx = [[0.5 * (vnew[j][jp] + vnew[jp][j]) for jp in rs] for j in rs]
+        ks[t] = k
+        Ks[t] = torch.stack(K, dim=-1)
+    ks = torch.stack(ks, dim=1)[..., None]  # (B, T, 1)
+    Ks = torch.stack(Ks, dim=1)[:, :, None, :]  # (B, T, 1, S)
+    return ks, Ks, ok > 0.5
+
+
+def riccati_backward_batch(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c=None,
+                           check_pd: bool = True, with_c: bool = False):
+    """Batched backward Riccati recursion, batch-first as the reference:
+    l_x (B, T+1, S), l_u (B, T, 1), l_xx (B, T+1, S, S), l_uu (B, T, 1, 1),
+    l_ux (B, T, 1, S), f_x (B, T, S, S), f_u (B, T, S, 1), mu (B,), c
+    (B, T, S) with ``with_c`` -> (ks (B, T, 1), Ks (B, T, 1, S), ok (B,)
+    bool). The kernel on CUDA tensors, the plain version on CPU tensors."""
+    B, T, S = _check_shapes(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c, with_c)
+    if S > MAX_STATE:
+        raise NotImplementedError(f"state_size {S} > {MAX_STATE}")
+    if l_x.device.type == "cpu":
+        return riccati_backward_batch_reference(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c,
+                                                check_pd, with_c)
+    if l_x.device.type != "cuda":
+        raise ValueError(f"unsupported device {l_x.device}")
+    dev = l_x.device
+    tensors = dict(l_x=l_x, l_u=l_u, l_xx=l_xx, l_uu=l_uu, l_ux=l_ux, f_x=f_x, f_u=f_u, mu=mu)
+    if with_c:
+        tensors["c"] = c
+    _build.check_cuda_args("riccati_backward_batch", dev, **tensors)
+    ks = torch.empty((B, T, 1), dtype=torch.float32, device=dev)
+    Ks = torch.empty((B, T, 1, S), dtype=torch.float32, device=dev)
+    ok = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        ok.fill_(1.0)
+        return ks, Ks, ok > 0.5
+    rc = _build.kernel_fn("riccati_backward_launch")(
+        *(_build.ptr(tensors[key]) for key in ("l_x", "l_u", "l_xx", "l_uu", "l_ux",
+                                                "f_x", "f_u", "mu")),
+        _build.ptr(c) if with_c else None,
+        _build.ptr(ks), _build.ptr(Ks), _build.ptr(ok),
+        B, T, S, int(check_pd), _build.stream_ptr(dev))
+    _build.check_rc("riccati_backward_batch", rc)
+    riccati_backward_batch.launches += 1
+    return ks, Ks, ok > 0.5
+
+
+riccati_backward_batch.launches = 0

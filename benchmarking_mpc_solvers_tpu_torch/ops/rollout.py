@@ -67,16 +67,27 @@ def rollout_noisy(model: Model, x0, us, g_z, xnoise):
     return torch.stack(xs, dim=-2), torch.stack(costs, dim=-1)
 
 
+def _sum_in_order(costs):
+    """Σ_t costs[..., t] added in t order from 0, as ``rollout_cost`` and the
+    line search sum: iLQR compares a plan's total with its candidates' (a
+    repeated trajectory must score exactly the same), and XLA sums a short
+    horizon in this order too."""
+    total = torch.zeros_like(costs[..., 0])
+    for t in range(costs.shape[-1]):
+        total = total + costs[..., t]
+    return total
+
+
 def simulate_trajectory(model: Model, x0, us, g_z):
     """(xs, total_cost): the reference ``Agent.simulate_trajectory`` contract."""
     xs, costs = rollout(model, x0, us, g_z)
-    return xs, costs.sum(dim=-1)
+    return xs, _sum_in_order(costs)
 
 
 def simulate_trajectory_noisy(model: Model, x0, us, g_z, xnoise):
     """Noisy-planning-model variant of ``simulate_trajectory``."""
     xs, costs = rollout_noisy(model, x0, us, g_z, xnoise)
-    return xs, costs.sum(dim=-1)
+    return xs, _sum_in_order(costs)
 
 
 def best_plan_by_rollout_cost(model: Model, x, g_z, candidates):

@@ -1,2 +1,4 @@
 from .base import Solver, StepOutput, predict_action, shift_plan, warm_start  # noqa: F401
+from .cem import CEM, CEMState  # noqa: F401
+from .ilqr import ILQR, ILQRState  # noqa: F401
 from .mppi import MPPI, MPPIState  # noqa: F401

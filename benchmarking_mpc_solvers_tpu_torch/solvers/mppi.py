@@ -9,22 +9,25 @@ Counterpart of ``benchmarking_mpc_solvers_tpu/solvers/mppi.py``:
 
 Three tiers: ``solve`` (one scenario), ``solve_batch`` (B scenarios, through
 the fused rollout kernel ``ops/fused.py``) and ``solve_batch_tm`` (the whole
-step as one kernel, ``ops/fused_mppi.py``). Perturbations come from the
-state's ``torch.Generator`` (the kernel tier draws its own counter-based
-noise from a seed), or are injected by the caller, as the parity tests do
-with the reference's draws.
+step as one kernel, ``ops/fused_mppi.py``). ``solve`` draws from the state's
+``torch.Generator``. ``solve_batch`` draws each scenario's perturbations from
+its own counter-based stream (``scenario_normals``: the scenario's seed, its
+draw count, k, t), so they do not depend on the batch slot, as the
+reference's per-scenario keys do not. The kernel tier draws its own
+counter-based noise from one seed per call. The parity tests inject the
+reference's draws instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..device import resolve_device
 from ..ops.fused import fused_rollout_costs_tm
-from ..ops.fused_mppi import fused_mppi_step, pick_lanes
+from ..ops.fused_mppi import fused_mppi_step, pick_lanes, scenario_normals, scenario_seeds
 from ..ops.rollout import rollout_cost, rollout_cost_noisy
 from .base import Solver
 
@@ -33,6 +36,8 @@ class MPPIState(NamedTuple):
     planned_us: torch.Tensor  # (T, A), or (B, T, A) on the batched tier
     delta_u: torch.Tensor  # (K, T, A) fixed perturbations (resample=False)
     generator: torch.Generator
+    seeds: Optional[torch.Tensor] = None  # (B,) int64 noise seeds (batched tier)
+    calls: Optional[torch.Tensor] = None  # (B,) int64 draws made per scenario
 
 
 def _weights(costs, lam: float, dim: int):
@@ -84,33 +89,41 @@ class MPPI(Solver):
     # -- batched-scenario tiers ------------------------------------------------
     def init_state_batch(self, batch: int, generator: torch.Generator,
                          device="cuda") -> MPPIState:
-        """Zero (B, T, A) plans; the delta placeholder is (B, 1, 1, 1) (the
-        sample-once mode stays on the per-scenario tier)."""
+        """Zero (B, T, A) plans and one noise seed per scenario; the delta
+        placeholder is (B, 1, 1, 1) (the sample-once mode stays on the
+        per-scenario tier)."""
         device = resolve_device(device)
         planned = torch.zeros((batch, self.T, self.model.action_size),
                               dtype=torch.float32, device=device)
-        return MPPIState(planned, planned.new_zeros((batch, 1, 1, 1)), generator)
+        return MPPIState(planned, planned.new_zeros((batch, 1, 1, 1)), generator,
+                         scenario_seeds(batch, generator, device),
+                         torch.zeros((batch,), dtype=torch.int64, device=device))
 
     def solve_batch(self, state: MPPIState, xs, g_z, use_fused: bool = True,
                     delta_tm=None):
         """One MPPI step for B scenarios, xs (B, S), plans (B, T, A).
 
         Perturbations are time-major (T, B·K), column b·K + k, std-scaled:
-        ``delta_tm`` injects them (action_size == 1), else they are drawn from
-        the state's generator. With ``use_fused`` (and a scalar action) the
-        B·K rollouts go through ``fused_rollout_costs_tm``, else through the
-        plain batched rollout; both apply the same update law."""
+        ``delta_tm`` injects them (action_size == 1), else each scenario's
+        are drawn from its own stream (``scenario_normals``). With
+        ``use_fused`` (and a scalar action) the B·K rollouts go through
+        ``fused_rollout_costs_tm``, else through the plain batched rollout;
+        both apply the same update law."""
         model = self.model
         B, S = xs.shape
         K, T, A = self.K, self.T, model.action_size
         N = B * K
+        if state.seeds is None:
+            raise ValueError("solve_batch needs per-scenario seeds: make the state "
+                             "with init_state_batch")
         if delta_tm is None:
-            delta = self.std * torch.randn(
-                (B, K, T, A), generator=state.generator, device=xs.device)
+            delta = self.std * scenario_normals(state.seeds, state.calls, K, T * A).reshape(
+                B, K, T, A)
             if A == 1:
                 delta_tm = delta[..., 0].permute(2, 0, 1).reshape(T, N)
         else:
             delta = delta_tm.reshape(T, B, K).permute(1, 2, 0)[..., None]
+        state = state._replace(calls=state.calls + 1)
 
         if use_fused and A == 1:
             planned_tm = state.planned_us[..., 0].T  # (T, B)
@@ -119,14 +132,14 @@ class MPPI(Solver):
             roll = fused_rollout_costs_tm(model, x0_tm, us_tm, g_z).reshape(B, K)
             ctrl = self.lam * (us_tm * delta_tm).sum(dim=0).reshape(B, K) / self.std**2
             costs, w = _weights(roll + ctrl, self.lam, dim=1)
-            upd = torch.einsum("bk,tbk->bt", w, delta_tm.reshape(T, B, K))
+            upd = (w[None] * delta_tm.reshape(T, B, K)).sum(dim=-1).T
             planned = state.planned_us + upd[:, :, None]
         else:
             samples = state.planned_us[:, None] + delta  # (B, K, T, A)
             roll, _ = rollout_cost(model, xs[:, None], samples, g_z)
-            ctrl = self.lam * torch.einsum("bkta,bkta->bk", samples, delta) / self.std**2
+            ctrl = self.lam * (samples * delta).sum(dim=(2, 3)) / self.std**2
             costs, w = _weights(roll + ctrl, self.lam, dim=1)
-            planned = state.planned_us + torch.einsum("bk,bkta->bta", w, delta)
+            planned = state.planned_us + (w[:, :, None, None] * delta).sum(dim=1)
         return state._replace(planned_us=planned), planned[:, 0], {"sample_costs": costs}
 
     def kernel_ok(self) -> bool:

@@ -7,7 +7,8 @@ On the card (where JAX is absent, so without the suite's conftest):
 
 Tolerance rtol/atol 1e-4: both sides run float32 one IEEE operation at a
 time (the kernels are built with --fmad=false); only summation orders in
-the softmax and plan update differ.
+the softmax and plan update differ. The CEM elite masks and the Riccati
+``ok`` flags must match exactly: one swapped elite moves a plan by O(std).
 """
 
 import numpy as np
@@ -19,10 +20,22 @@ from benchmarking_mpc_solvers_tpu_torch.ops.fused import (
     fused_rollout_costs_tm,
     fused_rollout_costs_tm_reference,
 )
+from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
+    fused_cem_step,
+    fused_cem_step_reference,
+)
+from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import (
+    fused_linesearch,
+    fused_linesearch_reference,
+)
 from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
     fused_mppi_step,
     fused_mppi_step_reference,
     pick_lanes,
+)
+from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
+    riccati_backward_batch,
+    riccati_backward_batch_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +84,105 @@ def test_fused_rollout_kernel_matches_plain(dev, name):
     assert fused_rollout_costs_tm.launches == before + 1
     torch.testing.assert_close(got, fused_rollout_costs_tm_reference(model, x0, us, gz),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fused_cem_kernel_matches_plain(dev, name):
+    model = REGISTRY[name]
+    T, B, K, n_elite, max_iter = 10, 1500, 40, 5, 3
+    rng = np.random.default_rng(2)
+    plan = _t(rng.uniform(-0.5, 0.5, (T, B)), dev)
+    x0 = _t(rng.uniform(-1, 1, (model.state_size, B)), dev)
+    gz = _t(rng.uniform(-0.2, 0.2, (T, model.goal_size)), dev)
+    args = (model, K, n_elite, max_iter, 0.2, 0.9, pick_lanes(B), plan, x0, gz, 2**31 - 2)
+    before = fused_cem_step.launches
+    got, got_masks = fused_cem_step(*args, return_masks=True)
+    torch.cuda.synchronize()
+    assert fused_cem_step.launches == before + 1
+    want, want_masks = fused_cem_step_reference(*args, return_masks=True)
+    assert torch.equal(got_masks, want_masks)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _riccati_inputs(B, T, S, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    eye = np.eye(S)
+    sym = lambda m: 0.5 * (m + np.swapaxes(m, -1, -2))  # noqa: E731
+    l_uu = 0.5 + rng.uniform(size=(B, T, 1, 1))
+    l_uu[::7, T // 2] = -50.0  # every 7th scenario has a non-PD step
+    return [_t(a, dev) for a in (
+        rng.standard_normal((B, T + 1, S)), rng.standard_normal((B, T, 1)),
+        sym(rng.standard_normal((B, T + 1, S, S))) + 2.0 * eye, l_uu,
+        rng.standard_normal((B, T, 1, S)),
+        0.5 * eye + 0.1 * rng.standard_normal((B, T, S, S)),
+        rng.standard_normal((B, T, S, 1)),
+        rng.choice([0.0, 1e-3, 1.0, 32.0], size=B),
+        0.3 * rng.standard_normal((B, T, S)))]
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+@pytest.mark.parametrize("with_c", [False, True])
+def test_riccati_kernel_matches_plain(dev, S, with_c):
+    *d, mu, c = _riccati_inputs(300, 20, S, dev)
+    before = riccati_backward_batch.launches
+    got = riccati_backward_batch(*d, mu, c, check_pd=not with_c, with_c=with_c)
+    torch.cuda.synchronize()
+    assert riccati_backward_batch.launches == before + 1
+    want = riccati_backward_batch_reference(*d, mu, c, check_pd=not with_c, with_c=with_c)
+    assert torch.equal(got[2], want[2])
+    if not with_c:
+        assert 0 < int(want[2].sum()) < 300  # ok is mixed
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("with_terminal,return_states", [(False, False), (True, True)])
+def test_fused_linesearch_kernel_matches_plain(dev, name, with_terminal, return_states):
+    model = REGISTRY[name]
+    B, T, S = 700, 30, model.state_size
+    rng = np.random.default_rng(4)
+    alphas = torch.pow(1.1, -(torch.arange(10, dtype=torch.float32, device=dev) ** 2))
+    args = [alphas] + [_t(a, dev) for a in (
+        0.3 * rng.standard_normal((B, S)), 0.5 * rng.standard_normal((B, T, 1)),
+        0.3 * rng.standard_normal((B, T, 1)), 0.2 * rng.standard_normal((B, T, 1, S)),
+        0.3 * rng.standard_normal((B, T + 1, S)),
+        rng.uniform(-0.2, 0.2, (T, model.goal_size)))]
+    before = fused_linesearch.launches
+    got = fused_linesearch(model, *args, with_terminal=with_terminal,
+                           return_states=return_states)
+    torch.cuda.synchronize()
+    assert fused_linesearch.launches == before + 1
+    want = fused_linesearch_reference(model, *args, with_terminal=with_terminal,
+                                      return_states=return_states)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_cem_and_ilqr_episodes_run_on_the_card(dev, use_kernel):
+    """The batched CEM tiers and iLQR hand the kernels what they take."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR
+
+    env = CartPoleSwingUpEnv
+    cfg = EpisodeConfig(n_steps=2, warmstart=1, record_plans=False)
+    x0s = env.start_state(dev).expand(300, -1).contiguous()
+    solver = CEM(model=env.model, T=8, K=16, n_elite=4, max_iter=2)
+    res = run_episodes_fused(env, solver, cfg, x0s, use_kernel=use_kernel, device=dev)
+    assert torch.isfinite(res.costs).all()
+    res = run_episodes_fused(env, ILQR(model=env.model, T=8, max_iter=2), cfg, x0s[:50],
+                             device=dev)
+    assert torch.isfinite(res.costs).all()
+
+
+def test_model_clip_takes_cpu_bounds_on_the_card(dev):
+    """The models' clip puts 0-dim CPU bound tensors beside CUDA tensors."""
+    from benchmarking_mpc_solvers_tpu_torch.models.base import clip
+
+    x = torch.tensor([-3.0, 0.5, 3.0], device=dev)
+    torch.testing.assert_close(clip(x, -1.0, 1.0), torch.clamp(x, -1.0, 1.0))
 
 
 def test_wrapper_rejects_bad_arguments(dev):

@@ -17,7 +17,7 @@ from benchmarking_mpc_solvers_tpu_torch.experiment import (
     run_episodes_batch,
     run_episodes_fused,
 )
-from benchmarking_mpc_solvers_tpu_torch.solvers import MPPI
+from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_DIR = ROOT / "benchmarking_mpc_solvers_tpu_torch"
@@ -72,6 +72,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: run_episodes_batch(env, solver, cfg, x0s),
                  lambda: run_episode(env, solver, cfg),
                  lambda: solver.init_state(torch.Generator()),
-                 lambda: solver.init_state_batch(2, torch.Generator())):
+                 lambda: solver.init_state_batch(2, torch.Generator()),
+                 lambda: CEM(model=env.model, T=4).init_state_batch(2, torch.Generator()),
+                 lambda: ILQR(model=env.model, T=4).init_state(torch.Generator()),
+                 lambda: ILQR(model=env.model, T=4).init_state_batch(2, torch.Generator())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
