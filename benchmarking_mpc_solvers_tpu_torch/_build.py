@@ -31,7 +31,7 @@ from .models import REGISTRY
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_mppi.cu", "fused_rollout.cu", "fused_cem.cu", "riccati_backward.cu",
-           "fused_linesearch.cu")
+           "fused_linesearch.cu", "fused_derivs.cu", "admm_iterate.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -125,6 +125,10 @@ SIGNATURES = {
     "fused_linesearch_launch": (
         "fused_linesearch.cu",
         [_I] + [_P] * 10 + [_I, _I, _I, _F, _F, _I, _W, _W, _P]),
+    "fused_derivs_launch": (
+        "fused_derivs.cu", [_I] + [_P] * 11 + [_I, _I, _W, _P]),
+    "admm_iterate_launch": (
+        "admm_iterate.cu", [_P] * 5 + [_I] * 5 + [_F, _F, _F, _I, _I, _P]),
 }
 
 
@@ -158,6 +162,20 @@ def quad_weights(cost):
     w = (ctypes.c_float * (MAX_Z * MAX_Z))()
     for i, j, v in nz:
         w[i * MAX_Z + j] = v
+    return w
+
+
+def sym_weights(cost):
+    """A ``quad_cost``'s dense symmetrised weights 0.5·(W + Wᵀ) as the
+    (MAX_Z*MAX_Z,) float array ``fused_derivs`` takes (row stride MAX_Z)."""
+    W = getattr(cost, "W", None)
+    if W is None:
+        raise NotImplementedError("the kernels need a quad_cost cost")
+    Wsym = 0.5 * (W + W.T)
+    w = (ctypes.c_float * (MAX_Z * MAX_Z))()
+    for i in range(Wsym.shape[0]):
+        for j in range(Wsym.shape[1]):
+            w[i * MAX_Z + j] = float(Wsym[i, j])
     return w
 
 

@@ -17,9 +17,12 @@ from .device import default_generator, resolve_device
 from .models import REGISTRY
 from .models.base import nonzero_pairs
 from .ops.fused_mppi import scenario_seeds
+from .ops.linearize import AffineDynamics, QuadCost
 from .solvers.cem import CEMState
 from .solvers.ilqr import ILQRState
 from .solvers.mppi import MPPIState
+from .solvers.qp_mpc import QPMPCState
+from .solvers.sqp import SQPState
 
 
 def _plan_state(planned_us, generator, device):
@@ -60,6 +63,37 @@ def ilqr_state_from_numpy(planned_us, generator: Optional[torch.Generator] = Non
     ``init_state`` draw, so both packages start from the same plan."""
     planned, gen, _, _ = _plan_state(planned_us, generator, device)
     return ILQRState(planned, gen)
+
+
+def sqp_state_from_numpy(planned_us, generator: Optional[torch.Generator] = None,
+                         device="cuda") -> SQPState:
+    """SQPState from a (T, A) or (B, T, A) plan."""
+    planned, gen, _, _ = _plan_state(planned_us, generator, device)
+    return SQPState(planned, gen)
+
+
+def qpmpc_state_from_numpy(planned_us, generator: Optional[torch.Generator] = None,
+                           device="cuda") -> QPMPCState:
+    """QPMPCState from a (T, A) or (B, T, A) plan."""
+    planned, gen, _, _ = _plan_state(planned_us, generator, device)
+    return QPMPCState(planned, gen)
+
+
+def _tensors(arrays, device):
+    device = resolve_device(device)
+    return [torch.tensor(np.asarray(a, np.float32), device=device) for a in arrays]
+
+
+def affine_dynamics_from_numpy(A, B, c, device="cuda") -> AffineDynamics:
+    """The reference's ``AffineDynamics`` leaves (A, B, c), as numpy arrays
+    with any leading batch dimensions, as this package's tuple."""
+    return AffineDynamics(*_tensors((A, B, c), device))
+
+
+def quad_cost_from_numpy(Q, R, M, q, r, Qf, qf, device="cuda") -> QuadCost:
+    """The reference's ``QuadCost`` leaves, in its field order, as this
+    package's tuple."""
+    return QuadCost(*_tensors((Q, R, M, q, r, Qf, qf), device))
 
 
 def plan_tm_from_numpy(planned_tm, device="cuda") -> torch.Tensor:

@@ -189,8 +189,10 @@ def run_episodes_fused(env: Env, solver, cfg: EpisodeConfig, x0s,
     are its per-call noise seeds). Otherwise the two-stage tier runs
     ``solve_batch(use_fused=True)``: for MPPI and CEM the B·K rollouts of a
     step (of an iteration, for CEM) in one ``fused_rollout_costs_tm``
-    launch, for iLQR each iteration's backward pass and line search in one
-    launch each. ``init_plans`` (B, T, A) replaces the initial plans."""
+    launch, for iLQR and SQP each iteration's backward pass and line search
+    (and Gauss-Newton derivatives) in one launch each, for QPMPC with
+    ``method="admm"`` all ADMM iterations of a step in one launch.
+    ``init_plans`` (B, T, A) replaces the initial plans."""
     device = resolve_device(device)
     x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)
     gen = default_generator(generator, device)

@@ -1,5 +1,6 @@
 from .fused import fused_rollout_costs_tm, fused_rollout_costs_tm_reference  # noqa: F401
 from .fused_cem import fused_cem_step, fused_cem_step_reference  # noqa: F401
+from .fused_derivs import fused_derivs, fused_derivs_reference  # noqa: F401
 from .fused_linesearch import (  # noqa: F401
     fused_linesearch,
     fused_linesearch_reference,
@@ -12,10 +13,42 @@ from .fused_mppi import (  # noqa: F401
     pick_lanes,
     scenario_normals,
 )
+from .linearize import (  # noqa: F401
+    AffineDynamics,
+    QuadCost,
+    gn_point_terms,
+    gn_terminal_terms,
+    linearize_dynamics,
+    quadratize_cost,
+)
+from .qp import (  # noqa: F401
+    ADMMResult,
+    CondensedQP,
+    CondensedQPBatch,
+    admm_solve,
+    admm_solve_riccati,
+    admm_solve_riccati_batch,
+    condense,
+    condense_batch,
+    ip_solve,
+    kkt_residual,
+    qp_objective,
+)
+from .qp_admm import admm_iterate, admm_iterate_reference  # noqa: F401
+from .riccati import (  # noqa: F401
+    RiccatiFactors,
+    TVLQRPolicy,
+    riccati_factors,
+    tvlqr_backward,
+    tvlqr_rollout,
+    tvlqr_solve,
+    tvlqr_solve_linear_batch,
+)
 from .riccati_backward import (  # noqa: F401
     pallas_riccati_applicable,
     riccati_backward_batch,
     riccati_backward_batch_reference,
+    tvlqr_backward_cv,
 )
 from .rollout import (  # noqa: F401
     best_plan_by_rollout_cost,

@@ -136,3 +136,23 @@ def riccati_backward_batch(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c=None,
 
 
 riccati_backward_batch.launches = 0
+
+
+def tvlqr_backward_cv(dyn, cost):
+    """Batched drop-in for ``ops.riccati.tvlqr_backward(dyn, cost, reg=0.0)``
+    through ``riccati_backward_batch`` (the reference's ``custom_vmap``
+    dispatcher of the same name): dyn and cost carry one leading batch
+    dimension, (q, qf) and (Q, Qf) are packed into l_x and l_xx, μ = 0, no
+    PD check, and the affine residual c enters the Q-terms. Scalar action
+    only (callers gate on ``pallas_riccati_applicable``)."""
+    from .riccati import TVLQRPolicy
+
+    B = dyn.A.shape[0]
+    l_x = torch.cat([cost.q, cost.qf[:, None]], dim=1)  # (B, T+1, S)
+    l_xx = torch.cat([cost.Q, cost.Qf[:, None]], dim=1)  # (B, T+1, S, S)
+    mu = torch.zeros((B,), dtype=torch.float32, device=dyn.A.device)
+    ks, Ks, _ok = riccati_backward_batch(
+        l_x, cost.r.contiguous(), l_xx, cost.R.contiguous(), cost.M.contiguous(),
+        dyn.A.contiguous(), dyn.B.contiguous(), mu, c=dyn.c.contiguous(),
+        check_pd=False, with_c=True)
+    return TVLQRPolicy(Ks, ks)

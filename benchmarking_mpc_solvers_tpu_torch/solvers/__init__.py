@@ -2,3 +2,5 @@ from .base import Solver, StepOutput, predict_action, shift_plan, warm_start  # 
 from .cem import CEM, CEMState  # noqa: F401
 from .ilqr import ILQR, ILQRState  # noqa: F401
 from .mppi import MPPI, MPPIState  # noqa: F401
+from .qp_mpc import QPMPC, QPMPCState  # noqa: F401
+from .sqp import SQP, SQPState  # noqa: F401

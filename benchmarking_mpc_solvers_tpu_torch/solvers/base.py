@@ -32,6 +32,22 @@ class Solver:
         """One full solver invocation (the reference ``_calc_action``)."""
         raise NotImplementedError
 
+    def _init_plan(self, lead: tuple, init_std: float, generator: torch.Generator,
+                   device, noise=None):
+        """Initial plans ``lead + (T, A)``: zeros when ``init_std == 0``
+        (deterministic), else init_std·N(0, 1) clipped to the box, the
+        symmetric-equilibrium break SQP and QPMPC opt into. ``noise``, a
+        standard-normal tensor of that shape, replaces the draw."""
+        shape = tuple(lead) + (self.T, self.model.action_size)
+        if init_std <= 0.0:
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=device)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=device)
+        if noise.shape != shape:
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {shape}")
+        return self.model.clip_action(init_std * noise)
+
     @property
     def goal_size(self) -> int:
         return self.model.goal_size

@@ -1,10 +1,14 @@
 """iLQR with a Levenberg–Marquardt trust region and an all-α line search.
 
-Counterpart of ``benchmarking_mpc_solvers_tpu/solvers/ilqr.py``, default
-path (exact cost Hessians, no second-order dynamics terms):
+Counterpart of ``benchmarking_mpc_solvers_tpu/solvers/ilqr.py``, without
+second-order dynamics terms:
 
 - derivatives by ``torch.func`` (``grad``, ``hessian``, ``jacrev``) over the
   written-out (B·T) batch of (x, u) points, plus the terminal cost's at x_T;
+  with ``gauss_newton`` the cost Hessians are the PSD Gauss-Newton forms
+  2 Jᵀ W J in feature space (stage terms from ``fused_derivs`` in one launch
+  on the fused tier, else from ``gn_point_terms``), the gradients exact at
+  the terminal stage;
 - the backward Riccati recursion with μ in the gain solve only, the
   unregularised value recursion and the Q_uu > 0 check; the scalar-action
   fast path divides instead of solving;
@@ -21,13 +25,14 @@ is frozen by masking, as a vmapped ``while_loop`` freezes it. There is no
 early exit and no host sync inside the loop, so every call runs
 ``max_iter`` iterations. With ``use_fused`` (and a scalar action) the
 backward pass is ``riccati_backward_batch`` and the line search
-``fused_linesearch``: one kernel launch each per iteration on the card,
-their plain versions on the CPU. ``solve`` is ``solve_batch`` on a batch of
+``fused_linesearch`` (and with ``gauss_newton`` the stage derivatives
+``fused_derivs``): one kernel launch each per iteration on the card, their
+plain versions on the CPU. ``solve`` is ``solve_batch`` on a batch of
 one without the kernels. The reference's ``pallas_backward`` switch is this
 ``use_fused`` argument here.
 
-Not ported yet, and refused at construction: ``gauss_newton``, ``ddp``,
-``box_ddp``, ``diag_hessian`` and ``model_noise_std > 0`` (ROADMAP.md §1).
+Not ported yet, and refused at construction: ``ddp``, ``box_ddp``,
+``diag_hessian`` and ``model_noise_std > 0`` (ROADMAP.md §1 item 9a).
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ import torch
 from torch.func import grad, hessian, jacrev, vmap
 
 from ..device import resolve_device
+from ..ops.fused_derivs import fused_derivs
 from ..ops.fused_linesearch import fused_linesearch, linesearch_applicable
+from ..ops.linearize import gn_point_terms, mT, mv
 from ..ops.riccati_backward import pallas_riccati_applicable, riccati_backward_batch
 from ..ops.rollout import simulate_trajectory
 from .base import Solver
@@ -64,19 +71,10 @@ class Derivs(NamedTuple):
 
 # option -> the ROADMAP.md §1 item that ports it
 _NOT_PORTED = {
-    "gauss_newton": "item 10 (with kernel 4, fused_derivs, and SQP)",
     "ddp": "item 9a",
     "box_ddp": "item 9a",
     "diag_hessian": "item 9a",
 }
-
-
-def _mT(m):
-    return m.transpose(-1, -2)
-
-
-def _mv(m, v):
-    return (m @ v[..., None])[..., 0]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -127,12 +125,32 @@ class ILQR(Solver):
         return torch.pow(1.1, -(i**2))
 
     # -- derivative stage -------------------------------------------------------
-    def derivatives(self, xs, us, g_z) -> Derivs:
-        """Exact cost gradients/Hessians and dynamics Jacobians along xs
-        (B, T+1, S), us (B, T, A), and the terminal cost's at x_T."""
+    def derivatives(self, xs, us, g_z, use_fused: bool = False) -> Derivs:
+        """Cost gradients/Hessians and dynamics Jacobians along xs
+        (B, T+1, S), us (B, T, A), and the terminal cost's at x_T: exact, or
+        with ``gauss_newton`` the Gauss-Newton forms (the stage terms from
+        ``fused_derivs`` when ``use_fused`` and the model fits its gate)."""
         model = self.model
         B, Tp1, S = xs.shape
         T, A, Z = Tp1 - 1, us.shape[-1], g_z.shape[-1]
+        xT, g_last = xs[:, -1], g_z[-1]
+        gT = vmap(grad(model.final_cost), in_dims=(0, None))(xT, g_last)
+        if self.gauss_newton:
+            def zt(x):
+                z = model.transform(x, x.new_zeros((A,)))
+                return z, z
+
+            Jt, zT = vmap(jacrev(zt, has_aux=True))(xT)
+            Wt = vmap(hessian(model.terminal_cost), in_dims=(0, None))(zT, g_last) / 2.0
+            hT = 2.0 * mT(Jt) @ Wt @ Jt
+        else:
+            hT = vmap(hessian(model.final_cost), in_dims=(0, None))(xT, g_last)
+
+        if self.gauss_newton and use_fused and linesearch_applicable(model):
+            f_x, f_u, _c, l_xx, l_uu, l_ux, l_x, l_u = fused_derivs(
+                model, xs.contiguous(), us.contiguous(), g_z)
+            return Derivs(torch.cat([l_x, gT[:, None]], dim=1), l_u,
+                          torch.cat([l_xx, hT[:, None]], dim=1), l_uu, l_ux, f_x, f_u)
 
         def cost(xu, gz):
             return model.cost(xu[:S], xu[S:], gz)
@@ -142,13 +160,24 @@ class ILQR(Solver):
 
         xu = torch.cat([xs[:, :-1], us], dim=-1).reshape(B * T, S + A)
         gz = g_z.expand(B, T, Z).reshape(B * T, Z)
-        g = vmap(grad(cost))(xu, gz).reshape(B, T, S + A)
-        h = vmap(hessian(cost))(xu, gz).reshape(B, T, S + A, S + A)
+        if self.gauss_newton and hasattr(model.state_cost, "W"):
+            # the closed form the fused kernel computes (ops/linearize.py)
+            g, h = gn_point_terms(model, xs[:, :-1], us, g_z.expand(B, T, Z))
+        elif self.gauss_newton:
+            def z_of(v):
+                z = model.transform(v[:S], v[S:])
+                return z, z
+
+            g = vmap(grad(cost))(xu, gz).reshape(B, T, S + A)
+            J, z = vmap(jacrev(z_of, has_aux=True))(xu)
+            W = vmap(hessian(model.state_cost))(z, gz) / 2.0
+            h = (2.0 * mT(J) @ W @ J).reshape(B, T, S + A, S + A)
+        else:
+            g = vmap(grad(cost))(xu, gz).reshape(B, T, S + A)
+            h = vmap(hessian(cost))(xu, gz).reshape(B, T, S + A, S + A)
         # reverse mode: forward mode (jacfwd) carries the tangent of a 0-dim
         # tensor times a Python float in float64 in this PyTorch
         j = vmap(jacrev(dyn))(xu).reshape(B, T, S, S + A)
-        gT = vmap(grad(model.final_cost), in_dims=(0, None))(xs[:, -1], g_z[-1])
-        hT = vmap(hessian(model.final_cost), in_dims=(0, None))(xs[:, -1], g_z[-1])
         return Derivs(
             l_x=torch.cat([g[..., :S], gT[:, None]], dim=1),
             l_u=g[..., S:],
@@ -175,13 +204,13 @@ class ILQR(Solver):
             # μ·I enters the gain solve only; the value recursion below uses
             # the unregularised Q-terms (Tassa et al. 2012, eq. 10)
             V_reg = V_xx + mu[:, None, None] * eye_s
-            Q_x = d.l_x[:, t] + _mv(_mT(f_x), V_x)
-            Q_u = d.l_u[:, t] + _mv(_mT(f_u), V_x)
-            Q_xx = d.l_xx[:, t] + _mT(f_x) @ V_xx @ f_x
-            Q_uu = d.l_uu[:, t] + _mT(f_u) @ V_xx @ f_u
-            Q_ux = d.l_ux[:, t] + _mT(f_u) @ V_xx @ f_x
-            Q_uu_reg = d.l_uu[:, t] + _mT(f_u) @ V_reg @ f_u
-            Q_ux_reg = d.l_ux[:, t] + _mT(f_u) @ V_reg @ f_x
+            Q_x = d.l_x[:, t] + mv(mT(f_x), V_x)
+            Q_u = d.l_u[:, t] + mv(mT(f_u), V_x)
+            Q_xx = d.l_xx[:, t] + mT(f_x) @ V_xx @ f_x
+            Q_uu = d.l_uu[:, t] + mT(f_u) @ V_xx @ f_u
+            Q_ux = d.l_ux[:, t] + mT(f_u) @ V_xx @ f_x
+            Q_uu_reg = d.l_uu[:, t] + mT(f_u) @ V_reg @ f_u
+            Q_ux_reg = d.l_ux[:, t] + mT(f_u) @ V_reg @ f_x
             rhs = torch.cat([Q_u[..., None], Q_ux_reg], dim=-1)  # (B, A, 1+S)
             if A == 1:  # scalar action: the solve is a division, PD is q > 0
                 q00 = Q_uu_reg[:, 0, 0]
@@ -192,9 +221,9 @@ class ILQR(Solver):
                 ok_t = (info == 0) & torch.isfinite(L).flatten(1).all(dim=1)
                 kK = torch.cholesky_solve(rhs, torch.where(ok_t[:, None, None], L, eye_a))
             k, K = -kK[..., 0], -kK[..., 1:]
-            V_x = Q_x + _mv(_mT(K) @ Q_uu, k) + _mv(_mT(K), Q_u) + _mv(_mT(Q_ux), k)
-            V_xx = Q_xx + _mT(K) @ Q_uu @ K + _mT(K) @ Q_ux + _mT(Q_ux) @ K
-            V_xx = 0.5 * (V_xx + _mT(V_xx))
+            V_x = Q_x + mv(mT(K) @ Q_uu, k) + mv(mT(K), Q_u) + mv(mT(Q_ux), k)
+            V_xx = Q_xx + mT(K) @ Q_uu @ K + mT(K) @ Q_ux + mT(Q_ux) @ K
+            V_xx = 0.5 * (V_xx + mT(V_xx))
             ks[t], Ks[t] = k, K
             ok = ok & ok_t
         return torch.stack(ks, dim=1), torch.stack(Ks, dim=1), ok
@@ -212,7 +241,7 @@ class ILQR(Solver):
         alpha = alphas[:, None, None]
         xs_hat, us_hat = [x], []
         for t in range(T):
-            u = us[:, t] + alpha * ks[:, t] + _mv(Ks[:, t], x - xs[:, t])
+            u = us[:, t] + alpha * ks[:, t] + mv(Ks[:, t], x - xs[:, t])
             u = model.clip_action(u)
             x, c = model.step_and_cost(x, u, g_z[t])
             cost = cost + c
@@ -248,7 +277,7 @@ class ILQR(Solver):
         xs, cost = simulate_trajectory(model, x0s, us, g_z)
         if self._terminal_in_objective:
             cost = cost + model.final_cost(xs[:, -1], g_z[-1])
-        d = self.derivatives(xs, us, g_z)
+        d = self.derivatives(xs, us, g_z, use_fused)
         if use_fused and pallas_riccati_applicable(S, A):
             ks, Ks, bp_ok = riccati_backward_batch(*(t.contiguous() for t in d), mu)
         else:

@@ -17,9 +17,18 @@ Phases (any failure exits non-zero before the result line):
      max_iter=3, T=50, B=10240, 10 MPC steps) on both tiers;
    - iLQR, the batched configuration (cart-pole swing-up, T=100,
      max_iter=5, reference_accept=False, B=1024, warm start 10, 20 MPC
-     steps) through the Riccati and line-search kernels;
-   plus small MPPI, CEM and iLQR episodes on the card against the plain
-   versions on the CPU, and a short swing-up progress check.
+     steps) through the Riccati and line-search kernels, with exact
+     Hessians and again with gauss_newton=True (then also the derivative
+     kernel);
+   - SQP, the suite's configuration 4 (acrobot, T=100, max_iter=4, B=1024,
+     20 MPC steps from [0.1, 0, 0.2, 0]) through the derivative, Riccati
+     and line-search kernels;
+   - QP-MPC, the suite's configuration 1 (pendulum, T=20, condensed ADMM,
+     100 iterations, B=512, 50 MPC steps) through the ADMM kernel, and
+     configuration 2 (cart-pole stabilisation, T=50, Riccati-ADMM, 60
+     iterations, B=256, 40 MPC steps), which is plain PyTorch;
+   plus small MPPI, CEM, iLQR, SQP and QP-MPC episodes on the card against
+   the plain versions on the CPU, and a short swing-up progress check.
 5. timings with CUDA events: each kernel, its plain version and its bound;
    host-clock episode solves/s of every path; device time by kernel.
 Then a ``kernels`` JSON line, and as the last line
@@ -44,6 +53,13 @@ HORIZON, K_SAMPLES, BATCH, N_STEPS = 50, 32, 8192, 20
 # (scripts/bench_suite.py:216-223) of the reference's suite
 CEM_T, CEM_K, CEM_ELITE, CEM_ITERS, CEM_B, CEM_STEPS = 50, 64, 8, 3, 10240, 10
 ILQR_T, ILQR_ITERS, ILQR_B, ILQR_WARM, ILQR_STEPS, N_ALPHAS = 100, 5, 1024, 10, 20, 10
+# SQP configuration 4 and the QP-MPC configurations 1 and 2
+# (scripts/bench_suite.py:225-238, :168-177, :179-214)
+SQP_T, SQP_ITERS, SQP_B, SQP_STEPS, SQP_START = 100, 4, 1024, 20, (0.1, 0.0, 0.2, 0.0)
+QP1_T, QP1_ITERS, QP1_B, QP1_STEPS = 20, 100, 512, 50
+QP2_T, QP2_ITERS, QP2_B, QP2_STEPS, QP2_START = 50, 60, 256, 40, (0.3, 0.0, 0.4, 0.0)
+QP2_WEIGHTS = dict(goal_x=(0.0, 0.0, 0.0, 0.0), R=((0.1,),),
+                   Q=((0.5, 0, 0, 0), (0, 0.1, 0, 0), (0, 0, 5.0, 0), (0, 0, 0, 0.5)))
 
 # Kernel-vs-plain tolerance. Both sides run float32 one IEEE operation at a
 # time (the kernels are built with --fmad=false and accurate libm calls), so
@@ -51,6 +67,12 @@ ILQR_T, ILQR_ITERS, ILQR_B, ILQR_WARM, ILQR_STEPS, N_ALPHAS = 100, 5, 1024, 10, 
 # trees vs sequential sums) in the softmax and the plan update, ~1e-6
 # relative. 1e-4 leaves room for a rollout that rounds differently near a
 # branch of a clamp or floor-mod.
+# The derivative kernel pushes forward-mode tangents through the model where
+# its plain version differentiates in reverse mode: the same float32
+# formulas in another order, a few ulps of the largest term of each sum,
+# inside the same tolerance (the reference holds its kernel to 1e-5 at
+# O(1) inputs). The ADMM kernel sums its matvec in the plain version's
+# order and must match it bit for bit.
 RTOL, ATOL = 1e-4, 1e-4
 # Card vs CPU episodes of CEM and iLQR: the card's and the CPU's libm round
 # sin/cos/log apart by an ulp; CEM's std = sqrt(m2 − m1²) of nearly equal
@@ -58,6 +80,10 @@ RTOL, ATOL = 1e-4, 1e-4
 # test (best < nominal within one ulp) can fall either way, a step of
 # ~1e-3 (tests/test_torch_cem.py, tests/test_torch_ilqr.py).
 CEM_EPISODE_TOL, ILQR_EPISODE_TOL = 1e-3, 2e-3
+# SQP's accept test and argmin over alpha tie like iLQR's
+# (tests/test_torch_sqp.py); QP-MPC's condensed H is factorized by another
+# Cholesky routine on the card than on the CPU (tests/test_torch_qp_mpc.py)
+SQP_EPISODE_TOL, QP_EPISODE_TOL = 2e-3, 1e-3
 
 # FP32 operations per rollout step, counted by hand from csrc/models.cuh
 # (each add, mul, div, clamp compare and each libm call counted once, so
@@ -82,6 +108,9 @@ CEM_SAMPLE_OPS, CEM_MOMENT_OPS, CEM_UPDATE_OPS, CEM_SELECT_OPS = 4, 5, 10, 4
 # sum_i K_i*(x_i - xref_i) (3S), us + alpha*ks + fb (3), the clip (2); the
 # terminal cost, once per candidate, is left out (under 0.3 % of the ops)
 LS_EXTRA = lambda S: 3 * S + 5  # noqa: E731
+# ADMM, from csrc/admm_iterate.cu, per row and iteration: the matvec 2n, then
+# v = rho*(z-y)-g (3), u' (3), +y (1), the clip (2), y+ (2)
+ADMM_ROW_OPS = lambda n: 2 * n + 11  # noqa: E731
 PEAK_FP32 = 67e12  # H100 SXM FP32 (non-tensor) FLOP/s, published, at 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
@@ -102,6 +131,23 @@ def riccati_ops(S: int) -> int:
             + 6 * S                 # V_x
             + 7 * S * S             # V_xx before symmetrising
             + 2 * S * S)            # symmetrising
+
+
+def derivs_ops(model) -> int:
+    """FP32 operations fused_derivs needs per point, a lower bound counted
+    from csrc/fused_derivs.cu: one primal pass of dynamics + transform (the
+    rollout step without its cost and running sum), S+1 tangent pushes of
+    at least as many operations each, the residual c, and the Gauss-Newton
+    products over the nonzero entries of W_sym."""
+    S = model.state_size
+    D = Z = S + 1
+    W = np.asarray(model.state_cost.W)
+    Wsym = 0.5 * (W + W.T)
+    nnz, rows = int((Wsym != 0).sum()), int((Wsym != 0).any(axis=1).sum())
+    cost_ops = 4 * len(model.state_cost.nz) + 2
+    primal = STEP_OPS[model.name] - cost_ops - 1
+    gn = (Z + 2 * nnz) + D * (2 * rows + 1) + D * (2 * nnz + D * (2 * rows + 1))
+    return (1 + D) * primal + 2 * S * D + gn
 
 
 def fail(msg: str):
@@ -125,10 +171,12 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def episode_seconds(run, reps: int):
+def episode_seconds(run, reps: int, warmup: bool = True):
     """Host-clock times of whole episodes, each ending in a synchronise,
-    after one untimed warm-up episode."""
-    run()
+    after one untimed warm-up episode (left out for the long episodes that
+    the launch-count run has already warmed)."""
+    if warmup:
+        run()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -197,13 +245,15 @@ def profile_window(label, smi, fn):
         key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
     if busy_ms > 0:
+        n_kernels = sum(r[2] for r in by_kernel)
         print(f"[{smi}] profiled {label}: wall {wall_ms:.2f} ms, device busy "
               f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
-              f"{sum(r[2] for r in by_kernel)} device kernels", flush=True)
+              f"{n_kernels} device kernels", flush=True)
         for key, ms, count in by_kernel[:6]:
             print(f"  {ms:8.3f} ms  x{count:<6d} {key[:90]}", flush=True)
-    else:
-        print(f"profiled {label}: no device time recorded (not measured)", flush=True)
+        return n_kernels
+    print(f"profiled {label}: no device time recorded (not measured)", flush=True)
+    return None
 
 
 def report_episodes(smi, label, times, batch, steps):
@@ -236,29 +286,37 @@ def main():
     t_start = time.perf_counter()
 
     from benchmarking_mpc_solvers_tpu_torch import _build
-    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv, PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.envs import (
+        AcrobotEnv, CartPoleSwingUpEnv, PendulumEnv)
     from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
     from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
     from benchmarking_mpc_solvers_tpu_torch.ops.fused import (
         fused_rollout_costs_tm, fused_rollout_costs_tm_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
         fused_cem_step, fused_cem_step_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_derivs import (
+        fused_derivs, fused_derivs_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import (
         fused_linesearch, fused_linesearch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
         fused_mppi_step, fused_mppi_step_reference, pick_lanes)
+    from benchmarking_mpc_solvers_tpu_torch.ops.qp import condense_batch
+    from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import (
+        admm_iterate, admm_iterate_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
         riccati_backward_batch, riccati_backward_batch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
-    from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI
+    from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI, QPMPC, SQP
+    from benchmarking_mpc_solvers_tpu_torch.solvers.qp_mpc import _chol_inv
 
     counters = (fused_mppi_step, fused_rollout_costs_tm, fused_cem_step,
-                riccati_backward_batch, fused_linesearch)
+                riccati_backward_batch, fused_linesearch, fused_derivs, admm_iterate)
 
     def reset_counts():
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
+        admm_iterate.plain_calls = 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -390,6 +448,83 @@ def main():
                 if name == "cartpole_swingup" and with_terminal and not return_states:
                     errs["fused_linesearch"] = e  # the iLQR main path's flags
 
+    # derivatives: every model at SQP's shape along rolled-out trajectories
+    # (some controls on the action bounds), and a ragged batch of uniform
+    # states (for the pendulum, angles on both sides of the wrap)
+    def derivs_inputs(model, B, T, seed, rolled):
+        rng = np.random.default_rng(seed)
+        S = model.state_size
+        hi = float(model.bounds_high[0])
+        us = rng.uniform(-1.2, 1.2, (B, T, 1)).astype(np.float32) * (0.3 * hi if rolled else hi)
+        us[::7, ::5], us[1::7, ::5] = hi, -hi
+        us = torch.from_numpy(np.clip(us, -hi, hi)).to(dev)
+        gz = torch.from_numpy(rng.uniform(-0.2, 0.2, (T, S + 1)).astype(np.float32)).to(dev)
+        if rolled:
+            x0 = torch.from_numpy((0.3 * rng.standard_normal((B, S))).astype(np.float32)).to(dev)
+            xs, _ = simulate_trajectory(model, x0, us, gz)
+        else:
+            span = 4.0 if model.name == "pendulum" else 1.2
+            xs = torch.from_numpy(
+                rng.uniform(-span, span, (B, T + 1, S)).astype(np.float32)).to(dev)
+        return xs.contiguous(), us.contiguous(), gz
+
+    derivs_names = ("A", "Bd", "c", "Q", "R", "M", "q", "r")
+    for name in ("acrobot", "cartpole_swingup", "pendulum"):
+        model = REGISTRY[name]
+        for B, T, rolled in ((SQP_B, SQP_T, True), (999, 37, False)):
+            inputs = derivs_inputs(model, B, T, 9, rolled)
+            got, want = fused_derivs(model, *inputs), fused_derivs_reference(model, *inputs)
+            label = (f"fused_derivs[{name}, B={B}, T={T}, "
+                     f"{'rolled-out' if rolled else 'uniform'} states]")
+            e = max(compare(f"{label} {key}", g, w) for key, g, w in zip(derivs_names, got, want))
+            if name == "acrobot" and rolled:
+                errs["fused_derivs"] = e  # the SQP main path's model and shape
+
+    # ADMM: the shared layout on configuration 1's own problem (pendulum,
+    # n=20, B=512), then random SPD problems per problem (n=20 and n=50),
+    # ragged batches, bounds per problem
+    def qp1_problem(B):
+        solver = QPMPC(model=PendulumEnv.model, T=QP1_T, method="admm", iters=QP1_ITERS)
+        xs = PendulumEnv.start_state(dev).expand(B, -1) + 0.3 * torch.randn(
+            (B, 2), generator=torch.Generator(device=dev).manual_seed(10), device=dev)
+        Q, R, Qf = solver._weights(dev)
+        model = PendulumEnv.model
+        qp = condense_batch(solver._linearize(xs[0]), xs, Q, R, Qf, solver._goal_state(dev),
+                            torch.zeros((1,), device=dev), model.lo(dev), model.hi(dev))
+        eye = torch.eye(QP1_T, device=dev)
+        return _chol_inv(qp.H + solver.rho * eye).contiguous(), qp.g.contiguous(), qp.lo, qp.hi
+
+    def random_qps(B, n, per_problem, per_bounds, seed):
+        rng = np.random.default_rng(seed)
+        a = rng.standard_normal(((B,) if per_problem else ()) + (n, n))
+        H = a @ np.swapaxes(a, -1, -2) / n + np.eye(n)
+        shape = (B, n) if per_bounds else (n,)
+        arrays = (np.linalg.inv(H + np.eye(n)), 2.0 * rng.standard_normal((B, n)),
+                  -rng.uniform(0.2, 1.0, shape), rng.uniform(0.2, 1.0, shape))
+        return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+    admm_main = qp1_problem(QP1_B)
+    admm_cases = [(f"shared, configuration 1, n={QP1_T}, B={QP1_B}", admm_main, QP1_ITERS),
+                  (f"shared, configuration 1, n={QP1_T}, ragged B=509", qp1_problem(509), QP1_ITERS),
+                  ("per problem, n=20, B=512", random_qps(512, 20, True, False, 11), 100),
+                  ("per problem, n=20, ragged B=509, bounds per problem",
+                   random_qps(509, 20, True, True, 12), 100),
+                  ("per problem, n=50, B=256", random_qps(256, 50, True, False, 13), 60),
+                  ("per problem, n=50, ragged B=251, bounds per problem",
+                   random_qps(251, 50, True, True, 14), 60),
+                  ("shared, n=50, ragged B=251", random_qps(251, 50, False, False, 15), 60)]
+    for label, args, iters in admm_cases:
+        got = admm_iterate(*args, iters=iters)
+        want = admm_iterate_reference(*args, iters=iters)
+        exact(f"admm_iterate[{label}, {iters} iterations]", got, want)
+        at_bound = float(((want == args[2]) | (want == args[3])).float().mean())
+        print(f"  {100 * at_bound:.1f} % of its variables end on a bound", flush=True)
+        if not bool(((got >= args[2]) & (got <= args[3])).all()):
+            fail(f"admm_iterate[{label}]: iterate outside the box")
+    errs["admm_iterate"] = (0.0, 0.0)  # bit-identical, checked above
+    if admm_iterate.plain_calls:
+        fail("admm_iterate took the plain loop at a size the kernel holds")
+
     # 4. main paths
     launches = {}
     env = CartPoleSwingUpEnv
@@ -413,6 +548,8 @@ def main():
         want.update(expect)
         if got != want:
             fail(f"{label}: launches {got}, expected {want}")
+        if admm_iterate.plain_calls:
+            fail(f"{label}: admm_iterate took the plain loop {admm_iterate.plain_calls} times")
         if not torch.isfinite(res.costs).all():
             fail(f"{label}: episode costs not finite")
         launches[label] = got
@@ -464,6 +601,95 @@ def main():
     print(f"ilqr: one solve from the initial plans accepted a step in {int((~kept).sum())} of "
           f"{ILQR_B} scenarios", flush=True)
 
+    # the same configuration with Gauss-Newton Hessians: the stage
+    # derivatives come from fused_derivs, one more launch per iteration
+    ilqr_gn = ILQR(model=env.model, T=ILQR_T, max_iter=ILQR_ITERS, reference_accept=False,
+                   gauss_newton=True)
+
+    def ilqr_gn_episode():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return run_episodes_fused(env, ilqr_gn, ilqr_cfg, ilqr_x0s, generator=gen, device=dev)
+
+    run_path("ilqr gauss-newton", ilqr_gn_episode,
+             {"fused_derivs": ilqr_iters, "riccati_backward_batch": ilqr_iters,
+              "fused_linesearch": ilqr_iters})
+    out_gn = ilqr_gn.solve_batch(st, ilqr_x0s,
+                                 torch.zeros((ILQR_T, env.model.goal_size), device=dev))[0]
+    kept_gn = ((out_gn.planned_us == st.planned_us).flatten(1).all(dim=1)
+               | (out_gn.planned_us == env.model.clip_action(st.planned_us)).flatten(1).all(dim=1))
+    print(f"ilqr gauss-newton: one solve from the same initial plans accepted a step in "
+          f"{int((~kept_gn).sum())} of {ILQR_B} scenarios (exact Hessians: "
+          f"{int((~kept).sum())})", flush=True)
+
+    # why neither accepts: the backward pass's Q_uu > 0 test on the initial
+    # plans, with Gauss-Newton derivatives, at the largest mu
+    gz3 = torch.zeros((ILQR_T, env.model.goal_size), device=dev)
+    xs3, _ = simulate_trajectory(env.model, ilqr_x0s, st.planned_us, gz3)
+    d_gn = [t.contiguous() for t in ilqr_gn.derivatives(xs3, st.planned_us, gz3, True)]
+    ok_gn = riccati_backward_batch(*d_gn, torch.full((ILQR_B,), ilqr_gn.mu_max, device=dev))[2]
+    beyond = (st.planned_us.abs() > 1.0).flatten(1)
+    zero_quu = ((d_gn[3][:, :, 0, 0] == 0) & (d_gn[6].abs().sum(dim=(2, 3)) == 0))
+    print(f"ilqr gauss-newton: backward pass ok at mu={ilqr_gn.mu_max:g} in {int(ok_gn.sum())} of "
+          f"{ILQR_B}; {100 * float(beyond.float().mean()):.1f} % of the initial plans' controls "
+          f"lie beyond the action bounds, {int(zero_quu.any(dim=1).sum())} of {ILQR_B} plans "
+          f"have a step with l_uu = 0 and f_u = 0 (Q_uu = 0 at any mu), and the terminal "
+          f"Hessian's smallest diagonal entry is negative in "
+          f"{int((d_gn[2][:, -1].diagonal(dim1=-2, dim2=-1).min(dim=1).values < 0).sum())} "
+          f"of {ILQR_B}", flush=True)
+
+    # SQP, configuration 4: acrobot, every scenario from the same start
+    sqp = SQP(model=AcrobotEnv.model, T=SQP_T, max_iter=SQP_ITERS)
+    sqp_cfg = EpisodeConfig(n_steps=SQP_STEPS, record_plans=False)
+    sqp_x0s = torch.tensor(SQP_START, device=dev).expand(SQP_B, -1).contiguous()
+
+    def sqp_episode():
+        return run_episodes_fused(AcrobotEnv, sqp, sqp_cfg, sqp_x0s, device=dev)
+
+    sqp_iters = SQP_STEPS * SQP_ITERS
+    res = run_path("sqp", sqp_episode,
+                   {"fused_derivs": sqp_iters, "riccati_backward_batch": sqp_iters,
+                    "fused_linesearch": sqp_iters})
+    if res.costs.shape != (SQP_B, SQP_STEPS) or float(res.true_actions.abs().max()) > 1.0:
+        fail("sqp: episode misshapen or an action outside the box")
+    # the reference's own check of an SQP solve (tests/test_qp.py): the plan
+    # it returns rolls out cheaper than the plan it started from
+    sqp_gz = torch.zeros((SQP_T, AcrobotEnv.model.goal_size), device=dev)
+    sqp_st = sqp.init_state_batch(SQP_B, torch.Generator(device=dev).manual_seed(0), dev)
+    _, cost0 = simulate_trajectory(AcrobotEnv.model, sqp_x0s, sqp_st.planned_us, sqp_gz)
+    solved = sqp.solve_batch(sqp_st, sqp_x0s, sqp_gz)[0]
+    _, cost1 = simulate_trajectory(AcrobotEnv.model, sqp_x0s, solved.planned_us, sqp_gz)
+    print(f"sqp: one solve takes the plan's rollout cost from {float(cost0.mean()):.3f} to "
+          f"{float(cost1.mean()):.3f} (mean of {SQP_B})", flush=True)
+    if not bool((cost1 < cost0).all()):
+        fail("sqp: a solve did not improve the plan's rollout cost")
+
+    # QP-MPC, configuration 1 (the ADMM kernel, shared layout) and
+    # configuration 2 (Riccati-ADMM, plain PyTorch)
+    qp1 = QPMPC(model=PendulumEnv.model, T=QP1_T, method="admm", iters=QP1_ITERS)
+    qp1_cfg = EpisodeConfig(n_steps=QP1_STEPS, record_plans=False)
+    qp1_x0s = PendulumEnv.start_state(dev).expand(QP1_B, -1).contiguous()
+
+    def qp1_episode():
+        return run_episodes_fused(PendulumEnv, qp1, qp1_cfg, qp1_x0s, device=dev)
+
+    res = run_path("qpmpc configuration 1", qp1_episode, {"admm_iterate": QP1_STEPS})
+    if float(res.true_actions.abs().max()) > 2.0:
+        fail("qpmpc configuration 1: an action outside the box")
+    qp2 = QPMPC(model=env.model, T=QP2_T, iters=QP2_ITERS, **QP2_WEIGHTS)
+    qp2_cfg = EpisodeConfig(n_steps=QP2_STEPS, record_plans=False)
+    qp2_x0s = torch.tensor(QP2_START, device=dev).expand(QP2_B, -1).contiguous()
+
+    def qp2_episode():
+        return run_episodes_fused(env, qp2, qp2_cfg, qp2_x0s, device=dev)
+
+    res = run_path("qpmpc configuration 2", qp2_episode, {})
+    final_theta = float(res.true_states[:, -1, 2].abs().max())
+    print(f"qpmpc configuration 2: max final pole angle {final_theta:.4f} rad from "
+          f"{QP2_START[2]} rad, max |action| {float(res.true_actions.abs().max()):.4f}",
+          flush=True)
+    if not final_theta < QP2_START[2] or float(res.true_actions.abs().max()) > 1.0:
+        fail("qpmpc configuration 2: the pole was not brought towards upright within the box")
+
     # small episodes on the card against the plain versions on the CPU
     def small_match(label, tol, run):
         on_card, on_cpu = run(dev), run("cpu")
@@ -488,6 +714,18 @@ def main():
     small_match("ilqr", ILQR_EPISODE_TOL, lambda d: run_episodes_fused(
         env, ILQR(model=env.model, T=10, max_iter=3, reference_accept=False), small_cfg,
         xs_small[:8].to(d), init_plans=plans, device=d))
+
+    sqp_small = torch.tensor(SQP_START).expand(8, -1) + 0.02 * torch.from_numpy(
+        np.random.default_rng(5).standard_normal((8, 4)).astype(np.float32))
+    small_match("sqp", SQP_EPISODE_TOL, lambda d: run_episodes_fused(
+        AcrobotEnv, SQP(model=AcrobotEnv.model, T=10, max_iter=3), small_cfg, sqp_small.to(d),
+        device=d))
+    qp_small = torch.tensor([0.4, -0.3]).expand(8, -1) + 0.1 * torch.from_numpy(
+        np.random.default_rng(6).standard_normal((8, 2)).astype(np.float32))
+    for mode in ("goal", "state"):
+        small_match(f"qpmpc admm at {mode}", QP_EPISODE_TOL, lambda d: run_episodes_fused(
+            PendulumEnv, QPMPC(model=PendulumEnv.model, T=10, method="admm", iters=40,
+                               linearize_at=mode), small_cfg, qp_small.to(d), device=d))
 
     # swing-up progress on the kernel tier (the reference's own check)
     penv = PendulumEnv
@@ -562,6 +800,36 @@ def main():
              + N_ALPHAS * ILQR_B * (ILQR_T + 1)),
         ls_steps * (STEP_OPS[model.name] + LS_EXTRA(S)))
 
+    # kernel 4 at SQP's shape and model (acrobot), kernel 7 at configuration 1's
+    acro = AcrobotEnv.model
+    dv_in = derivs_inputs(acro, SQP_B, SQP_T, 9, True)
+    ms["fused_derivs"] = cuda_time_ms(lambda: fused_derivs(acro, *dv_in))
+    plain_ms["fused_derivs"] = cuda_time_ms(lambda: fused_derivs_reference(acro, *dv_in),
+                                            reps=3, warmup=1)
+    Sa = acro.state_size
+    pts = SQP_B * SQP_T
+    bounds["fused_derivs"] = bound(
+        4 * (pts * (Sa + 1) + SQP_T * (Sa + 1) + pts * (2 * Sa * Sa + 4 * Sa + 2)),
+        pts * derivs_ops(acro))
+    print(f"fused_derivs: {derivs_ops(acro)} operations per acrobot point, {pts} points",
+          flush=True)
+    dv_cart = derivs_inputs(model, ILQR_B, ILQR_T, 9, True)
+    print(f"[{smi}] fused_derivs on cart-pole (the Gauss-Newton iLQR path), B={ILQR_B}, "
+          f"T={ILQR_T}: kernel {cuda_time_ms(lambda: fused_derivs(model, *dv_cart)):.4f} ms",
+          flush=True)
+
+    ms["admm_iterate"] = cuda_time_ms(lambda: admm_iterate(*admm_main, iters=QP1_ITERS))
+    plain_ms["admm_iterate"] = cuda_time_ms(
+        lambda: admm_iterate_reference(*admm_main, iters=QP1_ITERS), reps=3, warmup=1)
+    n = QP1_T
+    bounds["admm_iterate"] = bound(4 * (n * n + 2 * QP1_B * n + 2 * n),
+                                   QP1_B * QP1_ITERS * n * ADMM_ROW_OPS(n))
+    pp = random_qps(256, 50, True, False, 13)
+    print(f"[{smi}] admm_iterate per problem, n=50, B=256, 60 iterations: kernel "
+          f"{cuda_time_ms(lambda: admm_iterate(*pp, iters=60)):.4f} ms, plain "
+          f"{cuda_time_ms(lambda: admm_iterate_reference(*pp, iters=60), reps=3, warmup=1):.3f} "
+          f"ms", flush=True)
+
     for name in ms:
         print(f"[{smi}] {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
@@ -576,7 +844,18 @@ def main():
         "cem two-stage tier": report_episodes(smi, "cem two-stage tier", episode_seconds(
             lambda: cem_episode(False), 4), CEM_B, CEM_STEPS),
         "ilqr": report_episodes(smi, f"ilqr (warm start {ILQR_WARM} in the time)",
-                                episode_seconds(ilqr_episode, 3), ILQR_B, ILQR_STEPS),
+                                episode_seconds(ilqr_episode, 2, warmup=False),
+                                ILQR_B, ILQR_STEPS),
+        "ilqr gauss-newton": report_episodes(
+            smi, f"ilqr gauss-newton (warm start {ILQR_WARM} in the time)",
+            episode_seconds(ilqr_gn_episode, 2, warmup=False), ILQR_B, ILQR_STEPS),
+        "sqp": report_episodes(smi, "sqp", episode_seconds(sqp_episode, 3, warmup=False),
+                               SQP_B, SQP_STEPS),
+        "qpmpc configuration 1": report_episodes(
+            smi, "qpmpc configuration 1", episode_seconds(qp1_episode, 5), QP1_B, QP1_STEPS),
+        "qpmpc configuration 2": report_episodes(
+            smi, "qpmpc configuration 2", episode_seconds(qp2_episode, 2, warmup=False),
+            QP2_B, QP2_STEPS),
     }
 
     profile_window("mppi kernel-tier episode", smi, mppi_episode)
@@ -586,6 +865,15 @@ def main():
     gz = torch.zeros((ILQR_T, Z), device=dev)
     profile_window(f"ilqr solve (one MPC step, {ILQR_ITERS} iterations)", smi,
                    lambda: ilqr.solve_batch(st, ilqr_x0s, gz))
+    qp1_st = qp1.init_state_batch(QP1_B, torch.Generator(device=dev).manual_seed(0), dev)
+    qp1_gz = torch.zeros((QP1_T, PendulumEnv.model.goal_size), device=dev)
+    profile_window("qpmpc configuration 1 solve (one MPC step)", smi,
+                   lambda: qp1.solve_batch(qp1_st, qp1_x0s, qp1_gz))
+    n_kernels = profile_window(f"sqp solve (one MPC step, {SQP_ITERS} iterations)", smi,
+                               lambda: sqp.solve_batch(sqp_st, sqp_x0s, sqp_gz))
+    if n_kernels:
+        print(f"sqp solve: {n_kernels / SQP_ITERS:.0f} device kernels per iteration (the one "
+              f"nominal rollout of the solve shared out over them)", flush=True)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s", flush=True)
 
     sources = {
@@ -596,6 +884,8 @@ def main():
                                    "benchmarking_mpc_solvers_tpu/ops/riccati_pallas.py:107"),
         "fused_linesearch": ("fused_linesearch.cu",
                              "benchmarking_mpc_solvers_tpu/ops/fused_linesearch.py:122"),
+        "fused_derivs": ("fused_derivs.cu", "benchmarking_mpc_solvers_tpu/ops/fused_derivs.py:86"),
+        "admm_iterate": ("admm_iterate.cu", "benchmarking_mpc_solvers_tpu/ops/qp_pallas.py:148"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

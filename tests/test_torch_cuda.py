@@ -9,6 +9,10 @@ Tolerance rtol/atol 1e-4: both sides run float32 one IEEE operation at a
 time (the kernels are built with --fmad=false); only summation orders in
 the softmax and plan update differ. The CEM elite masks and the Riccati
 ``ok`` flags must match exactly: one swapped elite moves a plan by O(std).
+The derivative kernel pushes forward-mode tangents where its plain version
+differentiates in reverse mode: the same formulas in another order, well
+inside 1e-4. The ADMM kernel sums its matvec in the plain version's order
+and must match it bit for bit.
 """
 
 import numpy as np
@@ -24,6 +28,10 @@ from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
     fused_cem_step,
     fused_cem_step_reference,
 )
+from benchmarking_mpc_solvers_tpu_torch.ops.fused_derivs import (
+    fused_derivs,
+    fused_derivs_reference,
+)
 from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import (
     fused_linesearch,
     fused_linesearch_reference,
@@ -32,6 +40,10 @@ from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
     fused_mppi_step,
     fused_mppi_step_reference,
     pick_lanes,
+)
+from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import (
+    admm_iterate,
+    admm_iterate_reference,
 )
 from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
     riccati_backward_batch,
@@ -157,6 +169,87 @@ def test_fused_linesearch_kernel_matches_plain(dev, name, with_terminal, return_
                                       return_states=return_states)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fused_derivs_kernel_matches_plain(dev, name):
+    model = REGISTRY[name]
+    B, T, S = 300, 17, model.state_size
+    rng = np.random.default_rng(5)
+    xs = rng.uniform(-1.2, 1.2, (B, T + 1, S))
+    us = rng.uniform(-1.0, 1.0, (B, T, 1))
+    us[::7, 0], us[1::7, 1] = model.bounds_high[0], model.bounds_low[0]  # on the bounds
+    if name == "pendulum":
+        xs[0, :4, 0] = [np.pi - 0.01, np.pi + 0.01, -np.pi + 0.01, -np.pi - 0.01]
+    args = [_t(a, dev) for a in (xs, us, rng.uniform(-0.2, 0.2, (T, model.goal_size)))]
+    before = fused_derivs.launches
+    got = fused_derivs(model, *args)
+    torch.cuda.synchronize()
+    assert fused_derivs.launches == before + 1
+    for g, w in zip(got, fused_derivs_reference(model, *args)):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,B,per_problem,per_bounds", [
+    (20, 512, False, False), (20, 509, True, True), (50, 251, True, False),
+    (50, 256, False, True), (240, 3, True, False)])
+def test_admm_kernel_matches_plain(dev, n, B, per_problem, per_bounds):
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal(((B,) if per_problem else ()) + (n, n))
+    H = a @ np.swapaxes(a, -1, -2) / n + np.eye(n)
+    Minv = _t(np.linalg.inv(H + np.eye(n)), dev)
+    g = _t(2.0 * rng.standard_normal((B, n)), dev)
+    shape = (B, n) if per_bounds else (n,)
+    lo, hi = _t(-rng.uniform(0.2, 1.0, shape), dev), _t(rng.uniform(0.2, 1.0, shape), dev)
+    before = admm_iterate.launches, admm_iterate.plain_calls
+    got = admm_iterate(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=60)
+    torch.cuda.synchronize()
+    assert (admm_iterate.launches, admm_iterate.plain_calls) == (before[0] + 1, before[1])
+    want = admm_iterate_reference(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=60)
+    assert torch.equal(got, want)
+    assert bool(((got >= lo) & (got <= hi)).all())
+
+
+def test_admm_above_the_shared_memory_budget_takes_the_plain_loop(dev):
+    """n = 241 does not fit one block's shared memory: the size rule, and
+    only it, sends the call to the plain loop, and says so in its count."""
+    n, B = 241, 2
+    Minv = torch.eye(n, device=dev) * 0.5
+    g = torch.ones((B, n), device=dev)
+    before = admm_iterate.launches, admm_iterate.plain_calls
+    z = admm_iterate(Minv, g, -torch.ones(n, device=dev), torch.ones(n, device=dev), iters=3)
+    assert (admm_iterate.launches, admm_iterate.plain_calls) == (before[0], before[1] + 1)
+    assert z.shape == (B, n) and z.is_cuda
+
+
+def test_sqp_and_qpmpc_episodes_run_on_the_card(dev):
+    """SQP, Gauss-Newton iLQR and QP-MPC hand the kernels what they take."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import AcrobotEnv, PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.solvers import ILQR, QPMPC, SQP
+
+    cfg = EpisodeConfig(n_steps=2, record_plans=False)
+    x0s = torch.tensor([0.1, 0.0, 0.2, 0.0], device=dev).expand(50, -1).contiguous()
+    counts = fused_derivs.launches, riccati_backward_batch.launches, fused_linesearch.launches
+    res = run_episodes_fused(AcrobotEnv, SQP(model=AcrobotEnv.model, T=8, max_iter=2), cfg, x0s,
+                             device=dev)
+    assert torch.isfinite(res.costs).all()
+    assert (fused_derivs.launches, riccati_backward_batch.launches,
+            fused_linesearch.launches) == tuple(c + 4 for c in counts)
+    res = run_episodes_fused(AcrobotEnv, ILQR(model=AcrobotEnv.model, T=8, max_iter=2,
+                                              gauss_newton=True), cfg, x0s, device=dev)
+    assert torch.isfinite(res.costs).all() and fused_derivs.launches == counts[0] + 8
+    p0 = PendulumEnv.start_state(dev).expand(40, -1).contiguous()
+    for mode in ("goal", "state"):
+        before = admm_iterate.launches
+        res = run_episodes_fused(PendulumEnv, QPMPC(model=PendulumEnv.model, T=8, method="admm",
+                                                    iters=30, linearize_at=mode), cfg, p0,
+                                 device=dev)
+        assert torch.isfinite(res.costs).all() and admm_iterate.launches == before + 2
+    res = run_episodes_fused(PendulumEnv, QPMPC(model=PendulumEnv.model, T=8, iters=10), cfg, p0,
+                             device=dev)
+    assert torch.isfinite(res.costs).all()
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

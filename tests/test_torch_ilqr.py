@@ -95,11 +95,13 @@ def test_derivatives_match_reference():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=field)
 
 
-@pytest.mark.parametrize("option", [{"gauss_newton": True}, {"ddp": True}, {"box_ddp": True},
+@pytest.mark.parametrize("option", [{"gauss_newton": True, "ddp": True}, {"ddp": True},
+                                    {"box_ddp": True},
                                     {"diag_hessian": True}, {"model_noise_std": 0.1}])
 def test_unported_options_raise_naming_the_roadmap(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9a"):
         TILQR(model=TENVS["pendulum"].model, T=4, **option)
+    TILQR(model=TENVS["pendulum"].model, T=4, gauss_newton=True)  # ported
 
 
 def test_init_state_is_hi_times_normal():

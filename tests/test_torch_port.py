@@ -17,7 +17,7 @@ from benchmarking_mpc_solvers_tpu_torch.experiment import (
     run_episodes_batch,
     run_episodes_fused,
 )
-from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI
+from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI, QPMPC, SQP
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_DIR = ROOT / "benchmarking_mpc_solvers_tpu_torch"
@@ -75,6 +75,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: solver.init_state_batch(2, torch.Generator()),
                  lambda: CEM(model=env.model, T=4).init_state_batch(2, torch.Generator()),
                  lambda: ILQR(model=env.model, T=4).init_state(torch.Generator()),
-                 lambda: ILQR(model=env.model, T=4).init_state_batch(2, torch.Generator())):
+                 lambda: ILQR(model=env.model, T=4).init_state_batch(2, torch.Generator()),
+                 lambda: SQP(model=env.model, T=4).init_state(torch.Generator()),
+                 lambda: SQP(model=env.model, T=4).init_state_batch(2, torch.Generator()),
+                 lambda: QPMPC(model=env.model, T=4).init_state(torch.Generator()),
+                 lambda: QPMPC(model=env.model, T=4).init_state_batch(2, torch.Generator()),
+                 lambda: run_episodes_fused(env, SQP(model=env.model, T=4), cfg, x0s),
+                 lambda: run_episodes_fused(env, QPMPC(model=env.model, T=4), cfg, x0s)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
