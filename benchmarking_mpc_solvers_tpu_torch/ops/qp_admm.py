@@ -28,10 +28,9 @@ with the matvec summed over j in order, as the kernel sums it.
 The size rule. The kernel keeps Minv in shared memory, of which a block on
 the H100 can have ``SMEM_BUDGET_BYTES`` (227 KB): (n² + 2·P·n) floats in the
 shared layout, P·(n² + 2n) per problem, and P·n ≤ 1024 threads. P starts
-at ``TARGET_THREADS // n`` and is halved until the block fits; if one
-problem does not fit (n above 240) the wrapper runs the plain loop on the
-card and counts it in ``admm_iterate.plain_calls``. That rule depends on n
-and the layout alone; a build or launch failure raises.
+at ``TARGET_THREADS // n`` and is halved until the block fits. If one
+problem does not fit (n above 240) the wrapper raises on CUDA tensors: a
+kernel that tiles Minv through shared memory is ROADMAP.md §1 item 11a.
 """
 
 from __future__ import annotations
@@ -61,7 +60,8 @@ def _check_shapes(Minv, g, lo, hi):
 
 def block_plan(B: int, n: int, per_problem: bool):
     """(problems per block P, dynamic shared-memory bytes) of the kernel
-    for this size, or None when one problem's block exceeds the budget."""
+    for this size, or None when one problem's block exceeds the budget
+    (``admm_iterate`` then raises on CUDA tensors)."""
     if n > MAX_THREADS:
         return None
     P = max(1, min(TARGET_THREADS // n, B))
@@ -97,8 +97,8 @@ def admm_iterate_reference(Minv, g, lo, hi, rho: float = 1.0, alpha: float = 1.6
 def admm_iterate(Minv, g, lo, hi, rho: float = 1.0, alpha: float = 1.6, iters: int = 100):
     """Minv (n, n) shared or (B, n, n) per problem, g (B, n), lo/hi (n,) or
     (B, n) -> z (B, n) after ``iters`` iterations. The kernel on CUDA
-    tensors (the plain loop only by the module's size rule), the plain
-    version on CPU tensors."""
+    tensors (n up to the module's size rule), the plain version on CPU
+    tensors."""
     B, n = _check_shapes(Minv, g, lo, hi)
     if g.device.type == "cpu":
         return admm_iterate_reference(Minv, g, lo, hi, rho, alpha, iters)
@@ -109,8 +109,9 @@ def admm_iterate(Minv, g, lo, hi, rho: float = 1.0, alpha: float = 1.6, iters: i
     per_problem = Minv.ndim == 3
     plan = block_plan(B, n, per_problem)
     if plan is None:
-        admm_iterate.plain_calls += 1
-        return admm_iterate_reference(Minv, g, lo, hi, rho, alpha, iters)
+        raise NotImplementedError(
+            f"admm_iterate: one problem of n = {n} variables exceeds a block's shared "
+            f"memory ({SMEM_BUDGET_BYTES} bytes); a tiled Minv is ROADMAP.md §1 item 11a")
     z = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B * n == 0:
         return z
@@ -127,4 +128,3 @@ def admm_iterate(Minv, g, lo, hi, rho: float = 1.0, alpha: float = 1.6, iters: i
 
 
 admm_iterate.launches = 0
-admm_iterate.plain_calls = 0

@@ -15,6 +15,8 @@ import torch
 
 from ..device import resolve_device
 from ..models.base import Model
+from ..ops.fused_linesearch import linesearch_applicable
+from ..ops.riccati_backward import pallas_riccati_applicable
 from ..ops.rollout import simulate_trajectory
 
 
@@ -56,6 +58,23 @@ class Solver:
         """Repeat a goal state over the horizon: (T, Z)."""
         goal = torch.as_tensor(goal_state, dtype=torch.float32, device=resolve_device(device))
         return goal.expand(self.T, self.goal_size).contiguous()
+
+
+def check_fused_tier(name: str, model: Model, g_z) -> None:
+    """Gate of the trajectory solvers' ``use_fused=True``: the derivative,
+    Riccati and line-search wrappers take a scalar action, ``quad_cost``
+    costs, a state the Riccati kernel holds and one goal trajectory (T, Z)
+    for the whole batch. Anything else is refused here, on any device, so
+    that a fused solve never runs plain stages unasked."""
+    if not (linesearch_applicable(model)
+            and pallas_riccati_applicable(model.state_size, model.action_size)):
+        raise NotImplementedError(
+            f"{name}(use_fused=True) needs action_size == 1, quad_cost costs and a state "
+            f"size the Riccati kernel holds; pass use_fused=False")
+    if g_z.ndim != 2:
+        raise NotImplementedError(
+            f"{name}(use_fused=True) needs one goal trajectory (T, Z) shared by the batch, "
+            f"got g_z of shape {tuple(g_z.shape)}; pass use_fused=False")
 
 
 class StepOutput(NamedTuple):

@@ -23,12 +23,13 @@ second-order dynamics terms:
 each scenario with its own μ, δ and convergence flag; a converged scenario
 is frozen by masking, as a vmapped ``while_loop`` freezes it. There is no
 early exit and no host sync inside the loop, so every call runs
-``max_iter`` iterations. With ``use_fused`` (and a scalar action) the
+``max_iter`` iterations. With ``use_fused`` the
 backward pass is ``riccati_backward_batch`` and the line search
 ``fused_linesearch`` (and with ``gauss_newton`` the stage derivatives
 ``fused_derivs``): one kernel launch each per iteration on the card, their
-plain versions on the CPU. ``solve`` is ``solve_batch`` on a batch of
-one without the kernels. The reference's ``pallas_backward`` switch is this
+plain versions on the CPU; a model these do not take is refused
+(``solvers/base.py:check_fused_tier``) and needs ``use_fused=False``.
+``solve`` is ``solve_batch`` on a batch of one without the kernels. The reference's ``pallas_backward`` switch is this
 ``use_fused`` argument here.
 
 Not ported yet, and refused at construction: ``ddp``, ``box_ddp``,
@@ -45,11 +46,11 @@ from torch.func import grad, hessian, jacrev, vmap
 
 from ..device import resolve_device
 from ..ops.fused_derivs import fused_derivs
-from ..ops.fused_linesearch import fused_linesearch, linesearch_applicable
+from ..ops.fused_linesearch import fused_linesearch
 from ..ops.linearize import gn_point_terms, mT, mv
-from ..ops.riccati_backward import pallas_riccati_applicable, riccati_backward_batch
+from ..ops.riccati_backward import riccati_backward_batch
 from ..ops.rollout import simulate_trajectory
-from .base import Solver
+from .base import Solver, check_fused_tier
 
 
 class ILQRState(NamedTuple):
@@ -129,8 +130,10 @@ class ILQR(Solver):
         """Cost gradients/Hessians and dynamics Jacobians along xs
         (B, T+1, S), us (B, T, A), and the terminal cost's at x_T: exact, or
         with ``gauss_newton`` the Gauss-Newton forms (the stage terms from
-        ``fused_derivs`` when ``use_fused`` and the model fits its gate)."""
+        ``fused_derivs`` when ``use_fused``)."""
         model = self.model
+        if use_fused:
+            check_fused_tier("ILQR.derivatives", model, g_z)
         B, Tp1, S = xs.shape
         T, A, Z = Tp1 - 1, us.shape[-1], g_z.shape[-1]
         xT, g_last = xs[:, -1], g_z[-1]
@@ -146,7 +149,7 @@ class ILQR(Solver):
         else:
             hT = vmap(hessian(model.final_cost), in_dims=(0, None))(xT, g_last)
 
-        if self.gauss_newton and use_fused and linesearch_applicable(model):
+        if self.gauss_newton and use_fused:
             f_x, f_u, _c, l_xx, l_uu, l_ux, l_x, l_u = fused_derivs(
                 model, xs.contiguous(), us.contiguous(), g_z)
             return Derivs(torch.cat([l_x, gT[:, None]], dim=1), l_u,
@@ -272,19 +275,18 @@ class ILQR(Solver):
     def _iteration(self, x0s, g_z, us, mu, delta, use_fused: bool):
         """One outer iteration for every scenario: (us, mu, delta, converged)."""
         model = self.model
-        S, A = model.state_size, model.action_size
         mu = torch.clamp(mu, self.mu_min, self.mu_max)
         xs, cost = simulate_trajectory(model, x0s, us, g_z)
         if self._terminal_in_objective:
             cost = cost + model.final_cost(xs[:, -1], g_z[-1])
         d = self.derivatives(xs, us, g_z, use_fused)
-        if use_fused and pallas_riccati_applicable(S, A):
+        if use_fused:
             ks, Ks, bp_ok = riccati_backward_batch(*(t.contiguous() for t in d), mu)
         else:
             ks, Ks, bp_ok = self.backward_pass(d, mu)
         us_c = model.clip_action(us)
         alphas = self.alphas(x0s.device)
-        if use_fused and linesearch_applicable(model):
+        if use_fused:
             new_uss, new_costs = fused_linesearch(
                 model, alphas, x0s.contiguous(), us_c.contiguous(), ks, Ks, xs, g_z,
                 with_terminal=self._terminal_in_objective)

@@ -251,6 +251,18 @@ class QPMPC(Solver):
             planned = torch.stack(plans)
             return state._replace(planned_us=planned), planned[:, 0], {}
 
+        iterate = admm_iterate if use_fused else admm_iterate_reference
+        z = iterate(*self.admm_problem(xs), rho=self.rho, alpha=1.6, iters=self.iters)
+        planned = z.reshape(B, self.T, model.action_size)
+        return state._replace(planned_us=planned), planned[:, 0], {}
+
+    def admm_problem(self, xs):
+        """What ``method='admm'`` hands ``admm_iterate`` for states xs (B, S):
+        ``(Minv, g, lo, hi)`` of the condensed box-QPs, Minv = (H + ρI)⁻¹
+        shared (n, n) at ``'goal'`` or per scenario (B, n, n) at ``'state'``,
+        all contiguous."""
+        model = self.model
+        dev = xs.device
         Q, R, Qf = self._weights(dev)
         xref = self._goal_state(dev)
         uref = torch.zeros((model.action_size,), dtype=torch.float32, device=dev)
@@ -262,8 +274,4 @@ class QPMPC(Solver):
             # per-scenario linearizations: full per-scenario H and bounds
             qp = condense(self._linearize(xs), xs, Q, R, Qf, xref, uref, lo, hi)
         Minv = _chol_inv(qp.H + self.rho * eye)  # (n, n) shared or (B, n, n)
-        iterate = admm_iterate if use_fused else admm_iterate_reference
-        z = iterate(Minv.contiguous(), qp.g.contiguous(), qp.lo.contiguous(),
-                    qp.hi.contiguous(), rho=self.rho, alpha=1.6, iters=self.iters)
-        planned = z.reshape(B, self.T, model.action_size)
-        return state._replace(planned_us=planned), planned[:, 0], {}
+        return (Minv.contiguous(), qp.g.contiguous(), qp.lo.contiguous(), qp.hi.contiguous())

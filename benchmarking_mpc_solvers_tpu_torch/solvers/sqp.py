@@ -20,11 +20,12 @@ trajectory replaces it. ``solve_batch`` runs B scenarios in lock-step for
 (the reference gets the same from ``vmap`` of its scalar solve with
 ``custom_vmap`` rules; here the batch is written out). There is no early
 exit and no host sync inside the loop. With ``use_fused`` (the reference's
-``pallas_backward``) and a scalar-action ``quad_cost`` model, an iteration is
-one launch each of ``fused_derivs``, ``riccati_backward_batch``
+``pallas_backward``) an iteration is one launch each of ``fused_derivs``, ``riccati_backward_batch``
 (``with_c=True, check_pd=False``) and ``fused_linesearch``
 (``with_terminal=True, return_states=True``) on the card, their plain
-versions on the CPU. ``solve`` is ``solve_batch`` on a batch of one without
+versions on the CPU; a model or a per-scenario goal (B, T, Z) that these do
+not take is refused (``solvers/base.py:check_fused_tier``) and needs
+``use_fused=False``. ``solve`` is ``solve_batch`` on a batch of one without
 the kernels.
 
 Not ported yet, and refused at construction: ``model_noise_std > 0``
@@ -40,7 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.fused_derivs import fused_derivs
-from ..ops.fused_linesearch import fused_linesearch, linesearch_applicable
+from ..ops.fused_linesearch import fused_linesearch
 from ..ops.linearize import (
     AffineDynamics,
     QuadCost,
@@ -50,9 +51,9 @@ from ..ops.linearize import (
     quadratize_cost,
 )
 from ..ops.riccati import TVLQRPolicy, tvlqr_backward
-from ..ops.riccati_backward import pallas_riccati_applicable, tvlqr_backward_cv
+from ..ops.riccati_backward import tvlqr_backward_cv
 from ..ops.rollout import simulate_trajectory
-from .base import Solver
+from .base import Solver, check_fused_tier
 
 
 class SQPState(NamedTuple):
@@ -106,9 +107,8 @@ class SQP(Solver):
         trajectories xs (B, T+1, S), us (B, T, A) with per-scenario reg (B,);
         returns the affine deviation policy δu = K δx + k."""
         model = self.model
-        fused = use_fused and linesearch_applicable(model)
-        if fused and g_z.ndim == 2:
-            # a per-scenario goal does not fit the kernel's shared g_z
+        if use_fused:
+            check_fused_tier("SQP._subproblem", model, g_z)
             A, Bd, c, Q, R, M, q, r = fused_derivs(model, xs.contiguous(), us.contiguous(), g_z)
             qf, Qf = gn_terminal_terms(model, xs[:, -1], g_z[-1])
             dyn, cost = AffineDynamics(A, Bd, c), QuadCost(Q, R, M, q, r, Qf, qf)
@@ -119,7 +119,7 @@ class SQP(Solver):
         dyn = dyn._replace(c=torch.zeros_like(dyn.c))
         eye = torch.eye(model.action_size, dtype=torch.float32, device=xs.device)
         cost = cost._replace(R=cost.R + reg[:, None, None, None] * eye)
-        if use_fused and pallas_riccati_applicable(model.state_size, model.action_size):
+        if use_fused:
             return tvlqr_backward_cv(dyn, cost)
         return tvlqr_backward(dyn, cost, reg=0.0)
 
@@ -161,10 +161,11 @@ class SQP(Solver):
         reg = torch.full((B,), self.reg_init, dtype=torch.float32, device=x0s.device)
         done = torch.zeros((B,), dtype=torch.bool, device=x0s.device)
         rows = torch.arange(B, device=x0s.device)
-        fused_ls = use_fused and linesearch_applicable(model) and g_z.ndim == 2
+        if use_fused:
+            check_fused_tier("SQP.solve_batch", model, g_z)
         for _ in range(self.max_iter):
             policy = self._subproblem(traj, us, g_z, reg, use_fused)
-            if fused_ls:
+            if use_fused:
                 cand_us, cand_xs, cand_costs = fused_linesearch(
                     model, alphas, traj[:, 0].contiguous(), us.contiguous(),
                     policy.k.contiguous(), policy.K.contiguous(), traj.contiguous(), g_z,

@@ -300,14 +300,12 @@ def main():
         fused_linesearch, fused_linesearch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
         fused_mppi_step, fused_mppi_step_reference, pick_lanes)
-    from benchmarking_mpc_solvers_tpu_torch.ops.qp import condense_batch
     from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import (
         admm_iterate, admm_iterate_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
         riccati_backward_batch, riccati_backward_batch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
     from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI, QPMPC, SQP
-    from benchmarking_mpc_solvers_tpu_torch.solvers.qp_mpc import _chol_inv
 
     counters = (fused_mppi_step, fused_rollout_costs_tm, fused_cem_step,
                 riccati_backward_batch, fused_linesearch, fused_derivs, admm_iterate)
@@ -316,7 +314,6 @@ def main():
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
-        admm_iterate.plain_calls = 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -487,12 +484,7 @@ def main():
         solver = QPMPC(model=PendulumEnv.model, T=QP1_T, method="admm", iters=QP1_ITERS)
         xs = PendulumEnv.start_state(dev).expand(B, -1) + 0.3 * torch.randn(
             (B, 2), generator=torch.Generator(device=dev).manual_seed(10), device=dev)
-        Q, R, Qf = solver._weights(dev)
-        model = PendulumEnv.model
-        qp = condense_batch(solver._linearize(xs[0]), xs, Q, R, Qf, solver._goal_state(dev),
-                            torch.zeros((1,), device=dev), model.lo(dev), model.hi(dev))
-        eye = torch.eye(QP1_T, device=dev)
-        return _chol_inv(qp.H + solver.rho * eye).contiguous(), qp.g.contiguous(), qp.lo, qp.hi
+        return solver.admm_problem(xs)
 
     def random_qps(B, n, per_problem, per_bounds, seed):
         rng = np.random.default_rng(seed)
@@ -521,9 +513,9 @@ def main():
         print(f"  {100 * at_bound:.1f} % of its variables end on a bound", flush=True)
         if not bool(((got >= args[2]) & (got <= args[3])).all()):
             fail(f"admm_iterate[{label}]: iterate outside the box")
-    errs["admm_iterate"] = (0.0, 0.0)  # bit-identical, checked above
-    if admm_iterate.plain_calls:
-        fail("admm_iterate took the plain loop at a size the kernel holds")
+        e = compare(f"admm_iterate[{label}, {iters} iterations]", got, want)
+        if args is admm_main:
+            errs["admm_iterate"] = e  # the QP-MPC main path's problem
 
     # 4. main paths
     launches = {}
@@ -548,8 +540,6 @@ def main():
         want.update(expect)
         if got != want:
             fail(f"{label}: launches {got}, expected {want}")
-        if admm_iterate.plain_calls:
-            fail(f"{label}: admm_iterate took the plain loop {admm_iterate.plain_calls} times")
         if not torch.isfinite(res.costs).all():
             fail(f"{label}: episode costs not finite")
         launches[label] = got
@@ -844,17 +834,17 @@ def main():
         "cem two-stage tier": report_episodes(smi, "cem two-stage tier", episode_seconds(
             lambda: cem_episode(False), 4), CEM_B, CEM_STEPS),
         "ilqr": report_episodes(smi, f"ilqr (warm start {ILQR_WARM} in the time)",
-                                episode_seconds(ilqr_episode, 2, warmup=False),
+                                episode_seconds(ilqr_episode, 3, warmup=False),
                                 ILQR_B, ILQR_STEPS),
         "ilqr gauss-newton": report_episodes(
             smi, f"ilqr gauss-newton (warm start {ILQR_WARM} in the time)",
-            episode_seconds(ilqr_gn_episode, 2, warmup=False), ILQR_B, ILQR_STEPS),
+            episode_seconds(ilqr_gn_episode, 3, warmup=False), ILQR_B, ILQR_STEPS),
         "sqp": report_episodes(smi, "sqp", episode_seconds(sqp_episode, 3, warmup=False),
                                SQP_B, SQP_STEPS),
         "qpmpc configuration 1": report_episodes(
             smi, "qpmpc configuration 1", episode_seconds(qp1_episode, 5), QP1_B, QP1_STEPS),
         "qpmpc configuration 2": report_episodes(
-            smi, "qpmpc configuration 2", episode_seconds(qp2_episode, 2, warmup=False),
+            smi, "qpmpc configuration 2", episode_seconds(qp2_episode, 3, warmup=False),
             QP2_B, QP2_STEPS),
     }
 

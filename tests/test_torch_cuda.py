@@ -202,25 +202,25 @@ def test_admm_kernel_matches_plain(dev, n, B, per_problem, per_bounds):
     g = _t(2.0 * rng.standard_normal((B, n)), dev)
     shape = (B, n) if per_bounds else (n,)
     lo, hi = _t(-rng.uniform(0.2, 1.0, shape), dev), _t(rng.uniform(0.2, 1.0, shape), dev)
-    before = admm_iterate.launches, admm_iterate.plain_calls
+    before = admm_iterate.launches
     got = admm_iterate(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=60)
     torch.cuda.synchronize()
-    assert (admm_iterate.launches, admm_iterate.plain_calls) == (before[0] + 1, before[1])
+    assert admm_iterate.launches == before + 1
     want = admm_iterate_reference(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=60)
     assert torch.equal(got, want)
     assert bool(((got >= lo) & (got <= hi)).all())
 
 
-def test_admm_above_the_shared_memory_budget_takes_the_plain_loop(dev):
-    """n = 241 does not fit one block's shared memory: the size rule, and
-    only it, sends the call to the plain loop, and says so in its count."""
+def test_admm_above_the_shared_memory_budget_raises(dev):
+    """n = 241 does not fit one block's shared memory: on the card the
+    wrapper refuses the call, naming the roadmap item, and launches nothing."""
     n, B = 241, 2
     Minv = torch.eye(n, device=dev) * 0.5
     g = torch.ones((B, n), device=dev)
-    before = admm_iterate.launches, admm_iterate.plain_calls
-    z = admm_iterate(Minv, g, -torch.ones(n, device=dev), torch.ones(n, device=dev), iters=3)
-    assert (admm_iterate.launches, admm_iterate.plain_calls) == (before[0], before[1] + 1)
-    assert z.shape == (B, n) and z.is_cuda
+    before = admm_iterate.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 11a"):
+        admm_iterate(Minv, g, -torch.ones(n, device=dev), torch.ones(n, device=dev), iters=3)
+    assert admm_iterate.launches == before
 
 
 def test_sqp_and_qpmpc_episodes_run_on_the_card(dev):

@@ -235,7 +235,8 @@ def test_admm_iterate_plain_matches_reference_kernel(n, B, per_problem, rho, ite
 
 def test_admm_iterate_size_rule_and_shape_checks():
     """The block plan: P problems per block within 1024 threads and the
-    227 KB of shared memory; above it, None (the plain loop)."""
+    227 KB of shared memory; above it, None (the wrapper then raises on
+    the card)."""
     assert qp_admm.block_plan(512, 20, False) == (6, 4 * (400 + 2 * 6 * 20))
     assert qp_admm.block_plan(256, 50, True) == (2, 4 * 2 * (2500 + 100))
     assert qp_admm.block_plan(3, 20, False)[0] == 3  # never more problems than B

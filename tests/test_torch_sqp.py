@@ -116,14 +116,39 @@ def test_subproblem_policy_and_candidates_match_reference():
 
 def test_per_scenario_goals_take_the_plain_stages():
     """A (B, T, Z) goal does not fit the kernels' shared g_z: the fused tier
-    then runs its plain stages, and equal goals give the shared-goal plans."""
+    refuses it and says how to ask for the plain stages, which with equal
+    goals give the shared-goal plans."""
     env, x0s, plans, g_z = _problem("acrobot", seed=5)
     ts = TSQP(model=TENVS["acrobot"].model, T=T, max_iter=2)
     st = convert.sqp_state_from_numpy(plans, device="cpu")
+    tiled_gz = torch.tensor(g_z).expand(B, T, -1)
+    with pytest.raises(NotImplementedError, match="pass use_fused=False"):
+        ts.solve_batch(st, torch.tensor(x0s), tiled_gz, use_fused=True)
     shared, _, _ = ts.solve_batch(st, torch.tensor(x0s), torch.tensor(g_z), use_fused=True)
-    tiled, _, _ = ts.solve_batch(st, torch.tensor(x0s), torch.tensor(g_z).expand(B, T, -1),
-                                 use_fused=True)
+    tiled, _, _ = ts.solve_batch(st, torch.tensor(x0s), tiled_gz, use_fused=False)
     torch.testing.assert_close(tiled.planned_us, shared.planned_us, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("which", ["sqp", "ilqr", "ilqr gauss-newton"])
+def test_fused_tier_refuses_a_model_its_kernels_do_not_take(which):
+    """``use_fused=True`` asks for the kernels' wrappers: a model without
+    ``quad_cost`` costs is refused on any device, never sent to the plain
+    stages unasked; ``use_fused=False`` solves it."""
+    import dataclasses
+
+    base = TENVS["pendulum"].model
+    model = dataclasses.replace(base, state_cost=lambda z, g: base.state_cost(z, g))
+    if which == "sqp":
+        solver, st = TSQP(model=model, T=4, max_iter=1), convert.sqp_state_from_numpy
+    else:
+        solver = TILQR(model=model, T=4, max_iter=1, gauss_newton=which.endswith("newton"))
+        st = convert.ilqr_state_from_numpy
+    state = st(np.full((2, 4, 1), 0.1, np.float32), device="cpu")
+    xs, g_z = torch.tensor([[0.3, 0.0], [0.5, 0.1]]), torch.zeros((4, base.goal_size))
+    with pytest.raises(NotImplementedError, match="pass use_fused=False"):
+        solver.solve_batch(state, xs, g_z, use_fused=True)
+    out, u0, _ = solver.solve_batch(state, xs, g_z, use_fused=False)
+    assert out.planned_us.shape == (2, 4, 1) and torch.isfinite(u0).all()
 
 
 def test_init_state_draws_clipped_plans_from_injected_noise():
