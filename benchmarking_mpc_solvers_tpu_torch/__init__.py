@@ -9,6 +9,6 @@ Its module layout mirrors the reference's; entry points take an explicit
 kernel on CUDA tensors and run their plain PyTorch version on CPU tensors.
 """
 
-from .solvers import CEM, ILQR, MPPI, QPMPC, SQP  # noqa: F401
+from .solvers import CEM, I2C, ILQR, MPPI, QPMPC, SQP  # noqa: F401
 
 __version__ = "0.1.0"

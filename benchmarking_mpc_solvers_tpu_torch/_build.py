@@ -31,7 +31,7 @@ from .models import REGISTRY
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_mppi.cu", "fused_rollout.cu", "fused_cem.cu", "riccati_backward.cu",
-           "fused_linesearch.cu", "fused_derivs.cu", "admm_iterate.cu")
+           "fused_linesearch.cu", "fused_derivs.cu", "admm_iterate.cu", "i2c_smooth.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -129,6 +129,8 @@ SIGNATURES = {
         "fused_derivs.cu", [_I] + [_P] * 11 + [_I, _I, _W, _P]),
     "admm_iterate_launch": (
         "admm_iterate.cu", [_P] * 5 + [_I] * 5 + [_F, _F, _F, _I, _I, _P]),
+    "i2c_filter_launch": ("i2c_smooth.cu", [_P] * 13 + [_I] * 5 + [_P]),
+    "i2c_rts_launch": ("i2c_smooth.cu", [_P] * 6 + [_I] * 3 + [_P]),
 }
 
 

@@ -19,6 +19,7 @@ from .models.base import nonzero_pairs
 from .ops.fused_mppi import scenario_seeds
 from .ops.linearize import AffineDynamics, QuadCost
 from .solvers.cem import CEMState
+from .solvers.i2c import I2CState
 from .solvers.ilqr import ILQRState
 from .solvers.mppi import MPPIState
 from .solvers.qp_mpc import QPMPCState
@@ -79,6 +80,13 @@ def qpmpc_state_from_numpy(planned_us, generator: Optional[torch.Generator] = No
     return QPMPCState(planned, gen)
 
 
+def i2c_state_from_numpy(planned_us, generator: Optional[torch.Generator] = None,
+                         device="cuda") -> I2CState:
+    """I2CState from a (T, A) or (B, T, A) plan."""
+    planned, gen, _, _ = _plan_state(planned_us, generator, device)
+    return I2CState(planned, gen)
+
+
 def _tensors(arrays, device):
     device = resolve_device(device)
     return [torch.tensor(np.asarray(a, np.float32), device=device) for a in arrays]
@@ -94,6 +102,14 @@ def quad_cost_from_numpy(Q, R, M, q, r, Qf, qf, device="cuda") -> QuadCost:
     """The reference's ``QuadCost`` leaves, in its field order, as this
     package's tuple."""
     return QuadCost(*_tensors((Q, R, M, q, r, Qf, qf), device))
+
+
+def i2c_problem_from_numpy(F, m, J, z0, R, mu0, sig0, Qproc, g_z, device="cuda") -> tuple:
+    """The arguments of the reference's ``i2c_smooth_batch`` (F (B, T, D, D),
+    m (B, T, D), J (B, T, Z, D), z0 (B, T, Z), R (B, Z, Z) or (Z, Z), mu0
+    (B, D), sig0 and Qproc (D, D), g_z (T, Z)), in its order, as the
+    contiguous float32 tensors this package's ``ops.i2c_smooth`` takes."""
+    return tuple(_tensors((F, m, J, z0, R, mu0, sig0, Qproc, g_z), device))
 
 
 def plan_tm_from_numpy(planned_tm, device="cuda") -> torch.Tensor:

@@ -191,7 +191,8 @@ def run_episodes_fused(env: Env, solver, cfg: EpisodeConfig, x0s,
     step (of an iteration, for CEM) in one ``fused_rollout_costs_tm``
     launch, for iLQR and SQP each iteration's backward pass and line search
     (and Gauss-Newton derivatives) in one launch each, for QPMPC with
-    ``method="admm"`` all ADMM iterations of a step in one launch.
+    ``method="admm"`` all ADMM iterations of a step in one launch, for I2C
+    each iteration's Kalman filter and RTS smoother in one launch each.
     ``init_plans`` (B, T, A) replaces the initial plans."""
     device = resolve_device(device)
     x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)

@@ -13,6 +13,14 @@ from .fused_mppi import (  # noqa: F401
     pick_lanes,
     scenario_normals,
 )
+from .i2c_smooth import (  # noqa: F401
+    i2c_filter,
+    i2c_filter_reference,
+    i2c_rts_smooth,
+    i2c_rts_smooth_reference,
+    i2c_smooth_batch,
+    i2c_smooth_batch_reference,
+)
 from .linearize import (  # noqa: F401
     AffineDynamics,
     QuadCost,
@@ -38,11 +46,15 @@ from .qp_admm import admm_iterate, admm_iterate_reference  # noqa: F401
 from .riccati import (  # noqa: F401
     RiccatiFactors,
     TVLQRPolicy,
+    associative_scan,
     riccati_factors,
     tvlqr_backward,
+    tvlqr_backward_assoc,
+    tvlqr_backward_assoc_general,
     tvlqr_rollout,
     tvlqr_solve,
     tvlqr_solve_linear_batch,
+    tvlqr_values_assoc,
 )
 from .riccati_backward import (  # noqa: F401
     pallas_riccati_applicable,

@@ -91,9 +91,15 @@ def simulate_trajectory_noisy(model: Model, x0, us, g_z, xnoise):
 
 
 def best_plan_by_rollout_cost(model: Model, x, g_z, candidates):
-    """The candidate plan (C, T, A) with the lowest rollout cost from x (S,);
-    non-finite costs lose, ties go to the first."""
-    _, cs = rollout(model, x, candidates, g_z)
+    """The candidate plan with the lowest rollout cost; non-finite costs
+    lose, ties go to the first. Either candidates (C, T, A) from one state x
+    (S,), giving (T, A); or, per scenario, candidates (B, C, T, A) from x
+    (B, S), giving (B, T, A), with g_z (T, Z) or (B, 1, T, Z)."""
+    batched = candidates.ndim == 4
+    _, cs = rollout(model, x[:, None] if batched else x, candidates, g_z)
     costs = cs.sum(dim=-1)
     costs = torch.where(torch.isfinite(costs), costs, torch.inf)
-    return candidates[torch.argmin(costs)]
+    best = torch.argmin(costs, dim=-1)  # the first minimum
+    if batched:
+        return candidates[torch.arange(candidates.shape[0], device=best.device), best]
+    return candidates[best]

@@ -25,8 +25,8 @@ in its shared layout, at ``"state"`` per problem); and for everything else
 reference vmaps its scalar solve, a loop over the scenarios calling
 ``solve``.
 
-Not ported yet, and refused at construction: ``parallel_horizon``
-(ROADMAP.md §1 item 8a).
+``parallel_horizon`` switches the Riccati-ADMM's horizon recursions to the
+associative-scan forms of ``ops/riccati.py``.
 """
 
 from __future__ import annotations
@@ -97,9 +97,6 @@ class QPMPC(Solver):
     init_std: float = 0.0
 
     def __post_init__(self):
-        if self.parallel_horizon:
-            raise NotImplementedError(
-                "QPMPC(parallel_horizon=True) is not ported yet: ROADMAP.md §1 item 8a")
         if self.method not in _METHODS:
             raise ValueError(f"method must be one of {_METHODS}, got {self.method!r}")
         if self.linearize_at not in _LINEARIZE_AT:
@@ -198,7 +195,7 @@ class QPMPC(Solver):
         if self.method == "riccati_admm":
             planned, _, _, _ = admm_solve_riccati(
                 dyn, x, Q, R, Qf, xref, uref, lo, hi, rho=self.rho, iters=self.iters,
-                eps=self.eps)
+                eps=self.eps, parallel_horizon=self.parallel_horizon)
         else:
             qp = condense(dyn, x, Q, R, Qf, xref=xref, uref=uref, u_lo=lo, u_hi=hi)
             if self.method == "ip":
@@ -239,7 +236,8 @@ class QPMPC(Solver):
             us, _, _, _ = admm_solve_riccati_batch(
                 self._linearize(xs[0]), xs, Q, R, Qf, self._goal_state(dev),
                 torch.zeros((model.action_size,), dtype=torch.float32, device=dev),
-                model.lo(dev), model.hi(dev), rho=self.rho, iters=self.iters, eps=self.eps)
+                model.lo(dev), model.hi(dev), rho=self.rho, iters=self.iters, eps=self.eps,
+                parallel_horizon=self.parallel_horizon)
             return state._replace(planned_us=us), us[:, 0], {}
         if (self.method != "admm" or self.model_noise_std > 0.0
                 or self.linearize_at == "plan"):

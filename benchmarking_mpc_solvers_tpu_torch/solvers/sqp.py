@@ -28,8 +28,12 @@ not take is refused (``solvers/base.py:check_fused_tier``) and needs
 ``use_fused=False``. ``solve`` is ``solve_batch`` on a batch of one without
 the kernels.
 
+With ``parallel_horizon`` the subproblem is solved by the associative-scan
+Riccati (``ops/riccati.py:tvlqr_backward_assoc_general``, plain PyTorch) on
+either tier.
+
 Not ported yet, and refused at construction: ``model_noise_std > 0``
-(ROADMAP.md §1 item 9a) and ``parallel_horizon`` (item 8a).
+(ROADMAP.md §1 item 9a).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from ..ops.linearize import (
     mv,
     quadratize_cost,
 )
-from ..ops.riccati import TVLQRPolicy, tvlqr_backward
+from ..ops.riccati import TVLQRPolicy, tvlqr_backward, tvlqr_backward_assoc_general
 from ..ops.riccati_backward import tvlqr_backward_cv
 from ..ops.rollout import simulate_trajectory
 from .base import Solver, check_fused_tier
@@ -82,9 +86,6 @@ class SQP(Solver):
         if self.model_noise_std > 0.0:
             raise NotImplementedError(
                 "SQP(model_noise_std > 0) is not ported yet: ROADMAP.md §1 item 9a")
-        if self.parallel_horizon:
-            raise NotImplementedError(
-                "SQP(parallel_horizon=True) is not ported yet: ROADMAP.md §1 item 8a")
 
     # -- state ----------------------------------------------------------------
     def init_state(self, generator: torch.Generator, device="cuda", noise=None) -> SQPState:
@@ -119,6 +120,8 @@ class SQP(Solver):
         dyn = dyn._replace(c=torch.zeros_like(dyn.c))
         eye = torch.eye(model.action_size, dtype=torch.float32, device=xs.device)
         cost = cost._replace(R=cost.R + reg[:, None, None, None] * eye)
+        if self.parallel_horizon:
+            return tvlqr_backward_assoc_general(dyn, cost)
         if use_fused:
             return tvlqr_backward_cv(dyn, cost)
         return tvlqr_backward(dyn, cost, reg=0.0)

@@ -27,8 +27,13 @@ Phases (any failure exits non-zero before the result line):
      100 iterations, B=512, 50 MPC steps) through the ADMM kernel, and
      configuration 2 (cart-pole stabilisation, T=50, Riccati-ADMM, 60
      iterations, B=256, 40 MPC steps), which is plain PyTorch;
-   plus small MPPI, CEM, iLQR, SQP and QP-MPC episodes on the card against
-   the plain versions on the CPU, and a short swing-up progress check.
+   - I2C, the suite's configuration 6 (pendulum, T=25, max_iter=10, B=256,
+     50 MPC steps) and its row of the six-family sweep (cart-pole
+     swing-up, T=50, max_iter=3, B=10240, 10 MPC steps), each iteration
+     through the Kalman-filter and RTS-smoother kernels;
+   plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
+   against the plain versions on the CPU, and short swing-up progress
+   checks.
 5. timings with CUDA events: each kernel, its plain version and its bound;
    host-clock episode solves/s of every path; device time by kernel.
 Then a ``kernels`` JSON line, and as the last line
@@ -58,6 +63,10 @@ ILQR_T, ILQR_ITERS, ILQR_B, ILQR_WARM, ILQR_STEPS, N_ALPHAS = 100, 5, 1024, 10, 
 SQP_T, SQP_ITERS, SQP_B, SQP_STEPS, SQP_START = 100, 4, 1024, 20, (0.1, 0.0, 0.2, 0.0)
 QP1_T, QP1_ITERS, QP1_B, QP1_STEPS = 20, 100, 512, 50
 QP2_T, QP2_ITERS, QP2_B, QP2_STEPS, QP2_START = 50, 60, 256, 40, (0.3, 0.0, 0.4, 0.0)
+# I2C configuration 6 and the I2C row of the six-family sweep
+# (scripts/bench_suite.py:341-347, :251-264), starts jittered by 1e-3 as there
+I2C6_T, I2C6_ITERS, I2C6_B, I2C6_STEPS = 25, 10, 256, 50
+I2CS_T, I2CS_ITERS, I2CS_B, I2CS_STEPS = 50, 3, 10240, 10
 QP2_WEIGHTS = dict(goal_x=(0.0, 0.0, 0.0, 0.0), R=((0.1,),),
                    Q=((0.5, 0, 0, 0), (0, 0.1, 0, 0), (0, 0, 5.0, 0), (0, 0, 0, 0.5)))
 
@@ -84,6 +93,10 @@ CEM_EPISODE_TOL, ILQR_EPISODE_TOL = 1e-3, 2e-3
 # (tests/test_torch_sqp.py); QP-MPC's condensed H is factorized by another
 # Cholesky routine on the card than on the CPU (tests/test_torch_qp_mpc.py)
 SQP_EPISODE_TOL, QP_EPISODE_TOL = 2e-3, 1e-3
+# I2C's smoother kernels match their plain versions bit for bit; around them
+# the card's and the CPU's libm and matrix products round apart, and the
+# line search compares three rollout costs (tests/test_torch_i2c.py)
+I2C_EPISODE_TOL = 2e-3
 
 # FP32 operations per rollout step, counted by hand from csrc/models.cuh
 # (each add, mul, div, clamp compare and each libm call counted once, so
@@ -131,6 +144,34 @@ def riccati_ops(S: int) -> int:
             + 6 * S                 # V_x
             + 7 * S * S             # V_xx before symmetrising
             + 2 * S * S)            # symmetrising
+
+
+def chol_ops(n: int) -> int:
+    """FP32 operations of the unrolled n x n Cholesky factorisation in
+    csrc/i2c_smooth.cu: entry (i, j) takes j multiply-subtracts and a square
+    root or a division; each diagonal entry one more for its floor."""
+    return sum(2 * j + 1 for i in range(n) for j in range(i + 1)) + n
+
+
+def i2c_filter_ops(D: int, Z: int) -> int:
+    """FP32 operations of one filter step in csrc/i2c_smooth.cu: each sum
+    of n products counts 2n, each added term 1."""
+    return (D * Z * 2 * D                       # P J^T
+            + Z * (Z + 1) // 2 * (2 * D + 1)    # lower triangle of sig_y
+            + chol_ops(Z)
+            + D * 2 * Z * Z                     # D pairs of triangular solves
+            + Z * (2 * D + 2)                   # innovation
+            + D * (2 * Z + 1)                   # mu_f
+            + D * D * (2 * Z + 1) + 2 * D * D   # sig_f and its symmetrising
+            + D * (2 * D + 1)                   # mu_pred
+            + D * D * 2 * D + D * D * (2 * D + 1))  # F sig_f, sig_pred
+
+
+def i2c_rts_ops(D: int) -> int:
+    """FP32 operations of one smoother step in csrc/i2c_smooth.cu."""
+    return (D * D * 2 * D + chol_ops(D) + D * 2 * D * D   # F sig_f, factor, D solves
+            + D + D * (2 * D + 1)                         # mu_s
+            + D * D + D * D * 2 * D + D * D * (2 * D + 1))  # sig_s
 
 
 def derivs_ops(model) -> int:
@@ -229,6 +270,17 @@ def exact(name, got, want):
     print(f"{name}: identical", flush=True)
 
 
+def exact_nan(name, got, want):
+    """``exact`` for float outputs that may hold NaN: NaN at the same places
+    in both, every other entry equal."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan) or not torch.equal(got[~nan], want[~nan]):
+        fail(f"{name}: kernel and plain version differ")
+    print(f"{name}: identical{f' ({int(nan.sum())} NaN alike)' if bool(nan.any()) else ''}",
+          flush=True)
+
+
 def profile_window(label, smi, fn):
     """Device time by kernel over one call of fn, and the device's busy
     share of the wall time (profiler overhead included)."""
@@ -300,15 +352,19 @@ def main():
         fused_linesearch, fused_linesearch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
         fused_mppi_step, fused_mppi_step_reference, pick_lanes)
+    from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import (
+        i2c_filter, i2c_filter_reference, i2c_rts_smooth, i2c_rts_smooth_reference,
+        i2c_smooth_batch, i2c_smooth_batch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import (
         admm_iterate, admm_iterate_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
         riccati_backward_batch, riccati_backward_batch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
-    from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI, QPMPC, SQP
+    from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, I2C, ILQR, MPPI, QPMPC, SQP
 
     counters = (fused_mppi_step, fused_rollout_costs_tm, fused_cem_step,
-                riccati_backward_batch, fused_linesearch, fused_derivs, admm_iterate)
+                riccati_backward_batch, fused_linesearch, fused_derivs, admm_iterate,
+                i2c_filter, i2c_rts_smooth)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -517,6 +573,85 @@ def main():
         if args is admm_main:
             errs["admm_iterate"] = e  # the QP-MPC main path's problem
 
+    # Kalman filter and RTS smoother, each against its plain version, bit for
+    # bit: random problems (D = Z = 3 with a ragged batch, the sweep's shape
+    # at D = Z = 5, D = 6 with Z = 4, per-scenario and shared R), a horizon of
+    # one step, a NaN in one scenario's F, then the matrices of a real first
+    # iteration on every model (cart-pole's at the sweep's shape are the
+    # ones timed below)
+    def i2c_random(seed, B, T, S, A, Z, shared_R):
+        rng = np.random.default_rng(seed)
+        D = S + A
+        F = np.zeros((B, T, D, D))
+        F[:, :, :S, :S] = np.eye(S) * 0.9 + 0.05 * rng.standard_normal((B, T, S, S))
+        F[:, :, :S, S:] = 0.3 * rng.standard_normal((B, T, S, A))
+        m = 0.1 * rng.standard_normal((B, T, D))
+        J = rng.standard_normal((B, T, Z, D))
+        z0 = 0.2 * rng.standard_normal((B, T, Z))
+        Rm = rng.standard_normal((B, Z, Z))
+        R = np.einsum("bij,bkj->bik", Rm, Rm) * 0.1 + 0.5 * np.eye(Z)
+        mu0 = np.concatenate([rng.standard_normal((B, S)), np.zeros((B, A))], axis=1)
+        sig0, Qproc = np.zeros((D, D)), np.zeros((D, D))
+        sig0[:S, :S], sig0[S:, S:] = 1e-8 * np.eye(S), 0.25 * np.eye(A)
+        Qproc[:S, :S], Qproc[S:, S:] = 1e-6 * np.eye(S), 0.25 * np.eye(A)
+        g = 0.1 * rng.standard_normal((T, Z))
+        arrays = (F, m, J, z0, R[0] if shared_R else R, mu0, sig0, Qproc, g)
+        return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+    def i2c_first_iteration(env_, T, B, seed):
+        """What ``I2C._smooth_once`` hands the smoother at a solve's first
+        iteration from jittered starts and small random plans."""
+        solver = I2C(model=env_.model, T=T)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        S = env_.model.state_size
+        xs = env_.start_state(dev).expand(B, -1) + 0.1 * torch.randn((B, S), generator=gen,
+                                                                      device=dev)
+        us = 0.3 * torch.randn((B, T, env_.model.action_size), generator=gen, device=dev)
+        gz = torch.zeros((T, env_.model.goal_size), device=dev)
+        F, m, J, z0, mu0 = solver._smoother_inputs(xs, us, gz)
+        return [t.contiguous() for t in (F, m, J, z0, solver._obs_noise(solver.alphas()[0], dev),
+                                         mu0, *solver._prior_covs(dev), gz)]
+
+    def i2c_check(label, p):
+        got, want = i2c_filter(*p), i2c_filter_reference(*p)
+        for key, g, w in zip(("mu_f", "sig_f", "mu_pred", "sig_pred"), got, want):
+            exact_nan(f"i2c_filter[{label}] {key}", g, w)
+        if p[0].shape[1] > 1:
+            exact_nan(f"i2c_rts_smooth[{label}]", i2c_rts_smooth(*got, p[0]),
+                      i2c_rts_smooth_reference(*want, p[0]))
+        out, out_plain = i2c_smooth_batch(*p), i2c_smooth_batch_reference(*p)
+        exact_nan(f"i2c_smooth_batch[{label}]", out, out_plain)
+        return got, want, out
+
+    i2c_check("random, D=Z=3, ragged B=3000, T=25", i2c_random(20, 3000, 25, 2, 1, 3, False))
+    i2c_check(f"random, D=Z=5, B={I2CS_B}, T={I2CS_T}, shared R",
+              i2c_random(21, I2CS_B, I2CS_T, 4, 1, 5, True))
+    i2c_check("random, D=6, Z=4, B=1000, T=12", i2c_random(22, 1000, 12, 5, 1, 4, False))
+    i2c_check("random, D=4 (two actions), Z=6, B=333, T=9", i2c_random(23, 333, 9, 2, 2, 6, True))
+    _, _, out = i2c_check("T=1, D=Z=3, B=100", i2c_random(24, 100, 1, 2, 1, 3, False))
+    if out.shape != (100, 1, 3):
+        fail("i2c_smooth_batch: a one-step horizon is misshapen")
+    p_nan = i2c_random(25, 300, 9, 2, 1, 3, False)
+    clean = i2c_smooth_batch(*p_nan)
+    p_nan[0][7, 2, 0, 0] = float("nan")
+    _, _, out = i2c_check("NaN in F of scenario 7, D=Z=3, B=300, T=9", p_nan)
+    others = torch.arange(300, device=dev) != 7
+    if not (torch.isnan(out[7]).all() and torch.equal(out[others], clean[others])):
+        fail("i2c_smooth_batch: the NaN scenario is not all NaN, or it touched another")
+    i2c_first_iteration_inputs = {}
+    for env_, T, B in ((PendulumEnv, I2C6_T, I2C6_B), (CartPoleSwingUpEnv, I2CS_T, I2CS_B),
+                       (AcrobotEnv, I2CS_T, 1024)):
+        p = i2c_first_iteration(env_, T, B, 26)
+        label = f"{env_.model.name} first iteration, B={B}, T={T}"
+        got, want, out = i2c_check(label, p)
+        i2c_first_iteration_inputs[env_.model.name] = (p, got)
+        if env_ is CartPoleSwingUpEnv:  # the sweep's shape and model
+            errs["i2c_filter"] = max(compare(f"i2c_filter[{label}] {key}", g, w) for key, g, w
+                                     in zip(("mu_f", "sig_f", "mu_pred", "sig_pred"), got, want))
+            errs["i2c_rts_smooth"] = compare(
+                f"i2c_rts_smooth[{label}]", i2c_rts_smooth(*got, p[0]),
+                i2c_rts_smooth_reference(*want, p[0]))
+
     # 4. main paths
     launches = {}
     env = CartPoleSwingUpEnv
@@ -680,6 +815,56 @@ def main():
     if not final_theta < QP2_START[2] or float(res.true_actions.abs().max()) > 1.0:
         fail("qpmpc configuration 2: the pole was not brought towards upright within the box")
 
+    # I2C: configuration 6 (pendulum) and the sweep's row (cart-pole), one
+    # launch of the filter and one of the smoother per iteration
+    def jittered(env_, B, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return (env_.start_state(dev).expand(B, -1) + 1e-3 * torch.randn(
+            (B, env_.model.state_size), generator=gen, device=dev)).contiguous()
+
+    i2c6 = I2C(model=PendulumEnv.model, T=I2C6_T, max_iter=I2C6_ITERS)
+    i2c6_cfg = EpisodeConfig(n_steps=I2C6_STEPS, record_plans=False)
+    i2c6_x0s = jittered(PendulumEnv, I2C6_B, 0)
+
+    def i2c6_episode():
+        return run_episodes_fused(PendulumEnv, i2c6, i2c6_cfg, i2c6_x0s, device=dev)
+
+    n = I2C6_STEPS * I2C6_ITERS
+    res = run_path("i2c configuration 6", i2c6_episode, {"i2c_filter": n, "i2c_rts_smooth": n})
+    if res.costs.shape != (I2C6_B, I2C6_STEPS) or float(res.true_actions.abs().max()) > 2.0:
+        fail("i2c configuration 6: episode misshapen or an action outside the box")
+    c6 = res.costs
+    early, late = float(c6[:, :10].mean()), float(c6[:, -10:].mean())
+    print(f"i2c configuration 6: mean plant cost of the first 10 steps {early:.3f}, of the last "
+          f"10 {late:.3f}; max |theta| at the end "
+          f"{float(res.true_states[:, -1, 0].abs().max()):.3f}", flush=True)
+    if not late < early:
+        fail("i2c configuration 6: the plant cost did not fall over the episode")
+
+    i2cs = I2C(model=env.model, T=I2CS_T, max_iter=I2CS_ITERS)
+    i2cs_cfg = EpisodeConfig(n_steps=I2CS_STEPS, record_plans=False)
+    i2cs_x0s = jittered(env, I2CS_B, 0)
+
+    def i2cs_episode():
+        return run_episodes_fused(env, i2cs, i2cs_cfg, i2cs_x0s, device=dev)
+
+    n = I2CS_STEPS * I2CS_ITERS
+    res = run_path("i2c sweep row", i2cs_episode, {"i2c_filter": n, "i2c_rts_smooth": n})
+    if res.costs.shape != (I2CS_B, I2CS_STEPS) or float(res.true_actions.abs().max()) > 1.0:
+        fail("i2c sweep row: episode misshapen or an action outside the box")
+    # one solve improves the plan's rollout cost (the line search keeps the
+    # old plan otherwise, so no scenario may get worse)
+    i2cs_gz = torch.zeros((I2CS_T, env.model.goal_size), device=dev)
+    i2cs_st = i2cs.init_state_batch(I2CS_B, torch.Generator(device=dev).manual_seed(0), dev)
+    _, cost0 = simulate_trajectory(env.model, i2cs_x0s, i2cs_st.planned_us, i2cs_gz)
+    solved = i2cs.solve_batch(i2cs_st, i2cs_x0s, i2cs_gz)[0]
+    _, cost1 = simulate_trajectory(env.model, i2cs_x0s, solved.planned_us, i2cs_gz)
+    print(f"i2c sweep row: one solve takes the plan's rollout cost from {float(cost0.mean()):.3f} "
+          f"to {float(cost1.mean()):.3f} (mean of {I2CS_B}), lower in "
+          f"{int((cost1 < cost0).sum())}", flush=True)
+    if not bool((cost1 <= cost0 + 1e-3 * cost0.abs()).all() and (cost1 < cost0).any()):
+        fail("i2c sweep row: a solve made a plan's rollout cost worse, or moved none")
+
     # small episodes on the card against the plain versions on the CPU
     def small_match(label, tol, run):
         on_card, on_cpu = run(dev), run("cpu")
@@ -716,6 +901,12 @@ def main():
         small_match(f"qpmpc admm at {mode}", QP_EPISODE_TOL, lambda d: run_episodes_fused(
             PendulumEnv, QPMPC(model=PendulumEnv.model, T=10, method="admm", iters=40,
                                linearize_at=mode), small_cfg, qp_small.to(d), device=d))
+
+    i2c_small = torch.tensor([3.0, 0.2]).expand(8, -1) + 0.1 * torch.from_numpy(
+        np.random.default_rng(7).standard_normal((8, 2)).astype(np.float32))
+    small_match("i2c", I2C_EPISODE_TOL, lambda d: run_episodes_fused(
+        PendulumEnv, I2C(model=PendulumEnv.model, T=10, max_iter=3), small_cfg,
+        i2c_small.to(d), device=d))
 
     # swing-up progress on the kernel tier (the reference's own check)
     penv = PendulumEnv
@@ -820,6 +1011,36 @@ def main():
           f"{cuda_time_ms(lambda: admm_iterate_reference(*pp, iters=60), reps=3, warmup=1):.3f} "
           f"ms", flush=True)
 
+    # kernels 8a and 8b on a first iteration's matrices: cart-pole at the
+    # sweep's shape (the table's row), then the pendulum at configuration 6's
+    def i2c_bounds(p):
+        B_, T_, D = p[0].shape[:3]
+        Zf = p[2].shape[2]
+        pts = B_ * T_
+        shared = 2 * D * D + T_ * Zf + p[4].numel() + B_ * D  # sig0, Qproc, g_z, R, mu0
+        return (bound(4 * (pts * (D * D + D + Zf * D + Zf + 2 * (D + D * D)) + shared),
+                      pts * i2c_filter_ops(D, Zf)),
+                bound(4 * (pts * (2 * (D + D * D) + D * D + D)), pts * i2c_rts_ops(D)))
+
+    p, outs = i2c_first_iteration_inputs["cartpole_swingup"]
+    ms["i2c_filter"] = cuda_time_ms(lambda: i2c_filter(*p))
+    ms["i2c_rts_smooth"] = cuda_time_ms(lambda: i2c_rts_smooth(*outs, p[0]))
+    plain_ms["i2c_filter"] = cuda_time_ms(lambda: i2c_filter_reference(*p), reps=3, warmup=1)
+    plain_ms["i2c_rts_smooth"] = cuda_time_ms(lambda: i2c_rts_smooth_reference(*outs, p[0]),
+                                              reps=3, warmup=1)
+    bounds["i2c_filter"], bounds["i2c_rts_smooth"] = i2c_bounds(p)
+    print(f"i2c_filter: {i2c_filter_ops(5, 5)} operations per point at D = Z = 5, "
+          f"i2c_rts_smooth: {i2c_rts_ops(5)}; {I2CS_B * I2CS_T} points", flush=True)
+    p6, outs6 = i2c_first_iteration_inputs["pendulum"]
+    b6 = i2c_bounds(p6)
+    print(f"[{smi}] at configuration 6's shape (pendulum, B={I2C6_B}, T={I2C6_T}, D=Z=3): "
+          f"i2c_filter kernel {cuda_time_ms(lambda: i2c_filter(*p6)):.4f} ms, plain "
+          f"{cuda_time_ms(lambda: i2c_filter_reference(*p6), reps=3, warmup=1):.3f} ms, bound "
+          f"{b6[0][0]:.5f} ms ({b6[0][1]}); i2c_rts_smooth kernel "
+          f"{cuda_time_ms(lambda: i2c_rts_smooth(*outs6, p6[0])):.4f} ms, plain "
+          f"{cuda_time_ms(lambda: i2c_rts_smooth_reference(*outs6, p6[0]), reps=3, warmup=1):.3f}"
+          f" ms, bound {b6[1][0]:.5f} ms ({b6[1][1]})", flush=True)
+
     for name in ms:
         print(f"[{smi}] {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
@@ -846,6 +1067,12 @@ def main():
         "qpmpc configuration 2": report_episodes(
             smi, "qpmpc configuration 2", episode_seconds(qp2_episode, 3, warmup=False),
             QP2_B, QP2_STEPS),
+        "i2c configuration 6": report_episodes(
+            smi, "i2c configuration 6", episode_seconds(i2c6_episode, 3, warmup=False),
+            I2C6_B, I2C6_STEPS),
+        "i2c sweep row": report_episodes(
+            smi, "i2c sweep row", episode_seconds(i2cs_episode, 3, warmup=False),
+            I2CS_B, I2CS_STEPS),
     }
 
     profile_window("mppi kernel-tier episode", smi, mppi_episode)
@@ -864,6 +1091,16 @@ def main():
     if n_kernels:
         print(f"sqp solve: {n_kernels / SQP_ITERS:.0f} device kernels per iteration (the one "
               f"nominal rollout of the solve shared out over them)", flush=True)
+    i2c6_st = i2c6.init_state_batch(I2C6_B, torch.Generator(device=dev).manual_seed(0), dev)
+    i2c6_gz = torch.zeros((I2C6_T, PendulumEnv.model.goal_size), device=dev)
+    for label, iters, solve in (
+            ("configuration 6", I2C6_ITERS, lambda: i2c6.solve_batch(i2c6_st, i2c6_x0s, i2c6_gz)),
+            ("sweep row", I2CS_ITERS, lambda: i2cs.solve_batch(i2cs_st, i2cs_x0s, i2cs_gz))):
+        n_kernels = profile_window(f"i2c {label} solve (one MPC step, {iters} iterations)", smi,
+                                   solve)
+        if n_kernels:
+            print(f"i2c {label} solve: {n_kernels / iters:.0f} device kernels per iteration",
+                  flush=True)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s", flush=True)
 
     sources = {
@@ -876,6 +1113,8 @@ def main():
                              "benchmarking_mpc_solvers_tpu/ops/fused_linesearch.py:122"),
         "fused_derivs": ("fused_derivs.cu", "benchmarking_mpc_solvers_tpu/ops/fused_derivs.py:86"),
         "admm_iterate": ("admm_iterate.cu", "benchmarking_mpc_solvers_tpu/ops/qp_pallas.py:148"),
+        "i2c_filter": ("i2c_smooth.cu", "benchmarking_mpc_solvers_tpu/ops/i2c_pallas.py:121"),
+        "i2c_rts_smooth": ("i2c_smooth.cu", "benchmarking_mpc_solvers_tpu/ops/i2c_pallas.py:239"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

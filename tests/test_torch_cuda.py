@@ -12,7 +12,8 @@ the softmax and plan update differ. The CEM elite masks and the Riccati
 The derivative kernel pushes forward-mode tangents where its plain version
 differentiates in reverse mode: the same formulas in another order, well
 inside 1e-4. The ADMM kernel sums its matvec in the plain version's order
-and must match it bit for bit.
+and must match it bit for bit, and so must the Kalman-filter and
+RTS-smoother kernels, whose every sum follows the plain version's order.
 """
 
 import numpy as np
@@ -287,3 +288,118 @@ def test_wrapper_rejects_bad_arguments(dev):
         fused_mppi_step(model, 4, 1.0, 1.0, 128, plan, x0, gz, 0)
     with pytest.raises(ValueError):
         fused_rollout_costs_tm(model, x0, torch.zeros((4, 8), device=dev).T, gz)
+
+
+# -- the I2C Kalman filter and RTS smoother ------------------------------------------
+
+def _i2c_problem(dev, seed, B, T, S, A, Z, shared_R=False):
+    rng = np.random.default_rng(seed)
+    D = S + A
+    F = np.zeros((B, T, D, D))
+    F[:, :, :S, :S] = np.eye(S) * 0.9 + 0.05 * rng.standard_normal((B, T, S, S))
+    F[:, :, :S, S:] = 0.3 * rng.standard_normal((B, T, S, A))
+    Rm = rng.standard_normal((B, Z, Z))
+    R = np.einsum("bij,bkj->bik", Rm, Rm) * 0.1 + 0.5 * np.eye(Z)
+    sig0, Qproc = np.zeros((D, D)), np.zeros((D, D))
+    sig0[:S, :S], sig0[S:, S:] = 1e-8 * np.eye(S), 0.25 * np.eye(A)
+    Qproc[:S, :S], Qproc[S:, S:] = 1e-6 * np.eye(S), 0.25 * np.eye(A)
+    arrays = (F, 0.1 * rng.standard_normal((B, T, D)), rng.standard_normal((B, T, Z, D)),
+              0.2 * rng.standard_normal((B, T, Z)), R[0] if shared_R else R,
+              np.concatenate([rng.standard_normal((B, S)), np.zeros((B, A))], axis=1),
+              sig0, Qproc, 0.1 * rng.standard_normal((T, Z)))
+    return [_t(a, dev) for a in arrays]
+
+
+def _same(got, want):
+    """Bit for bit, NaN at the same places."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("B,T,S,A,Z,shared_R", [
+    (3000, 25, 2, 1, 3, False), (1024, 50, 4, 1, 5, True), (500, 12, 5, 1, 4, False),
+    (333, 9, 2, 2, 6, True), (100, 1, 2, 1, 3, False), (33, 5, 1, 1, 1, False),
+], ids=["D3-ragged", "D5-shared-R", "D6-Z4", "two-actions-Z6", "T1", "D2-Z1"])
+def test_i2c_filter_and_smoother_match_plain_bit_for_bit(dev, B, T, S, A, Z, shared_R):
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+
+    p = _i2c_problem(dev, B + T, B, T, S, A, Z, shared_R)
+    before = (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches)
+    got, want = ts.i2c_filter(*p), ts.i2c_filter_reference(*p)
+    for g, w in zip(got, want):
+        _same(g, w)
+    if T > 1:
+        _same(ts.i2c_rts_smooth(*got, p[0]), ts.i2c_rts_smooth_reference(*want, p[0]))
+    out = ts.i2c_smooth_batch(*p)
+    _same(out, ts.i2c_smooth_batch_reference(*p))
+    assert out.shape == (B, T, S + A)
+    n_rts = 2 if T > 1 else 0
+    assert (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches) == (
+        before[0] + 2, before[1] + n_rts)
+
+
+def test_i2c_nan_scenario_stays_nan_on_the_card(dev):
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+
+    p = _i2c_problem(dev, 7, 300, 9, 2, 1, 3)
+    clean = ts.i2c_smooth_batch(*p)
+    p[0][7, 2, 0, 0] = float("nan")
+    out = ts.i2c_smooth_batch(*p)
+    _same(out, ts.i2c_smooth_batch_reference(*p))
+    others = torch.arange(300, device=dev) != 7
+    assert torch.isnan(out[7]).all() and torch.equal(out[others], clean[others])
+
+
+def test_i2c_kernels_refuse_sizes_above_six_and_bad_arguments(dev):
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+
+    big = _i2c_problem(dev, 8, 16, 4, 6, 1, 7)  # D = Z = 7
+    with pytest.raises(NotImplementedError, match="use_fused=False"):
+        ts.i2c_filter(*big)
+    with pytest.raises(NotImplementedError, match="use_fused=False"):
+        ts.i2c_smooth_batch(*big)
+    cpu = [t.cpu() for t in big]
+    assert torch.isfinite(ts.i2c_smooth_batch(*cpu)).all()  # the plain version takes it
+    p = _i2c_problem(dev, 9, 16, 4, 2, 1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ts.i2c_filter(*p[:4], p[4].transpose(1, 2), *p[5:])
+    with pytest.raises(ValueError, match="is on"):
+        ts.i2c_filter(p[0].cuda(), *[t.cpu() for t in p[1:]])
+    with pytest.raises(TypeError):
+        ts.i2c_filter(*p[:8], p[8].double())
+
+
+@pytest.mark.parametrize("name,T,iters", [("pendulum", 25, 4), ("cartpole_swingup", 20, 3)])
+def test_i2c_solve_batch_launches_and_matches_cpu(dev, name, T, iters):
+    """One ``solve_batch`` on the card launches each kernel once per
+    iteration and gives the CPU tier's plans (2e-3, tests/test_torch_i2c.py);
+    the fused tier refuses a per-scenario goal on the card too."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import REGISTRY as ENVS
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+    from benchmarking_mpc_solvers_tpu_torch.solvers import I2C
+
+    env = ENVS[name]
+    solver = I2C(model=env.model, T=T, max_iter=iters)
+    rng = np.random.default_rng(3)
+    S = env.model.state_size
+    # cart-pole's plans saturate at the box, where the clip's derivative
+    # depends on the last bit (tests/test_torch_i2c.py): one iteration there
+    x0s = env.start_state("cpu").expand(64, -1) + torch.from_numpy(
+        0.1 * rng.standard_normal((64, S)).astype(np.float32))
+    g_z = torch.zeros((T, env.model.goal_size))
+    if name == "cartpole_swingup":
+        solver, iters = I2C(model=env.model, T=T, max_iter=1), 1
+    ts.i2c_filter.launches = ts.i2c_rts_smooth.launches = 0
+    st = solver.init_state_batch(64, torch.Generator(device=dev).manual_seed(0), dev)
+    on_card, u0, _ = solver.solve_batch(st, x0s.to(dev), g_z.to(dev))
+    assert (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches) == (iters, iters)
+    st_cpu = solver.init_state_batch(64, torch.Generator().manual_seed(0), "cpu")
+    on_cpu, _, _ = solver.solve_batch(st_cpu, x0s, g_z)
+    torch.testing.assert_close(on_card.planned_us.cpu(), on_cpu.planned_us, rtol=2e-3, atol=2e-3)
+    assert u0.shape == (64, 1) and bool(on_card.planned_us.abs().max() > 0)
+    plain, _, _ = solver.solve_batch(st, x0s.to(dev), g_z.to(dev), use_fused=False)
+    assert (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches) == (iters, iters)
+    torch.testing.assert_close(plain.planned_us, on_card.planned_us, rtol=2e-3, atol=2e-3)
+    with pytest.raises(NotImplementedError, match="pass use_fused=False"):
+        solver.solve_batch(st, x0s.to(dev), g_z.to(dev).expand(64, T, -1))

@@ -17,7 +17,8 @@ from benchmarking_mpc_solvers_tpu_torch.experiment import (
     run_episodes_batch,
     run_episodes_fused,
 )
-from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI, QPMPC, SQP
+from benchmarking_mpc_solvers_tpu_torch import convert, estimation
+from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, I2C, ILQR, MPPI, QPMPC, SQP
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_DIR = ROOT / "benchmarking_mpc_solvers_tpu_torch"
@@ -31,6 +32,9 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_reference():
     mods = _port_modules()
     assert "benchmarking_mpc_solvers_tpu_torch.experiment.episode" in mods
+    for new in ("solvers.i2c", "ops.i2c_smooth", "models.synthetic", "estimation",
+                "estimation.kalman", "estimation.quadrature", "estimation.cubature"):
+        assert f"benchmarking_mpc_solvers_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,6 +85,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: QPMPC(model=env.model, T=4).init_state(torch.Generator()),
                  lambda: QPMPC(model=env.model, T=4).init_state_batch(2, torch.Generator()),
                  lambda: run_episodes_fused(env, SQP(model=env.model, T=4), cfg, x0s),
-                 lambda: run_episodes_fused(env, QPMPC(model=env.model, T=4), cfg, x0s)):
+                 lambda: run_episodes_fused(env, QPMPC(model=env.model, T=4), cfg, x0s),
+                 lambda: I2C(model=env.model, T=4).init_state(torch.Generator()),
+                 lambda: I2C(model=env.model, T=4).init_state_batch(2, torch.Generator()),
+                 lambda: run_episodes_fused(env, I2C(model=env.model, T=4), cfg, x0s),
+                 lambda: convert.i2c_state_from_numpy([[0.0]] * 4),
+                 lambda: convert.i2c_problem_from_numpy(*[[0.0]] * 9),
+                 lambda: estimation.default_sigma_points(2),
+                 lambda: estimation.make_pendulum_ukf()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

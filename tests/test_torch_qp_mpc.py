@@ -151,9 +151,48 @@ def test_init_state_batch_and_options():
     st = TQPMPC(model=tm, T=5, init_std=3.0).init_state_batch(
         3, torch.Generator().manual_seed(0), device="cpu", noise=noise)
     np.testing.assert_allclose(st.planned_us.numpy(), np.clip(3.0 * noise, -2.0, 2.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8a"):
-        TQPMPC(model=tm, T=5, parallel_horizon=True)
+    assert TQPMPC(model=tm, T=5, parallel_horizon=True).parallel_horizon  # no longer refused
     with pytest.raises(ValueError, match="method must be one of"):
         TQPMPC(model=tm, T=5, method="osqp")
     with pytest.raises(ValueError, match="linearize_at must be one of"):
         TQPMPC(model=tm, T=5, linearize_at="trajectory")
+
+
+@pytest.mark.parametrize("name,kw", [("pendulum", {}), ("cartpole_swingup", CARTPOLE)])
+def test_parallel_horizon_matches_sequential_and_reference(name, kw):
+    """``QPMPC(parallel_horizon=True)`` runs the Riccati-ADMM's three horizon
+    recursions as associative scans: the plans of the sequential setting
+    and of the reference's same switch, through ``solve_batch`` (shared
+    factors) and ``solve``."""
+    env, xs, plans, g_z = _problem(name, seed=7)
+    js, ts = _both(name, iters=30, parallel_horizon=True, **kw)
+    _, seq = _both(name, iters=30, **kw)
+    st = convert.qpmpc_state_from_numpy(plans, device="cpu")
+    par_t, u0_t, _ = ts.solve_batch(st, torch.tensor(xs), torch.tensor(g_z))
+    seq_t, _, _ = seq.solve_batch(st, torch.tensor(xs), torch.tensor(g_z))
+    torch.testing.assert_close(par_t.planned_us, seq_t.planned_us, rtol=TOL, atol=TOL)
+    want, u0_j, _ = js.solve_batch(JState(jnp.asarray(plans), jax.random.PRNGKey(0)),
+                                   jnp.asarray(xs), jnp.asarray(g_z))
+    np.testing.assert_allclose(par_t.planned_us.numpy(), np.asarray(want.planned_us),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(u0_t.numpy(), np.asarray(u0_j), rtol=TOL, atol=TOL)
+    one = convert.qpmpc_state_from_numpy(plans[0], device="cpu")
+    new_t, _, _ = ts.solve(one, torch.tensor(xs[0]), torch.tensor(g_z))
+    torch.testing.assert_close(new_t.planned_us, par_t.planned_us[0], rtol=TOL, atol=TOL)
+
+
+def test_admm_solve_riccati_batch_parallel_horizon_keeps_iteration_count():
+    """The function-level switch: the same plans, residuals below eps and
+    the same number of ADMM iterations as the sequential recursions."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.qp import admm_solve_riccati_batch
+
+    env, xs, _, _ = _problem("pendulum", seed=8)
+    ts = TQPMPC(model=TENVS["pendulum"].model, T=T)
+    Q, R, Qf = ts._weights("cpu")
+    args = (ts._linearize(torch.tensor(xs[0])), torch.tensor(xs), Q, R, Qf, torch.zeros(2),
+            torch.zeros(1), torch.tensor([-2.0]), torch.tensor([2.0]))
+    seq = admm_solve_riccati_batch(*args, iters=300, eps=1e-3)
+    par = admm_solve_riccati_batch(*args, iters=300, eps=1e-3, parallel_horizon=True)
+    torch.testing.assert_close(par[0], seq[0], rtol=TOL, atol=TOL)
+    assert int(seq[3]) < 300 and abs(int(par[3]) - int(seq[3])) <= 2
+    assert float(par[1]) < 1e-3 and float(par[2]) < 1e-3

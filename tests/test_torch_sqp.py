@@ -166,11 +166,29 @@ def test_init_state_draws_clipped_plans_from_injected_noise():
     torch.testing.assert_close(drawn.planned_us, want)
 
 
-@pytest.mark.parametrize("option,item", [({"model_noise_std": 0.1}, "item 9a"),
-                                         ({"parallel_horizon": True}, "item 8a")])
+@pytest.mark.parametrize("option,item", [({"model_noise_std": 0.1}, "item 9a")])
 def test_unported_sqp_options_raise_naming_the_roadmap(option, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         TSQP(model=TENVS["acrobot"].model, T=4, **option)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_parallel_horizon_matches_sequential_and_reference(fused):
+    """``SQP(parallel_horizon=True)`` solves its subproblem by the
+    associative-scan Riccati: the plans of the sequential setting and of
+    the reference's same switch, to the solve tolerance."""
+    env, x0s, plans, g_z = _problem("acrobot", seed=6)
+    want_j, _, _ = _reference_sqp(env, x0s, plans, g_z, max_iter=2, parallel_horizon=True)
+    st = convert.sqp_state_from_numpy(plans, device="cpu")
+    out = {}
+    for par in (True, False):
+        ts = TSQP(model=TENVS["acrobot"].model, T=T, max_iter=2, parallel_horizon=par)
+        out[par] = ts.solve_batch(st, torch.tensor(x0s), torch.tensor(g_z),
+                                  use_fused=fused)[0].planned_us
+    torch.testing.assert_close(out[True], out[False], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(out[True].numpy(), np.asarray(want_j.planned_us), rtol=TOL,
+                               atol=TOL)
+    assert not torch.equal(out[True], torch.tensor(plans))
 
 
 # -- ILQR(gauss_newton=True) -------------------------------------------------------

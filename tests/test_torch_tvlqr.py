@@ -131,14 +131,36 @@ def test_tvlqr_backward_cv_is_the_batched_backward_pass():
     _close(got.k, ref.k, "k")
 
 
-@pytest.mark.parametrize("call", [
-    lambda d, c: tric.riccati_factors(d, c, parallel=True),
-    lambda d, c: tric.tvlqr_solve_linear_batch(d, None, c.q, c.qf, None, None, parallel=True),
-    lambda d, c: tric.tvlqr_values_assoc(d, c),
-    lambda d, c: tric.tvlqr_backward_assoc(d, c),
-    lambda d, c: tric.tvlqr_backward_assoc_general(d, c),
-], ids=["factors", "linear_batch", "values_assoc", "backward_assoc", "assoc_general"])
-def test_associative_scan_forms_raise_naming_the_roadmap(call):
-    _, _, td, tc = both(*problem((), 3, 2, 1, seed=7))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8a"):
-        call(td, tc)
+@pytest.mark.parametrize("form", ["factors", "linear_batch", "values_assoc", "backward_assoc",
+                                  "assoc_general"])
+def test_associative_scan_forms_agree_with_the_sequential_recursion(form):
+    """Each associative-scan entry point on a three-step problem against
+    the sequential recursion (tests/test_torch_riccati_assoc.py holds them
+    against the reference); 2e-4, the scan's other order of float32
+    solves."""
+    dyn, cost = problem((), 3, 2, 1, seed=7)
+    if form != "assoc_general":
+        cost[2] = np.zeros_like(cost[2])  # the plain forms take no cross term
+    _, _, td, tc = both(dyn, cost)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    if form == "factors":
+        got, want = tric.riccati_factors(td, tc, parallel=True), tric.riccati_factors(td, tc)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **tol)
+    elif form == "linear_batch":
+        f = tric.riccati_factors(td, tc)
+        rs, x0s = torch.ones((3, 4, 1)), torch.full((4, 2), 0.5)
+        torch.testing.assert_close(
+            tric.tvlqr_solve_linear_batch(td, f, tc.q, tc.qf, rs, x0s, parallel=True),
+            tric.tvlqr_solve_linear_batch(td, f, tc.q, tc.qf, rs, x0s), **tol)
+    elif form == "values_assoc":
+        P, _ = tric.tvlqr_values_assoc(td, tc)
+        f = tric.riccati_factors(td, tc)
+        # P_{t+1} c_t of the sequential factors, from the scan's values
+        torch.testing.assert_close((P[1:] @ td.c[..., None])[..., 0], f.Pc, **tol)
+    else:
+        fn = tric.tvlqr_backward_assoc if form == "backward_assoc" else (
+            tric.tvlqr_backward_assoc_general)
+        got, want = fn(td, tc), tric.tvlqr_backward(td, tc)
+        torch.testing.assert_close(got.K, want.K, **tol)
+        torch.testing.assert_close(got.k, want.k, **tol)
