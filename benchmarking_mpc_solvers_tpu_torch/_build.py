@@ -101,7 +101,7 @@ def load(source: str) -> ctypes.CDLL:
     lib = _LIBS.get(source)
     if lib is None:
         path, _ = build_all()[source]
-        lib = ctypes.CDLL(str(path))
+        lib = typed(ctypes.CDLL(str(path)), source)
         _LIBS[source] = lib
     return lib
 
@@ -131,16 +131,24 @@ SIGNATURES = {
         "admm_iterate.cu", [_P] * 5 + [_I] * 5 + [_F, _F, _F, _I, _I, _P]),
     "i2c_filter_launch": ("i2c_smooth.cu", [_P] * 13 + [_I] * 5 + [_P]),
     "i2c_rts_launch": ("i2c_smooth.cu", [_P] * 6 + [_I] * 3 + [_P]),
+    "i2c_launch_config": ("i2c_smooth.cu", [_I, _I, _I, _P]),
 }
+
+
+def typed(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
+    """Gives a library built from ``source`` the C types of its entry points
+    (those it has) and returns it."""
+    for name, (src, argtypes) in SIGNATURES.items():
+        if src == source and hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def kernel_fn(name: str):
     """The ctypes function of a C entry point, typed; it returns cudaError."""
-    source, argtypes = SIGNATURES[name]
-    fn = getattr(load(source), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    return getattr(load(SIGNATURES[name][0]), name)
 
 
 def model_id(model) -> int:

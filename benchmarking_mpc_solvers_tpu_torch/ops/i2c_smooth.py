@@ -15,12 +15,15 @@ cost features, Z of them:
   the filtered mean without a backward pass.
 
 On CUDA tensors each wrapper launches its hand-written kernel in
-``csrc/i2c_smooth.cu`` (one thread per scenario, mean and covariance in
-registers over the horizon) or raises; on CPU tensors it runs its
+``csrc/i2c_smooth.cu`` or raises; on CPU tensors it runs its
 ``*_reference``, the plain PyTorch version with the reference kernel's
 arithmetic written out entry by entry in the same order, so that the kernel
-and the plain version round alike. ``i2c_filter.launches`` and
-``i2c_rts_smooth.launches`` count kernel launches.
+and the plain version round alike. The kernels give each scenario a group of
+8 lanes, lane r computing row r of each matrix (the Cholesky factor in every
+lane), and copy the horizon's inputs into shared memory with ``cp.async`` a
+few steps ahead of the chain; ``launch_config`` reports the launch shape.
+``i2c_filter.launches`` and ``i2c_rts_smooth.launches`` count kernel
+launches.
 
 The Cholesky diagonals are floored at 1e-30 (the inputs are positive definite
 by construction: R and the priors carry explicit ridges); a NaN passes the
@@ -28,6 +31,8 @@ floor and reaches the output, which the solver's failure guard relies on.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -195,6 +200,22 @@ def i2c_smooth_batch_reference(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
 
 
 # -- wrappers -------------------------------------------------------------------------
+
+
+def launch_config(D: int, Z: int, B: int) -> dict:
+    """The kernels' launch shape for B scenarios at (D, Z) on the current
+    card (the smoother's blocks are wider where B fills the SMs): the stages
+    of the shared-memory ring and, for ``filter`` and ``rts`` each, threads
+    and scenarios per block, time steps per stage, shared bytes per block,
+    registers per thread and resident blocks per SM."""
+    _check_dims("launch_config", D, Z)
+    out = (ctypes.c_int * 13)()
+    _build.check_rc("launch_config", _build.kernel_fn("i2c_launch_config")(
+        D, Z, B, ctypes.cast(out, ctypes.c_void_p)))
+    keys = ("threads", "scenarios_per_block", "chunk", "shared_bytes", "registers",
+            "blocks_per_sm")
+    return {"stages": out[0], "filter": dict(zip(keys, out[1:7])),
+            "rts": dict(zip(keys, out[7:13]))}
 
 
 def i2c_filter(F, m, J, z0, R, mu0, sig0, Qproc, g_z):

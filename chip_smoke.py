@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # build, check, drive, time; one card
+    python3 chip_smoke.py --ptxas    # the same, and each kernel's registers and spills
 
 Phases (any failure exits non-zero before the result line):
 1. device: requires CUDA; prints the card's name and power limit.
@@ -8,7 +9,8 @@ Phases (any failure exits non-zero before the result line):
    csrc`` (one nvcc per source, in parallel).
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on each model, at the main paths' shapes (CEM's elite masks and
-   the Riccati ``ok`` flags exactly).
+   the Riccati ``ok`` flags exactly; kernels 7, 8a and 8b bit for bit, 8a
+   and 8b also at the edges of their blocks and shared-memory stages).
 4. main paths, each with the launch counters set to 0 just before its run
    and read just after:
    - MPPI, the bench configuration (cart-pole swing-up, K=32, T=50,
@@ -34,7 +36,8 @@ Phases (any failure exits non-zero before the result line):
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
-5. timings with CUDA events: each kernel, its plain version and its bound;
+5. timings with CUDA events: each kernel, its plain version and its bound
+   (for kernels 8a and 8b also with the horizon's dependent chain);
    host-clock episode solves/s of every path; device time by kernel.
 Then a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -125,6 +128,9 @@ LS_EXTRA = lambda S: 3 * S + 5  # noqa: E731
 # v = rho*(z-y)-g (3), u' (3), +y (1), the clip (2), y+ (2)
 ADMM_ROW_OPS = lambda n: 2 * n + 11  # noqa: E731
 PEAK_FP32 = 67e12  # H100 SXM FP32 (non-tensor) FLOP/s, published, at 700 W
+# a dependent FP32 operation's latency in cycles, the least the card's
+# pipeline takes (a square root or a division takes many more)
+FP32_LATENCY_CYCLES = 4
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
 
@@ -174,6 +180,95 @@ def i2c_rts_ops(D: int) -> int:
             + D * D + D * D * 2 * D + D * D * (2 * D + 1))  # sig_s
 
 
+def _dep(*depths):
+    """Depth of one operation on operands of the given depths: one more
+    than the deepest. None marks a value the chain does not wait for (an
+    input of the step, which a kernel may load or compute ahead)."""
+    known = [d for d in depths if d is not None]
+    return max(known) + 1 if known else None
+
+
+def _sum(terms):
+    """A sum taken from 0 upwards, as the reference takes it (0 + t0 is an
+    operation of its own)."""
+    s = None
+    for t in terms:
+        s = _dep(s, t)
+    return s
+
+
+def _chol_depths(A, n):
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = A[i][j]
+            for k in range(j):
+                s = _dep(s, _dep(L[i][k], L[j][k]))
+            L[i][j] = _dep(_dep(s)) if i == j else _dep(s, L[j][j])  # floor, sqrt
+    return L
+
+
+def _solve_depths(L, b, n):
+    y, x = [None] * n, [None] * n
+    for i in range(n):
+        s = b[i]
+        for k in range(i):
+            s = _dep(s, _dep(L[i][k], y[k]))
+        y[i] = _dep(s, L[i][i])
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = _dep(s, _dep(L[k][i], x[k]))
+        x[i] = _dep(s, L[i][i])
+    return x
+
+
+def _filter_step_depth(D, Z, sig, mu):
+    """Deepest new carried value (predicted covariance and mean) of one
+    filter step of csrc/i2c_smooth.cu, from carried depths sig and mu."""
+    rd, rz = range(D), range(Z)
+    sig_p, mu_p = [[sig] * D for _ in rd], [mu] * D
+    PJt = [[_sum(_dep(sig_p[i][k], None) for k in rd) for _ in rz] for i in rd]
+    sig_y = [[_dep(None, _sum(_dep(None, PJt[k][c]) for k in rd)) for c in rz] for _ in rz]
+    Lc = _chol_depths(sig_y, Z)
+    sols = [_solve_depths(Lc, PJt[i], Z) for i in rd]
+    innov = [_dep(None, _dep(_sum(_dep(None, mu_p[k]) for k in rd), None)) for _ in rz]
+    mu_f = [_dep(mu_p[i], _sum(_dep(sols[i][a], innov[a]) for a in rz)) for i in rd]
+    sf = [[_dep(sig_p[i][j], _sum(_dep(sols[i][a], PJt[j][a]) for a in rz)) for j in rd]
+          for i in rd]
+    sig_f = [[_dep(_dep(sf[i][j], sf[j][i])) for j in rd] for i in rd]
+    FS = [[_sum(_dep(None, sig_f[k][j]) for k in rd) for j in rd] for _ in rd]
+    new = [_dep(_sum(_dep(FS[i][k], None) for k in rd), None) for i in rd for _ in rd]
+    new += [_dep(None, _sum(_dep(None, mu_f[k]) for k in rd)) for _ in rd]
+    return max((d for d in new if d is not None), default=0)
+
+
+def i2c_filter_chain(D: int, Z: int) -> int:
+    """Dependent FP32 operations of one filter step's loop-carried chain in
+    csrc/i2c_smooth.cu: the longest path from one step's predicted
+    covariance (or mean) to the next step's, every sum in the reference
+    order, a square root, a division and the Cholesky floor each one
+    operation. T of them in a row are a lower bound of the horizon's time."""
+    return max(_filter_step_depth(D, Z, 0, None), _filter_step_depth(D, Z, None, 0))
+
+
+def _rts_step_depth(D, sig, mu):
+    rd = range(D)
+    sig_next, mu_next = [[sig] * D for _ in rd], [mu] * D
+    # G, its factor and M come from the step's inputs alone
+    new = [_dep(None, _sum(_dep(None, _dep(mu_next[k], None)) for k in rd)) for _ in rd]
+    Dlt = [[_dep(sig_next[i][j], None) for j in rd] for i in rd]
+    GD = [[_sum(_dep(None, Dlt[k][j]) for k in rd) for j in rd] for _ in rd]
+    new += [_dep(None, _sum(_dep(GD[i][k], None) for k in rd)) for i in rd for _ in rd]
+    return max((d for d in new if d is not None), default=0)
+
+
+def i2c_rts_chain(D: int) -> int:
+    """The smoother's loop-carried chain per step, as ``i2c_filter_chain``:
+    the gain G does not depend on the carry, so only sig_s and mu_s are on it."""
+    return max(_rts_step_depth(D, 0, None), _rts_step_depth(D, None, 0))
+
+
 def derivs_ops(model) -> int:
     """FP32 operations fused_derivs needs per point, a lower bound counted
     from csrc/fused_derivs.cu: one primal pass of dynamics + transform (the
@@ -197,7 +292,9 @@ def fail(msg: str):
 
 
 def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median per-call device time of fn over reps, by CUDA events."""
+    """Median over reps of CUDA events around one call of fn on an idle
+    card: the time holds the call's host work before its launch (a
+    wrapper's checks and allocations) as well as its device time."""
     for _ in range(warmup):
         fn()
     times = []
@@ -271,11 +368,12 @@ def exact(name, got, want):
 
 
 def exact_nan(name, got, want):
-    """``exact`` for float outputs that may hold NaN: NaN at the same places
-    in both, every other entry equal."""
+    """``exact`` for float32 outputs that may hold NaN: NaN at the same
+    places in both, every other entry the same bits (a zero's sign too)."""
     torch.cuda.synchronize()
     nan = torch.isnan(want)
-    if not torch.equal(torch.isnan(got), nan) or not torch.equal(got[~nan], want[~nan]):
+    if not torch.equal(torch.isnan(got), nan) or not torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32)):
         fail(f"{name}: kernel and plain version differ")
     print(f"{name}: identical{f' ({int(nan.sum())} NaN alike)' if bool(nan.any()) else ''}",
           flush=True)
@@ -317,9 +415,41 @@ def report_episodes(smi, label, times, batch, steps):
     return med
 
 
-def bound(bytes_, ops):
+def bound(bytes_, ops, chain_ms=None):
+    """The least time in ms for the work, and what sets it: the bytes at the
+    card's memory rate, the operations at its FP32 rate and, where given, a
+    dependent chain's latency."""
     b = {"bytes": bytes_ / PEAK_BYTES * 1e3, "operations": ops / PEAK_FP32 * 1e3}
+    if chain_ms is not None:
+        b["chain"] = chain_ms
     return max(b.values()), max(b, key=b.get)
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
+
+
+def chain_ms(steps: int, chain: int, clock_mhz: float) -> float:
+    """steps dependent chains of ``chain`` operations at the least latency
+    each, at the card's maximum SM clock."""
+    return steps * chain * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+
+
+def i2c_first_iteration_inputs_for(env_, T, B, seed, dev):
+    """What ``I2C._smooth_once`` hands the smoother at a solve's first
+    iteration from jittered starts and small random plans."""
+    from benchmarking_mpc_solvers_tpu_torch.solvers import I2C
+    solver = I2C(model=env_.model, T=T)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S = env_.model.state_size
+    xs = env_.start_state(dev).expand(B, -1) + 0.1 * torch.randn((B, S), generator=gen, device=dev)
+    us = 0.3 * torch.randn((B, T, env_.model.action_size), generator=gen, device=dev)
+    gz = torch.zeros((T, env_.model.goal_size), device=dev)
+    F, m, J, z0, mu0 = solver._smoother_inputs(xs, us, gz)
+    return [t.contiguous() for t in (F, m, J, z0, solver._obs_noise(solver.alphas()[0], dev),
+                                     mu0, *solver._prior_covs(dev), gz)]
 
 
 def main():
@@ -355,6 +485,7 @@ def main():
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import (
         i2c_filter, i2c_filter_reference, i2c_rts_smooth, i2c_rts_smooth_reference,
         i2c_smooth_batch, i2c_smooth_batch_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import launch_config as i2c_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import (
         admm_iterate, admm_iterate_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
@@ -378,6 +509,13 @@ def main():
     for src, (_, log) in built.items():
         if log.strip():
             print(f"--- nvcc {src}\n{log.strip()}", flush=True)
+    cfg33, cfg55 = i2c_launch_config(3, 3, I2C6_B), i2c_launch_config(5, 5, I2CS_B)
+    for (D, Z, B), c in (((3, 3, I2C6_B), cfg33), ((5, 5, I2CS_B), cfg55)):
+        print(f"i2c kernels at D={D}, Z={Z}, B={B}, rings of {c['stages']} stages: " + "; ".join(
+            f"{name} {k['threads']} threads = {k['scenarios_per_block']} scenarios per block, "
+            f"{k['chunk']} steps per stage, {k['shared_bytes']} shared bytes, {k['registers']} "
+            f"registers, {k['blocks_per_sm']} blocks per SM"
+            for name, k in (("filter", c["filter"]), ("smoother", c["rts"]))), flush=True)
 
     # 3. kernel vs plain version, on the card
     errs = {}
@@ -579,7 +717,11 @@ def main():
     # one step, a NaN in one scenario's F, then the matrices of a real first
     # iteration on every model (cart-pole's at the sweep's shape are the
     # ones timed below)
-    def i2c_random(seed, B, T, S, A, Z, shared_R):
+    def i2c_random(seed, B, T, S, A, Z, shared_R, variant=None):
+        """A random smoother problem. variant "offset": each array a
+        contiguous view one float into a larger buffer; "zeros": a zero row
+        of J, and negative zeros in F's action rows, J's first column and
+        mu0's actions (zero dividends of both signs in the solves)."""
         rng = np.random.default_rng(seed)
         D = S + A
         F = np.zeros((B, T, D, D))
@@ -595,22 +737,17 @@ def main():
         sig0[:S, :S], sig0[S:, S:] = 1e-8 * np.eye(S), 0.25 * np.eye(A)
         Qproc[:S, :S], Qproc[S:, S:] = 1e-6 * np.eye(S), 0.25 * np.eye(A)
         g = 0.1 * rng.standard_normal((T, Z))
+        if variant == "zeros":
+            F[:, :, S:, :], J[:, :, :, 0], mu0[:, S:] = -0.0, -0.0, -0.0
+            J[:, :, 0, :] = 0.0
         arrays = (F, m, J, z0, R[0] if shared_R else R, mu0, sig0, Qproc, g)
-        return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+        out = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+        if variant == "offset":
+            out = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in out]
+        return out
 
     def i2c_first_iteration(env_, T, B, seed):
-        """What ``I2C._smooth_once`` hands the smoother at a solve's first
-        iteration from jittered starts and small random plans."""
-        solver = I2C(model=env_.model, T=T)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        S = env_.model.state_size
-        xs = env_.start_state(dev).expand(B, -1) + 0.1 * torch.randn((B, S), generator=gen,
-                                                                      device=dev)
-        us = 0.3 * torch.randn((B, T, env_.model.action_size), generator=gen, device=dev)
-        gz = torch.zeros((T, env_.model.goal_size), device=dev)
-        F, m, J, z0, mu0 = solver._smoother_inputs(xs, us, gz)
-        return [t.contiguous() for t in (F, m, J, z0, solver._obs_noise(solver.alphas()[0], dev),
-                                         mu0, *solver._prior_covs(dev), gz)]
+        return i2c_first_iteration_inputs_for(env_, T, B, seed, dev)
 
     def i2c_check(label, p):
         got, want = i2c_filter(*p), i2c_filter_reference(*p)
@@ -628,6 +765,32 @@ def main():
               i2c_random(21, I2CS_B, I2CS_T, 4, 1, 5, True))
     i2c_check("random, D=6, Z=4, B=1000, T=12", i2c_random(22, 1000, 12, 5, 1, 4, False))
     i2c_check("random, D=4 (two actions), Z=6, B=333, T=9", i2c_random(23, 333, 9, 2, 2, 6, True))
+    # the lane-group kernels' edges: a ragged last group and block, T one
+    # past a stage, T over many passes of the ring, D = Z = 6, D = 1, views
+    # with a storage offset of one float
+    i2c_check("random, D=Z=3, B=4k+1=401, T=25", i2c_random(27, 401, 25, 2, 1, 3, False))
+    # the filter walks T steps, the smoother T - 1: one past a stage of each,
+    # and exactly one stage of the smoother, in its narrow and wide blocks
+    for B in (13, 5001):
+        c = i2c_launch_config(3, 3, B)
+        fc, rc = c["filter"]["chunk"], c["rts"]["chunk"]
+        for T in sorted({fc + 1, rc + 2, rc + 1}):
+            i2c_check(f"random, D=Z=3, B={B}, T={T} (stages of {fc} and {rc} steps)",
+                      i2c_random(28, B, T, 2, 1, 3, True))
+    i2c_check("random, D=Z=5, B=77, T=200", i2c_random(29, 77, 200, 4, 1, 5, False))
+    i2c_check("random, D=Z=6, B=301, T=20", i2c_random(30, 301, 20, 5, 1, 6, False))
+    i2c_check("random, D=1, Z=2, B=64, T=17", i2c_random(31, 64, 17, 1, 0, 2, True))
+    p_off = i2c_random(32, 257, 25, 2, 1, 3, False, "offset")
+    if not all(t.storage_offset() == 1 and t.is_contiguous() for t in p_off):
+        fail("i2c: the offset views are not contiguous views at offset 1")
+    i2c_check("random, D=Z=3, B=257, T=25, views at a storage offset of one float", p_off)
+    # zero dividends: the filter's solves on a zero row of J, the smoother's
+    # factorisation on the negative zeros of sig_pred's action rows
+    p_z = i2c_random(33, 3000, 10, 4, 1, 5, True, "zeros")
+    got_z, _, _ = i2c_check("random, D=Z=5, B=3000, T=10, a zero row of J", p_z)
+    neg = [torch.where(t == 0, torch.full_like(t, -0.0), t) for t in got_z]
+    exact_nan("i2c_rts_smooth[every zero of its inputs negative]", i2c_rts_smooth(*neg, p_z[0]),
+              i2c_rts_smooth_reference(*neg, p_z[0]))
     _, _, out = i2c_check("T=1, D=Z=3, B=100", i2c_random(24, 100, 1, 2, 1, 3, False))
     if out.shape != (100, 1, 3):
         fail("i2c_smooth_batch: a one-step horizon is misshapen")
@@ -1012,15 +1175,32 @@ def main():
           f"ms", flush=True)
 
     # kernels 8a and 8b on a first iteration's matrices: cart-pole at the
-    # sweep's shape (the table's row), then the pendulum at configuration 6's
+    # sweep's shape (the table's row), then the pendulum at configuration 6's.
+    # Each bound is the bytes' and the operations' (the kernels line's) and,
+    # beside it, the larger with the horizon's loop-carried chain
+    clock = max_sm_clock_mhz()
+
     def i2c_bounds(p):
         B_, T_, D = p[0].shape[:3]
         Zf = p[2].shape[2]
         pts = B_ * T_
         shared = 2 * D * D + T_ * Zf + p[4].numel() + B_ * D  # sig0, Qproc, g_z, R, mu0
-        return (bound(4 * (pts * (D * D + D + Zf * D + Zf + 2 * (D + D * D)) + shared),
-                      pts * i2c_filter_ops(D, Zf)),
-                bound(4 * (pts * (2 * (D + D * D) + D * D + D)), pts * i2c_rts_ops(D)))
+        work = ((4 * (pts * (D * D + D + Zf * D + Zf + 2 * (D + D * D)) + shared),
+                 pts * i2c_filter_ops(D, Zf), chain_ms(T_, i2c_filter_chain(D, Zf), clock)),
+                (4 * (pts * (2 * (D + D * D) + D * D + D)), pts * i2c_rts_ops(D),
+                 chain_ms(T_ - 1, i2c_rts_chain(D), clock)))
+        return [bound(b_, o_) for b_, o_, _ in work], [bound(*w) for w in work]
+
+    def i2c_line(label, p, outs, times, plain):
+        two, three = i2c_bounds(p)
+        D, Zf = p[0].shape[2], p[2].shape[2]
+        for i, name in enumerate(("i2c_filter", "i2c_rts_smooth")):
+            chain = i2c_filter_chain(D, Zf) if i == 0 else i2c_rts_chain(D)
+            print(f"[{smi}] {name} at {label}: kernel {times[i]:.4f} ms, plain {plain[i]:.3f} ms, "
+                  f"bound {two[i][0]:.5f} ms ({two[i][1]}); with the chain ({chain} dependent "
+                  f"operations a step at {clock:.0f} MHz) {three[i][0]:.5f} ms ({three[i][1]}), "
+                  f"{100 * three[i][0] / times[i]:.1f} % of it", flush=True)
+        return two
 
     p, outs = i2c_first_iteration_inputs["cartpole_swingup"]
     ms["i2c_filter"] = cuda_time_ms(lambda: i2c_filter(*p))
@@ -1028,18 +1208,16 @@ def main():
     plain_ms["i2c_filter"] = cuda_time_ms(lambda: i2c_filter_reference(*p), reps=3, warmup=1)
     plain_ms["i2c_rts_smooth"] = cuda_time_ms(lambda: i2c_rts_smooth_reference(*outs, p[0]),
                                               reps=3, warmup=1)
-    bounds["i2c_filter"], bounds["i2c_rts_smooth"] = i2c_bounds(p)
+    bounds["i2c_filter"], bounds["i2c_rts_smooth"] = i2c_line(
+        f"the sweep's shape (cart-pole, B={I2CS_B}, T={I2CS_T}, D=Z=5)", p, outs,
+        (ms["i2c_filter"], ms["i2c_rts_smooth"]), (plain_ms["i2c_filter"], plain_ms["i2c_rts_smooth"]))
     print(f"i2c_filter: {i2c_filter_ops(5, 5)} operations per point at D = Z = 5, "
           f"i2c_rts_smooth: {i2c_rts_ops(5)}; {I2CS_B * I2CS_T} points", flush=True)
     p6, outs6 = i2c_first_iteration_inputs["pendulum"]
-    b6 = i2c_bounds(p6)
-    print(f"[{smi}] at configuration 6's shape (pendulum, B={I2C6_B}, T={I2C6_T}, D=Z=3): "
-          f"i2c_filter kernel {cuda_time_ms(lambda: i2c_filter(*p6)):.4f} ms, plain "
-          f"{cuda_time_ms(lambda: i2c_filter_reference(*p6), reps=3, warmup=1):.3f} ms, bound "
-          f"{b6[0][0]:.5f} ms ({b6[0][1]}); i2c_rts_smooth kernel "
-          f"{cuda_time_ms(lambda: i2c_rts_smooth(*outs6, p6[0])):.4f} ms, plain "
-          f"{cuda_time_ms(lambda: i2c_rts_smooth_reference(*outs6, p6[0]), reps=3, warmup=1):.3f}"
-          f" ms, bound {b6[1][0]:.5f} ms ({b6[1][1]})", flush=True)
+    i2c_line(f"configuration 6's shape (pendulum, B={I2C6_B}, T={I2C6_T}, D=Z=3)", p6, outs6,
+             (cuda_time_ms(lambda: i2c_filter(*p6)), cuda_time_ms(lambda: i2c_rts_smooth(*outs6, p6[0]))),
+             (cuda_time_ms(lambda: i2c_filter_reference(*p6), reps=3, warmup=1),
+              cuda_time_ms(lambda: i2c_rts_smooth_reference(*outs6, p6[0]), reps=3, warmup=1)))
 
     for name in ms:
         print(f"[{smi}] {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "

@@ -1,0 +1,168 @@
+"""Times builds of one kernel source against each other on one NVIDIA GPU.
+
+    python3 kernel_ab.py i2c_smooth.cu --against DIR
+        this checkout's csrc/i2c_smooth.cu against DIR's (another checkout,
+        for example the parent commit unpacked with ``git archive``)
+    python3 kernel_ab.py i2c_smooth.cu -D I2C_RTS_SHAPE=1 -D I2C_RTS_SHAPE=2
+        this checkout's source as it is and built with each define
+
+Every variant is compiled with the package's flags, all at once, and is
+loaded in place of the package's library for that source while it runs, so
+that the wrappers a user calls launch it. The variants take turns on each
+case (a, b, ..., b, a), and each call is timed two ways:
+- around one call: CUDA events around one wrapper call on an idle card, the
+  timer of chip_smoke.py (the wrapper's host work before the launch is in it);
+- device: CUDA events around 20 calls queued behind a sleeping kernel, per
+  call (the host has enqueued them before the card reaches them, so its
+  overhead stays out).
+Every variant's outputs must equal the first variant's bit for bit. The cases
+are the main paths' shapes from chip_smoke.py; a source with no cases here is
+refused. The last line is a JSON object of every reading.
+
+Imports only the port (``benchmarking_mpc_solvers_tpu_torch``), never JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+
+# cycles the sleeping kernel spins while the host enqueues the timed calls
+SLEEP_CYCLES = 20_000_000
+QUEUED_CALLS = 20
+
+
+def device_time_ms(fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(QUEUED_CALLS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / QUEUED_CALLS
+
+
+def i2c_cases(dev):
+    """Kernels 8a and 8b on a first iteration's matrices at configuration
+    6's shape and at the sweep row's, as chip_smoke.py times them."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv, PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import i2c_filter, i2c_rts_smooth
+
+    cases = []
+    for label, env_, T, B in (
+            (f"configuration 6 (pendulum, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=3)", PendulumEnv,
+             cs.I2C6_T, cs.I2C6_B),
+            (f"the sweep's shape (cart-pole, B={cs.I2CS_B}, T={cs.I2CS_T}, D=Z=5)",
+             CartPoleSwingUpEnv, cs.I2CS_T, cs.I2CS_B)):
+        p = cs.i2c_first_iteration_inputs_for(env_, T, B, 26, dev)
+        outs = i2c_filter(*p)
+        cases.append((label, [("i2c_filter", lambda p=p: i2c_filter(*p)),
+                              ("i2c_rts_smooth", lambda p=p, o=outs: i2c_rts_smooth(*o, p[0]))]))
+    return cases
+
+
+CASES = {"i2c_smooth.cu": i2c_cases}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)) and bool(torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("source", help="a file of benchmarking_mpc_solvers_tpu_torch/csrc")
+    ap.add_argument("--against", action="append", default=[], metavar="DIR",
+                    help="another checkout whose source is a variant")
+    ap.add_argument("-D", dest="defines", action="append", default=[], metavar="NAME=VALUE",
+                    help="a variant: this checkout's source built with -DNAME=VALUE")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false: this script needs a CUDA card")
+        return 1
+    if args.source not in CASES:
+        print(f"FAIL: no cases for {args.source}; there are for {sorted(CASES)}")
+        return 1
+    from benchmarking_mpc_solvers_tpu_torch import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    here = _build.CSRC / args.source
+    variants = [("this checkout", here, ())]
+    variants += [(f"{d}'s", Path(d) / "benchmarking_mpc_solvers_tpu_torch" / "csrc" / args.source, ())
+                 for d in args.against]
+    variants += [(f"this checkout, -D{d}", here, (f"-D{d}",)) for d in args.defines]
+    if len(variants) < 2:
+        print("FAIL: name a variant to compare with (--against DIR or -D NAME=VALUE)")
+        return 1
+
+    dev = torch.device("cuda")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, (_, src, defines) in enumerate(variants):
+        path = _build.BUILD_DIR / f"ab{i}-{Path(args.source).stem}.so"
+        procs.append((path, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-I", str(src.parent), "-o", str(path),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for (label, _, _), (path, proc) in zip(variants, procs):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(f"FAIL: nvcc for {label}:\n{log}")
+            return 1
+        libs.append(_build.typed(ctypes.CDLL(str(path)), args.source))
+
+    _build._LIBS[args.source] = libs[0]  # the wrappers launch whichever is here
+    cases = CASES[args.source](dev)
+    order = list(range(len(variants))) + list(reversed(range(len(variants))))
+    readings = []
+    for label, kernels in cases:
+        for name, fn in kernels:
+            first = None
+            for i, lib in enumerate(libs):
+                _build._LIBS[args.source] = lib
+                out = fn()
+                out = list(out) if isinstance(out, tuple) else [out]
+                torch.cuda.synchronize()
+                if first is None:
+                    first = out
+                elif not all(same_bits(a, b) for a, b in zip(out, first)):
+                    print(f"FAIL: {name} at {label}: {variants[i][0]} outputs differ from "
+                          f"{variants[0][0]}")
+                    return 1
+            times = [{"around_one_call_ms": [], "device_ms": []} for _ in variants]
+            for i in order:
+                _build._LIBS[args.source] = libs[i]
+                times[i]["around_one_call_ms"].append(cs.cuda_time_ms(fn))
+                times[i]["device_ms"].append(device_time_ms(fn))
+            base = statistics.mean(times[0]["device_ms"])
+            for (vlabel, _, _), t in zip(variants, times):
+                print(f"[{smi}] {name} at {label}, {vlabel} source: around one call "
+                      f"{', '.join(f'{x:.4f}' for x in t['around_one_call_ms'])} ms; device "
+                      f"{', '.join(f'{x:.4f}' for x in t['device_ms'])} ms; "
+                      f"{statistics.mean(t['device_ms']) / base:.2f}x this checkout's "
+                      f"device time", flush=True)
+            readings.append({"kernel": name, "case": label, "variants": [
+                dict(variant=v[0], **t) for v, t in zip(variants, times)]})
+    print(f"outputs identical across the {len(variants)} variants in every case", flush=True)
+    print(json.dumps({"device": smi, "source": args.source, "readings": readings}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

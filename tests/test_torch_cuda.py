@@ -292,7 +292,11 @@ def test_wrapper_rejects_bad_arguments(dev):
 
 # -- the I2C Kalman filter and RTS smoother ------------------------------------------
 
-def _i2c_problem(dev, seed, B, T, S, A, Z, shared_R=False):
+def _i2c_problem(dev, seed, B, T, S, A, Z, shared_R=False, variant=None):
+    """A random smoother problem. variant "offset": each array a contiguous
+    view one float into a larger buffer; "zeros": feature 0 observes nothing
+    (a zero row of J, so the filter's solves divide zeros), and F's action
+    rows, J's first column and mu0's actions are negative zeros."""
     rng = np.random.default_rng(seed)
     D = S + A
     F = np.zeros((B, T, D, D))
@@ -303,40 +307,92 @@ def _i2c_problem(dev, seed, B, T, S, A, Z, shared_R=False):
     sig0, Qproc = np.zeros((D, D)), np.zeros((D, D))
     sig0[:S, :S], sig0[S:, S:] = 1e-8 * np.eye(S), 0.25 * np.eye(A)
     Qproc[:S, :S], Qproc[S:, S:] = 1e-6 * np.eye(S), 0.25 * np.eye(A)
-    arrays = (F, 0.1 * rng.standard_normal((B, T, D)), rng.standard_normal((B, T, Z, D)),
+    J = rng.standard_normal((B, T, Z, D))
+    mu0 = np.concatenate([rng.standard_normal((B, S)), np.zeros((B, A))], axis=1)
+    if variant == "zeros":
+        F[:, :, S:, :] = -0.0
+        J[:, :, :, 0] = -0.0
+        J[:, :, 0, :] = 0.0
+        mu0[:, S:] = -0.0
+    arrays = (F, 0.1 * rng.standard_normal((B, T, D)), J,
               0.2 * rng.standard_normal((B, T, Z)), R[0] if shared_R else R,
-              np.concatenate([rng.standard_normal((B, S)), np.zeros((B, A))], axis=1),
-              sig0, Qproc, 0.1 * rng.standard_normal((T, Z)))
-    return [_t(a, dev) for a in arrays]
+              mu0, sig0, Qproc, 0.1 * rng.standard_normal((T, Z)))
+    out = [_t(a, dev) for a in arrays]
+    if variant == "offset":
+        out = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in out]
+        assert all(t.storage_offset() == 1 and t.is_contiguous() for t in out)
+    return out
 
 
 def _same(got, want):
-    """Bit for bit, NaN at the same places."""
+    """Bit for bit (a zero's sign included), NaN at the same places."""
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
-    assert torch.equal(got[~nan], want[~nan])
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
 
 
-@pytest.mark.parametrize("B,T,S,A,Z,shared_R", [
-    (3000, 25, 2, 1, 3, False), (1024, 50, 4, 1, 5, True), (500, 12, 5, 1, 4, False),
-    (333, 9, 2, 2, 6, True), (100, 1, 2, 1, 3, False), (33, 5, 1, 1, 1, False),
-], ids=["D3-ragged", "D5-shared-R", "D6-Z4", "two-actions-Z6", "T1", "D2-Z1"])
-def test_i2c_filter_and_smoother_match_plain_bit_for_bit(dev, B, T, S, A, Z, shared_R):
+# The kernels give a scenario 8 lanes and a block 8 scenarios with stages of
+# 4 time steps, or, the smoother above 8 scenarios per SM, 16 scenarios with
+# stages of 3 steps: the later cases reach a ragged last group and block, a
+# horizon one step past a stage of each (the filter walks T steps, the
+# smoother T - 1), one of exactly one smoother stage, one of many passes of
+# the ring, the largest and smallest D, inputs at a storage offset of one
+# float, zero dividends of both signs, and the smoother's wide blocks.
+@pytest.mark.parametrize("B,T,S,A,Z,shared_R,variant", [
+    (3000, 25, 2, 1, 3, False, None), (1024, 50, 4, 1, 5, True, None),
+    (500, 12, 5, 1, 4, False, None), (333, 9, 2, 2, 6, True, None),
+    (100, 1, 2, 1, 3, False, None), (33, 5, 1, 1, 1, False, None),
+    (401, 25, 2, 1, 3, False, None), (13, 7, 2, 1, 3, True, None),
+    (50, 5, 2, 1, 3, False, None), (50, 4, 2, 1, 3, False, None),
+    (77, 200, 4, 1, 5, False, None),
+    (301, 20, 5, 1, 6, False, None), (64, 17, 1, 0, 2, True, None),
+    (257, 25, 2, 1, 3, False, "offset"), (5001, 5, 2, 1, 3, False, None),
+    (2000, 4, 2, 1, 3, True, None), (2000, 9, 5, 1, 6, False, None),
+    (300, 12, 2, 1, 3, False, "zeros"), (3000, 10, 4, 1, 5, True, "zeros"),
+], ids=["D3-ragged", "D5-shared-R", "D6-Z4", "two-actions-Z6", "T1", "D2-Z1",
+        "B-4k+1", "B-not-a-block", "T-one-past-a-stage", "T-one-smoother-stage",
+        "T200", "D6-Z6", "D1", "storage-offset", "wide-T-one-past-a-stage",
+        "wide-T-one-stage", "wide-D6-Z6", "signed-zeros", "wide-signed-zeros"])
+def test_i2c_filter_and_smoother_match_plain_bit_for_bit(dev, B, T, S, A, Z, shared_R, variant):
     from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
 
-    p = _i2c_problem(dev, B + T, B, T, S, A, Z, shared_R)
+    p = _i2c_problem(dev, B + T, B, T, S, A, Z, shared_R, variant)
     before = (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches)
     got, want = ts.i2c_filter(*p), ts.i2c_filter_reference(*p)
     for g, w in zip(got, want):
         _same(g, w)
     if T > 1:
         _same(ts.i2c_rts_smooth(*got, p[0]), ts.i2c_rts_smooth_reference(*want, p[0]))
+    if variant == "zeros":
+        # every zero of the filter's outputs made negative: the smoother's
+        # factorisation then divides negative zeros (sig_pred's action rows)
+        neg = [torch.where(t == 0, torch.full_like(t, -0.0), t) for t in got]
+        assert bool(torch.signbit(neg[3][neg[3] == 0]).all()) and bool((neg[3] == 0).any())
+        _same(ts.i2c_rts_smooth(*neg, p[0]), ts.i2c_rts_smooth_reference(*neg, p[0]))
     out = ts.i2c_smooth_batch(*p)
     _same(out, ts.i2c_smooth_batch_reference(*p))
     assert out.shape == (B, T, S + A)
-    n_rts = 2 if T > 1 else 0
+    n_rts = (2 if T > 1 else 0) + (variant == "zeros")  # the negative-zero smoother call
     assert (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches) == (
         before[0] + 2, before[1] + n_rts)
+
+
+def test_i2c_launch_shape_fits_the_sweep(dev):
+    """At the sweep's D = Z = 5 at least two blocks of each kernel fit on an
+    SM, and every instantiation launches (a shared-memory request above the
+    default 48 KB is granted)."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import launch_config
+
+    for name, k in launch_config(5, 5, 10240).items():
+        if name != "stages":
+            assert k["threads"] == 8 * k["scenarios_per_block"]
+            assert k["blocks_per_sm"] >= 2
+    assert launch_config(3, 3, 256)["rts"]["scenarios_per_block"] == 8  # narrow at B = 256
+    for B in (300, 10240):
+        for D in range(1, 7):
+            for Z in range(1, 7):
+                c = launch_config(D, Z, B)
+                assert c["filter"]["blocks_per_sm"] >= 1 and c["rts"]["blocks_per_sm"] >= 1
 
 
 def test_i2c_nan_scenario_stays_nan_on_the_card(dev):

@@ -170,3 +170,8 @@ def test_shape_errors_and_kernel_size_limit():
     # the plain version takes any size
     big = i2c_problem_from_numpy(*_problem(9, 2, 3, 6, 1, 7), device="cpu")
     assert torch.isfinite(ts.i2c_smooth_batch(*big)).all()
+
+
+def test_launch_config_refuses_sizes_above_six():
+    with pytest.raises(NotImplementedError, match="D, Z <= 6"):
+        ts.launch_config(7, 3, 16)

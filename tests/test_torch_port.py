@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of the reference package, and
 entry points that run on the card unless asked for the CPU."""
 
+import os
 import pathlib
 import pkgutil
 import subprocess
@@ -51,7 +52,7 @@ def test_port_imports_neither_jax_nor_reference():
 
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT_DIR.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
-    + [ROOT / "chip_smoke.py"]), ids=lambda p: str(p.relative_to(ROOT)))
+    + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_do_not_import_jax_or_reference(path):
     text = path.read_text()
     for line in text.splitlines():
@@ -61,6 +62,15 @@ def test_port_sources_do_not_import_jax_or_reference(path):
             assert "jax" not in words and not any(
                 w == REFERENCE or w.startswith(REFERENCE + ".") for w in words), line
             assert not any(w.startswith("jax.") for w in words), line
+
+
+def test_kernel_ab_refuses_to_run_without_a_card():
+    out = subprocess.run([sys.executable, "kernel_ab.py", "i2c_smooth.cu", "-D", "I2C_RTS_SHAPE=1"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "needs a CUDA card" in out.stdout
+    assert not out.stdout.strip().splitlines()[-1].startswith("{")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
