@@ -120,7 +120,7 @@ SIGNATURES = {
     "fused_cem_step_launch": (
         "fused_cem.cu",
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _W, _P]),
-    "riccati_backward_launch": (
+    "riccati_backward_batch_launch": (
         "riccati_backward.cu", [_P] * 12 + [_I, _I, _I, _I, _P]),
     "fused_linesearch_launch": (
         "fused_linesearch.cu",
@@ -177,7 +177,11 @@ def quad_weights(cost):
 
 def sym_weights(cost):
     """A ``quad_cost``'s dense symmetrised weights 0.5·(W + Wᵀ) as the
-    (MAX_Z*MAX_Z,) float array ``fused_derivs`` takes (row stride MAX_Z)."""
+    (MAX_Z*MAX_Z,) float array ``fused_derivs`` takes (row stride MAX_Z),
+    built once per cost and kept on it beside ``W`` and ``nz``."""
+    w = getattr(cost, "w_sym", None)
+    if w is not None:
+        return w
     W = getattr(cost, "W", None)
     if W is None:
         raise NotImplementedError("the kernels need a quad_cost cost")
@@ -186,6 +190,7 @@ def sym_weights(cost):
     for i in range(Wsym.shape[0]):
         for j in range(Wsym.shape[1]):
             w[i * MAX_Z + j] = float(Wsym[i, j])
+    cost.w_sym = w
     return w
 
 

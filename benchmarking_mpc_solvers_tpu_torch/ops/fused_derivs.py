@@ -2,9 +2,11 @@
 
 Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused_derivs.py:
 fused_derivs``. On CUDA tensors ``fused_derivs`` launches the hand-written
-kernel in ``csrc/fused_derivs.cu`` (one thread per (scenario, t) point, the
-S+1 basis tangents pushed through the model's device functions as dual
-numbers); on CPU tensors it runs ``fused_derivs_reference``, the plain
+kernel in ``csrc/fused_derivs.cu`` (one thread per (scenario, t) point
+pushing all S+1 basis tangents through the model's device functions at once
+as a multi-tangent dual number, the outputs staged in shared memory and
+written in contiguous runs); on CPU tensors it runs
+``fused_derivs_reference``, the plain
 PyTorch version: ``linearize_dynamics`` plus the stage terms of
 ``quadratize_cost(gauss_newton=True)`` over the (B·T) points.
 ``fused_derivs.launches`` counts kernel launches.
@@ -21,6 +23,8 @@ search).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -70,16 +74,24 @@ def fused_derivs(model: Model, xs, us, g_z):
     w_sym = _build.sym_weights(model.state_cost)
     dev = xs.device
     _build.check_cuda_args("fused_derivs", dev, xs=xs, us=us, g_z=g_z)
-    shapes = ((B, T, S, S), (B, T, S, 1), (B, T, S), (B, T, S, S), (B, T, 1, 1),
-              (B, T, 1, S), (B, T, S), (B, T, 1))
-    out = tuple(torch.empty(shape, dtype=torch.float32, device=dev) for shape in shapes)
+    out = _outputs(B, T, S, dev)
     if B * T > 0:
         rc = _build.kernel_fn("fused_derivs_launch")(
-            mid, _build.ptr(xs), _build.ptr(us), _build.ptr(g_z),
-            *(_build.ptr(t) for t in out), B, T, w_sym, _build.stream_ptr(dev))
+            mid, xs.data_ptr(), us.data_ptr(), g_z.data_ptr(), *(t.data_ptr() for t in out),
+            B, T, w_sym, _build.stream_ptr(dev))
         _build.check_rc("fused_derivs", rc)
         fused_derivs.launches += 1
     return out
+
+
+def _outputs(B: int, T: int, S: int, dev):
+    """The eight outputs as contiguous views of one buffer, in the kernel's
+    order (it writes a range 16 bytes a lane where the range starts on 16
+    bytes, as every range does when B·T is a multiple of 4)."""
+    tails = ((S, S), (S, 1), (S,), (S, S), (1, 1), (1, S), (S,), (1,))
+    sizes = [B * T * math.prod(tail) for tail in tails]
+    parts = torch.empty(sum(sizes), dtype=torch.float32, device=dev).split(sizes)
+    return tuple(p.view((B, T) + tail) for p, tail in zip(parts, tails))
 
 
 fused_derivs.launches = 0

@@ -2,8 +2,9 @@
 
 Counterpart of ``benchmarking_mpc_solvers_tpu/ops/riccati_pallas.py:
 riccati_backward_batch``. On CUDA tensors ``riccati_backward_batch``
-launches the hand-written kernel in ``csrc/riccati_backward.cu`` (one thread
-per scenario, V_x and V_xx in registers over the horizon); on CPU tensors it
+launches the hand-written kernel in ``csrc/riccati_backward.cu`` (at S <= 4
+a lane per entry of V_xx, rows exchanged by warp shuffles, the horizon's
+inputs staged in shared memory ahead of the recursion); on CPU tensors it
 runs ``riccati_backward_batch_reference``, the plain PyTorch version with
 the reference kernel's arithmetic written out element by element in the
 same order. ``riccati_backward_batch.launches`` counts kernel launches.
@@ -32,20 +33,18 @@ def pallas_riccati_applicable(state_size: int, action_size: int) -> bool:
     return action_size == 1 and state_size <= MAX_STATE
 
 
+_NAMES = ("l_u", "l_xx", "l_uu", "l_ux", "f_x", "f_u", "mu", "c")
+
+
 def _check_shapes(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c, with_c):
     B, Tp1, S = l_x.shape
     T = Tp1 - 1
-    want = {"l_u": (B, T, 1), "l_xx": (B, T + 1, S, S), "l_uu": (B, T, 1, 1),
-            "l_ux": (B, T, 1, S), "f_x": (B, T, S, S), "f_u": (B, T, S, 1), "mu": (B,)}
-    if with_c:
-        want["c"] = (B, T, S)
-    got = {"l_u": l_u, "l_xx": l_xx, "l_uu": l_uu, "l_ux": l_ux, "f_x": f_x, "f_u": f_u,
-           "mu": mu, "c": c}
-    for key, shape in want.items():
-        if got[key] is None or tuple(got[key].shape) != shape:
+    want = ((B, T, 1), (B, T + 1, S, S), (B, T, 1, 1), (B, T, 1, S), (B, T, S, S),
+            (B, T, S, 1), (B,), (B, T, S) if with_c else None)
+    for key, t, shape in zip(_NAMES, (l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c), want):
+        if shape is not None and (t is None or t.shape != shape):
             raise ValueError(f"riccati_backward_batch: {key} has shape "
-                             f"{None if got[key] is None else tuple(got[key].shape)}, "
-                             f"expected {shape}")
+                             f"{None if t is None else tuple(t.shape)}, expected {shape}")
     return B, T, S
 
 
@@ -114,25 +113,23 @@ def riccati_backward_batch(l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c=None,
     if l_x.device.type != "cuda":
         raise ValueError(f"unsupported device {l_x.device}")
     dev = l_x.device
-    tensors = dict(l_x=l_x, l_u=l_u, l_xx=l_xx, l_uu=l_uu, l_ux=l_ux, f_x=f_x, f_u=f_u, mu=mu)
-    if with_c:
-        tensors["c"] = c
-    _build.check_cuda_args("riccati_backward_batch", dev, **tensors)
-    ks = torch.empty((B, T, 1), dtype=torch.float32, device=dev)
-    Ks = torch.empty((B, T, 1, S), dtype=torch.float32, device=dev)
-    ok = torch.empty((B,), dtype=torch.float32, device=dev)
+    args = (l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu) + ((c,) if with_c else ())
+    _build.check_cuda_args("riccati_backward_batch", dev,
+                           **dict(zip(("l_x",) + _NAMES, args)))
+    # ks and Ks split one allocation; the kernel writes ok as the bools returned
+    ks, Ks = torch.empty(B * T * (S + 1), dtype=torch.float32, device=dev).split(
+        [B * T, B * T * S])
+    ks, Ks = ks.view(B, T, 1), Ks.view(B, T, 1, S)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0 or T == 0:
-        ok.fill_(1.0)
-        return ks, Ks, ok > 0.5
-    rc = _build.kernel_fn("riccati_backward_launch")(
-        *(_build.ptr(tensors[key]) for key in ("l_x", "l_u", "l_xx", "l_uu", "l_ux",
-                                                "f_x", "f_u", "mu")),
-        _build.ptr(c) if with_c else None,
-        _build.ptr(ks), _build.ptr(Ks), _build.ptr(ok),
-        B, T, S, int(check_pd), _build.stream_ptr(dev))
+        return ks, Ks, ok.fill_(True)
+    rc = _build.kernel_fn("riccati_backward_batch_launch")(
+        *(t.data_ptr() for t in args[:8]), c.data_ptr() if with_c else None,
+        ks.data_ptr(), Ks.data_ptr(), ok.data_ptr(), B, T, S, int(check_pd),
+        _build.stream_ptr(dev))
     _build.check_rc("riccati_backward_batch", rc)
     riccati_backward_batch.launches += 1
-    return ks, Ks, ok > 0.5
+    return ks, Ks, ok
 
 
 riccati_backward_batch.launches = 0

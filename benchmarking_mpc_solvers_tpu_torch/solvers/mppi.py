@@ -10,12 +10,12 @@ Counterpart of ``benchmarking_mpc_solvers_tpu/solvers/mppi.py``:
 Three tiers: ``solve`` (one scenario), ``solve_batch`` (B scenarios, through
 the fused rollout kernel ``ops/fused.py``) and ``solve_batch_tm`` (the whole
 step as one kernel, ``ops/fused_mppi.py``). ``solve`` draws from the state's
-``torch.Generator``. ``solve_batch`` draws each scenario's perturbations from
-its own counter-based stream (``scenario_normals``: the scenario's seed, its
-draw count, k, t), so they do not depend on the batch slot, as the
-reference's per-scenario keys do not. The kernel tier draws its own
-counter-based noise from one seed per call. The parity tests inject the
-reference's draws instead.
+``torch.Generator``. ``solve_batch`` draws each scenario's perturbations, and
+on its plain tier its planning-model noise, from its own counter-based stream
+(``scenario_normals``: the scenario's seed, its draw count, k, t), so they do
+not depend on the batch slot, as the reference's per-scenario keys do not.
+The kernel tier draws its own counter-based noise from one seed per call.
+The parity tests inject the reference's draws instead.
 """
 
 from __future__ import annotations
@@ -100,7 +100,7 @@ class MPPI(Solver):
                          torch.zeros((batch,), dtype=torch.int64, device=device))
 
     def solve_batch(self, state: MPPIState, xs, g_z, use_fused: bool = True,
-                    delta_tm=None):
+                    delta_tm=None, xnoise=None):
         """One MPPI step for B scenarios, xs (B, S), plans (B, T, A).
 
         Perturbations are time-major (T, B·K), column b·K + k, std-scaled:
@@ -108,7 +108,16 @@ class MPPI(Solver):
         are drawn from its own stream (``scenario_normals``). With
         ``use_fused`` (and a scalar action) the B·K rollouts go through
         ``fused_rollout_costs_tm``, else through the plain batched rollout;
-        both apply the same update law."""
+        both apply the same update law.
+
+        Planning-model noise (``model_noise_std > 0``) enters the plain tier
+        only, as it enters the reference's per-scenario ``solve``: state
+        noise (B, K, T, S), already scaled, is added after every model step
+        of the rollouts. ``xnoise`` injects it; else scenario b's comes from
+        its own stream at the same draw count as its perturbations, at
+        timestep indices T·A onwards, which the perturbations never use.
+        The fused tier plans with a clean model, as the reference's batched
+        tiers do, and refuses an injected ``xnoise``."""
         model = self.model
         B, S = xs.shape
         K, T, A = self.K, self.T, model.action_size
@@ -116,13 +125,21 @@ class MPPI(Solver):
         if state.seeds is None:
             raise ValueError("solve_batch needs per-scenario seeds: make the state "
                              "with init_state_batch")
+        if use_fused and xnoise is not None:
+            raise ValueError("solve_batch: the fused tier plans without model noise; "
+                             "pass xnoise with use_fused=False")
+        noisy = not use_fused and self.model_noise_std > 0.0
+        draws = None
+        if delta_tm is None or (noisy and xnoise is None):
+            draws = scenario_normals(state.seeds, state.calls, K, T * (A + S) if noisy else T * A)
         if delta_tm is None:
-            delta = self.std * scenario_normals(state.seeds, state.calls, K, T * A).reshape(
-                B, K, T, A)
+            delta = self.std * draws[..., :T * A].reshape(B, K, T, A)
             if A == 1:
                 delta_tm = delta[..., 0].permute(2, 0, 1).reshape(T, N)
         else:
             delta = delta_tm.reshape(T, B, K).permute(1, 2, 0)[..., None]
+        if noisy and xnoise is None:
+            xnoise = self.model_noise_std * draws[..., T * A:].reshape(B, K, T, S)
         state = state._replace(calls=state.calls + 1)
 
         if use_fused and A == 1:
@@ -136,7 +153,10 @@ class MPPI(Solver):
             planned = state.planned_us + upd[:, :, None]
         else:
             samples = state.planned_us[:, None] + delta  # (B, K, T, A)
-            roll, _ = rollout_cost(model, xs[:, None], samples, g_z)
+            if noisy:
+                roll, _ = rollout_cost_noisy(model, xs[:, None], samples, g_z, xnoise)
+            else:
+                roll, _ = rollout_cost(model, xs[:, None], samples, g_z)
             ctrl = self.lam * (samples * delta).sum(dim=(2, 3)) / self.std**2
             costs, w = _weights(roll + ctrl, self.lam, dim=1)
             planned = state.planned_us + (w[:, :, None, None] * delta).sum(dim=1)

@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the result line):
 2. build: compiles every kernel from ``benchmarking_mpc_solvers_tpu_torch/
    csrc`` (one nvcc per source, in parallel).
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, on each model, at the main paths' shapes (CEM's elite masks and
-   the Riccati ``ok`` flags exactly; kernels 7, 8a and 8b bit for bit, 8a
-   and 8b also at the edges of their blocks and shared-memory stages).
+   card, on each model, at the main paths' shapes (CEM's elite masks
+   exactly; kernels 5, 7, 8a and 8b bit for bit, 5, 8a and 8b also at the
+   edges of their lane groups, blocks and shared-memory stages).
 4. main paths, each with the launch counters set to 0 just before its run
    and read just after:
    - MPPI, the bench configuration (cart-pole swing-up, K=32, T=50,
@@ -36,9 +36,11 @@ Phases (any failure exits non-zero before the result line):
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
-5. timings with CUDA events: each kernel, its plain version and its bound
-   (for kernels 8a and 8b also with the horizon's dependent chain);
-   host-clock episode solves/s of every path; device time by kernel.
+5. timings with CUDA events: each kernel around one call and as device
+   time (calls queued behind a sleeping kernel, ``device_time_ms``), its
+   plain version and its bound (for kernels 5, 8a and 8b also with the
+   horizon's dependent chain); host-clock episode solves/s of every path;
+   device time by kernel under the profiler.
 Then a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -269,6 +271,38 @@ def i2c_rts_chain(D: int) -> int:
     return max(_rts_step_depth(D, 0, None), _rts_step_depth(D, None, 0))
 
 
+def _riccati_step_depth(S, vxx, vx, with_c):
+    """Deepest new carried value (V_xx or V_x) of one step of
+    csrc/riccati_backward.cu, from carried depths vxx and vx; the step's
+    inputs (f_x, f_u, l_*, c, mu) are off the chain."""
+    rs = range(S)
+    vxc = [_dep(vx, _sum(_dep(vxx, None) for _ in rs)) if with_c else vx for _ in rs]
+    m = [[_sum(_dep(vxx, None) for _ in rs) for _ in rs] for _ in rs]
+    w = [_sum(_dep(vxx, None) for _ in rs) for _ in rs]
+    q_x = [_dep(None, _sum(_dep(None, vxc[i]) for i in rs)) for _ in rs]
+    q_u = _dep(None, _sum(_dep(None, vxc[i]) for i in rs))
+    q_xx = [[_dep(None, _sum(_dep(None, m[i][jp]) for i in rs)) for jp in rs] for _ in rs]
+    q_uu = _dep(None, _sum(_dep(None, w[i]) for i in rs))
+    q_ux = [_dep(None, _sum(_dep(None, m[i][j]) for i in rs)) for j in rs]
+    inv = _dep(_dep(_dep(_dep(q_uu, None))))  # + mu*fufu, the PD test, its select, 1/x
+    k = _dep(_dep(q_u), inv)
+    K = [_dep(_dep(_dep(q_ux[j], None)), inv) for j in rs]  # + mu*(f_u f_x), -, * inv
+    new = [_dep(_dep(q_x[j], _dep(K[j], _dep(_dep(q_uu, k), q_u))), _dep(q_ux[j], k))
+           for j in rs]
+    vnew = [[_dep(_dep(_dep(q_xx[j][jp], _dep(_dep(K[j], q_uu), K[jp])), _dep(K[j], q_ux[jp])),
+                  _dep(q_ux[j], K[jp])) for jp in rs] for j in rs]
+    new += [_dep(_dep(vnew[j][jp], vnew[jp][j])) for j in rs for jp in rs]
+    return max((d for d in new if d is not None), default=0)
+
+
+def riccati_chain(S: int, with_c: bool = False) -> int:
+    """Dependent FP32 operations of one Riccati step's loop-carried chain in
+    csrc/riccati_backward.cu, from one step's V_xx (or V_x) to the next's,
+    every sum in the reference order and the division one operation, as
+    ``i2c_filter_chain`` counts. T of them in a row bound the horizon's time."""
+    return max(_riccati_step_depth(S, 0, None, with_c), _riccati_step_depth(S, None, 0, with_c))
+
+
 def derivs_ops(model) -> int:
     """FP32 operations fused_derivs needs per point, a lower bound counted
     from csrc/fused_derivs.cu: one primal pass of dynamics + transform (the
@@ -284,6 +318,63 @@ def derivs_ops(model) -> int:
     primal = STEP_OPS[model.name] - cost_ops - 1
     gn = (Z + 2 * nnz) + D * (2 * rows + 1) + D * (2 * nnz + D * (2 * rows + 1))
     return (1 + D) * primal + 2 * S * D + gn
+
+
+def ilqr_derivs_for(name, B, T, dev):
+    """The Riccati kernel's inputs at an iLQR iteration: the model's exact
+    derivatives along rollouts of the solver's initial plans from small
+    random starts (l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u)."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+    from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
+    from benchmarking_mpc_solvers_tpu_torch.solvers import ILQR
+    model = REGISTRY[name]
+    solver = ILQR(model=model, T=T)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x0 = 0.3 * torch.randn((B, model.state_size), generator=gen, device=dev)
+    us = solver.init_state_batch(B, gen, dev).planned_us
+    gz = torch.zeros((T, model.goal_size), device=dev)
+    xs, _ = simulate_trajectory(model, x0, us, gz)
+    return [t.contiguous() for t in solver.derivatives(xs, us, gz)]
+
+
+def derivs_inputs_for(model, B, T, seed, rolled, dev):
+    """fused_derivs' inputs: plans with some controls on the action bounds
+    and, rolled, the states they roll out to from random starts, else
+    uniform states (for the pendulum, angles on both sides of the wrap)."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
+    rng = np.random.default_rng(seed)
+    S = model.state_size
+    hi = float(model.bounds_high[0])
+    us = rng.uniform(-1.2, 1.2, (B, T, 1)).astype(np.float32) * (0.3 * hi if rolled else hi)
+    us[::7, ::5], us[1::7, ::5] = hi, -hi
+    us = torch.from_numpy(np.clip(us, -hi, hi)).to(dev)
+    gz = torch.from_numpy(rng.uniform(-0.2, 0.2, (T, S + 1)).astype(np.float32)).to(dev)
+    if rolled:
+        x0 = torch.from_numpy((0.3 * rng.standard_normal((B, S))).astype(np.float32)).to(dev)
+        xs, _ = simulate_trajectory(model, x0, us, gz)
+    else:
+        span = 4.0 if model.name == "pendulum" else 1.2
+        xs = torch.from_numpy(
+            rng.uniform(-span, span, (B, T + 1, S)).astype(np.float32)).to(dev)
+    return xs.contiguous(), us.contiguous(), gz
+
+
+def sqp_riccati_inputs_for(B, T, dev):
+    """The Riccati kernel's inputs at an SQP iteration of configuration 4
+    (SQP._subproblem on the fused tier): the acrobot's Gauss-Newton terms
+    along rolled-out trajectories, c = 0, R + reg with reg = 1e-6, mu = 0.
+    Returns (l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u, mu, c)."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_derivs import fused_derivs
+    from benchmarking_mpc_solvers_tpu_torch.ops.linearize import gn_terminal_terms
+    model = REGISTRY["acrobot"]
+    xs, us, gz = derivs_inputs_for(model, B, T, 9, True, dev)
+    A, Bd, c, Q, R, M, q, r = fused_derivs(model, xs, us, gz)
+    qf, Qf = gn_terminal_terms(model, xs[:, -1], gz[-1])
+    l_x = torch.cat([q, qf[:, None]], dim=1).contiguous()
+    l_xx = torch.cat([Q, Qf[:, None]], dim=1).contiguous()
+    return [l_x, r.contiguous(), l_xx, (R + 1e-6).contiguous(), M.contiguous(), A.contiguous(),
+            Bd.contiguous(), torch.zeros((B,), device=dev), torch.zeros_like(c)]
 
 
 def fail(msg: str):
@@ -307,6 +398,28 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# cycles the sleeping kernel spins while the host enqueues the timed calls
+SLEEP_CYCLES = 20_000_000
+QUEUED_CALLS = 20
+
+
+def device_time_ms(fn) -> float:
+    """Device time of one call of fn: CUDA events around QUEUED_CALLS calls
+    queued behind a sleeping kernel, per call. The host has enqueued them
+    before the card reaches them, so its work before each launch stays out."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(QUEUED_CALLS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / QUEUED_CALLS
 
 
 def episode_seconds(run, reps: int, warmup: bool = True):
@@ -557,14 +670,7 @@ def main():
     # then random well-conditioned blocks with non-PD steps (ok mixed) and
     # the with_c form (SQP's: mu = 0, no PD check)
     def model_derivs(name, B, T):
-        model = REGISTRY[name]
-        solver = ILQR(model=model, T=T)
-        gen = torch.Generator(device=dev).manual_seed(5)
-        x0 = 0.3 * torch.randn((B, model.state_size), generator=gen, device=dev)
-        us = solver.init_state_batch(B, gen, dev).planned_us
-        gz = torch.zeros((T, model.goal_size), device=dev)
-        xs, _ = simulate_trajectory(model, x0, us, gz)
-        return [t.contiguous() for t in solver.derivatives(xs, us, gz)]
+        return ilqr_derivs_for(name, B, T, dev)
 
     def random_derivs(B, T, S, seed):
         rng = np.random.default_rng(seed)
@@ -579,32 +685,72 @@ def main():
                   rng.standard_normal((B, T, S, 1)), 0.3 * rng.standard_normal((B, T, S)))
         return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
 
+    def riccati_check(label, d, mu, c=None, check_pd=True, with_c=False):
+        """Kernel against plain version, every output bit for bit (NaN alike)."""
+        got = riccati_backward_batch(*d, mu, c, check_pd=check_pd, with_c=with_c)
+        want = riccati_backward_batch_reference(*d, mu, c, check_pd=check_pd, with_c=with_c)
+        exact(f"riccati_backward_batch[{label}] ok ({int(want[2].sum())} of "
+              f"{want[2].numel()} true)", got[2], want[2])
+        exact_nan(f"riccati_backward_batch[{label}] ks", got[0], want[0])
+        exact_nan(f"riccati_backward_batch[{label}] Ks", got[1], want[1])
+        return got, want
+
     ones = torch.ones((ILQR_B,), device=dev)
     riccati_main = model_derivs("cartpole_swingup", ILQR_B, ILQR_T)
     for name in ("cartpole_swingup", "pendulum", "acrobot"):
         d = riccati_main if name == "cartpole_swingup" else model_derivs(name, ILQR_B, ILQR_T)
-        got, want = riccati_backward_batch(*d, ones), riccati_backward_batch_reference(*d, ones)
-        label = f"riccati_backward_batch[{name} derivatives, B={ILQR_B}, T={ILQR_T}]"
-        exact(f"{label} ok ({int(want[2].sum())} of {ILQR_B} true)", got[2], want[2])
-        e = max(compare(f"{label} ks", got[0], want[0]), compare(f"{label} Ks", got[1], want[1]))
+        got, want = riccati_check(f"{name} derivatives, B={ILQR_B}, T={ILQR_T}", d, ones)
+        e = max(compare(f"riccati_backward_batch[{name}] ks", got[0], want[0]),
+                compare(f"riccati_backward_batch[{name}] Ks", got[1], want[1]))
         errs["riccati_backward_batch"] = max(errs.get("riccati_backward_batch", e), e)
     *d, c = random_derivs(ILQR_B, ILQR_T, 4, 6)
     mu = torch.from_numpy(np.random.default_rng(7).choice(
         [1e-6, 1e-3, 1.0, 32.0], ILQR_B).astype(np.float32)).to(dev)
-    got, want = riccati_backward_batch(*d, mu), riccati_backward_batch_reference(*d, mu)
+    got, want = riccati_check("non-PD steps", d, mu)
     n_ok = int(want[2].sum())
     if not 0 < n_ok < ILQR_B:
         fail(f"riccati non-PD case: ok is not mixed ({n_ok} of {ILQR_B})")
-    exact(f"riccati_backward_batch[non-PD steps] ok ({n_ok} of {ILQR_B} true)", got[2], want[2])
-    for e in (compare("riccati_backward_batch[non-PD steps] ks", got[0], want[0]),
-              compare("riccati_backward_batch[non-PD steps] Ks", got[1], want[1])):
-        errs["riccati_backward_batch"] = max(errs["riccati_backward_batch"], e)
     zero = torch.zeros((ILQR_B,), device=dev)
-    got = riccati_backward_batch(*d, zero, c, check_pd=False, with_c=True)
-    want = riccati_backward_batch_reference(*d, zero, c, check_pd=False, with_c=True)
-    for e in (compare("riccati_backward_batch[with_c] ks", got[0], want[0]),
-              compare("riccati_backward_batch[with_c] Ks", got[1], want[1])):
-        errs["riccati_backward_batch"] = max(errs["riccati_backward_batch"], e)
+    riccati_check("with_c", d, zero, c, check_pd=False, with_c=True)
+    sq = sqp_riccati_inputs_for(SQP_B, SQP_T, dev)  # timed below
+    riccati_check(f"SQP's inputs (acrobot, with_c, mu = 0), B={SQP_B}, T={SQP_T}", sq[:7], sq[7],
+                  sq[8], check_pd=False, with_c=True)
+    # the kernel's edges: every S (an entry per lane in groups of 1, 4 or 16
+    # lanes at S <= 4, entries S*S..G-1 idle; one thread per scenario above),
+    # a ragged last block, a horizon of one step and one past one and two
+    # stages (stages of 16 steps at S <= 4, else 4), a NaN in one scenario,
+    # inputs at a storage offset of one float
+    for S_ in range(1, 9):
+        for T_ in (1, 17, 33):
+            *dd, cc = random_derivs(1001, T_, S_, 40 + S_)
+            mm = torch.from_numpy(np.random.default_rng(S_).choice(
+                [0.0, 1e-3, 1.0, 32.0], 1001).astype(np.float32)).to(dev)
+            riccati_check(f"random, S={S_}, ragged B=1001, T={T_}", dd, mm)
+            riccati_check(f"random, S={S_}, ragged B=1001, T={T_}, with_c", dd, mm, cc,
+                          check_pd=False, with_c=True)
+    *dn, cn = random_derivs(300, 20, 4, 50)
+    mn = torch.ones((300,), device=dev)
+    clean = riccati_backward_batch(*dn, mn, cn, check_pd=True, with_c=True)
+    if not (torch.isfinite(clean[1][9]).all() and bool(clean[2][9])):
+        fail("riccati NaN case: scenario 9 is not clean before the NaN")
+    dn[5][9, 3, 0, 0] = float("nan")  # f_x of scenario 9 at t = 3
+    got, _ = riccati_check("NaN in f_x of scenario 9, B=300, T=20, with_c", dn, mn, cn,
+                           with_c=True)
+    others = torch.arange(300, device=dev) != 9
+    if not (torch.isnan(got[0][9, :3]).all() and torch.isnan(got[1][9, :3]).all()
+            and torch.isnan(got[1][9, 3, 0, 0]) and bool(got[2][9]) is False and all(
+            torch.equal(g[others], w[others]) or torch.equal(  # NaN alike where it overflows
+                torch.nan_to_num(g[others], nan=7.0), torch.nan_to_num(w[others], nan=7.0))
+            for g, w in zip(got, clean))):
+        fail("riccati: the NaN scenario's gains are not NaN from its step down, or it "
+             "touched another")
+    d_off = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t)
+             for t in random_derivs(777, 30, 4, 51)]
+    if not all(t.storage_offset() == 1 and t.is_contiguous() for t in d_off):
+        fail("riccati: the offset views are not contiguous views at offset 1")
+    *d_off, c_off = d_off
+    riccati_check("random, S=4, B=777, T=30, views at a storage offset of one float, with_c",
+                  d_off, torch.full((777,), 1e-3, device=dev), c_off, with_c=True)
 
     # line search: n_alpha=10, B=1024, T=100, both flags, every model
     alphas = ILQR(model=REGISTRY["cartpole_swingup"], T=ILQR_T).alphas(dev)
@@ -643,21 +789,7 @@ def main():
     # (some controls on the action bounds), and a ragged batch of uniform
     # states (for the pendulum, angles on both sides of the wrap)
     def derivs_inputs(model, B, T, seed, rolled):
-        rng = np.random.default_rng(seed)
-        S = model.state_size
-        hi = float(model.bounds_high[0])
-        us = rng.uniform(-1.2, 1.2, (B, T, 1)).astype(np.float32) * (0.3 * hi if rolled else hi)
-        us[::7, ::5], us[1::7, ::5] = hi, -hi
-        us = torch.from_numpy(np.clip(us, -hi, hi)).to(dev)
-        gz = torch.from_numpy(rng.uniform(-0.2, 0.2, (T, S + 1)).astype(np.float32)).to(dev)
-        if rolled:
-            x0 = torch.from_numpy((0.3 * rng.standard_normal((B, S))).astype(np.float32)).to(dev)
-            xs, _ = simulate_trajectory(model, x0, us, gz)
-        else:
-            span = 4.0 if model.name == "pendulum" else 1.2
-            xs = torch.from_numpy(
-                rng.uniform(-span, span, (B, T + 1, S)).astype(np.float32)).to(dev)
-        return xs.contiguous(), us.contiguous(), gz
+        return derivs_inputs_for(model, B, T, seed, rolled, dev)
 
     derivs_names = ("A", "Bd", "c", "Q", "R", "M", "q", "r")
     for name in ("acrobot", "cartpole_swingup", "pendulum"):
@@ -1088,11 +1220,17 @@ def main():
     # 5. timings at the main paths' shapes, with each bound from this run's shapes
     model = env.model
     S, Z = model.state_size, model.goal_size
-    ms, plain_ms, bounds = {}, {}, {}
+    ms, dev_ms, plain_ms, bounds, chains = {}, {}, {}, {}, {}
+
+    def time_kernel(name, fn):
+        """Around one call (the table's column) and device time; the
+        difference is the wrapper's host work before its launch."""
+        ms[name], dev_ms[name] = cuda_time_ms(fn), device_time_ms(fn)
+
     plan, x0, gz = mppi_inputs(model, BATCH, HORIZON, 1, dev)
     lanes = pick_lanes(BATCH)
-    ms["fused_mppi_step"] = cuda_time_ms(
-        lambda: fused_mppi_step(model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7))
+    time_kernel("fused_mppi_step",
+                lambda: fused_mppi_step(model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7))
     plain_ms["fused_mppi_step"] = cuda_time_ms(lambda: fused_mppi_step_reference(
         model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7), reps=3, warmup=1)
     steps = BATCH * K_SAMPLES * HORIZON
@@ -1104,7 +1242,7 @@ def main():
     usn = (plan.repeat_interleave(K_SAMPLES, dim=1)
            + torch.randn((HORIZON, N), generator=torch.Generator(device=dev).manual_seed(4),
                          device=dev))
-    ms["fused_rollout_costs_tm"] = cuda_time_ms(lambda: fused_rollout_costs_tm(model, x0n, usn, gz))
+    time_kernel("fused_rollout_costs_tm", lambda: fused_rollout_costs_tm(model, x0n, usn, gz))
     plain_ms["fused_rollout_costs_tm"] = cuda_time_ms(
         lambda: fused_rollout_costs_tm_reference(model, x0n, usn, gz), reps=3, warmup=1)
     bounds["fused_rollout_costs_tm"] = bound(4 * (S * N + HORIZON * N + HORIZON * Z + N),
@@ -1112,7 +1250,7 @@ def main():
 
     plan, x0, gz = mppi_inputs(model, CEM_B, CEM_T, 3, dev)
     cem_args = (model, CEM_K, CEM_ELITE, CEM_ITERS, 0.2, 1.0, pick_lanes(CEM_B), plan, x0, gz, 7)
-    ms["fused_cem_step"] = cuda_time_ms(lambda: fused_cem_step(*cem_args))
+    time_kernel("fused_cem_step", lambda: fused_cem_step(*cem_args))
     plain_ms["fused_cem_step"] = cuda_time_ms(lambda: fused_cem_step_reference(*cem_args),
                                               reps=3, warmup=1)
     cem_steps = CEM_B * CEM_K * CEM_T * CEM_ITERS
@@ -1123,18 +1261,35 @@ def main():
                                + CEM_K * CEM_ELITE * CEM_SELECT_OPS))
     print(f"fused_cem_step: {cem_steps} rollout steps per launch", flush=True)
 
+    # kernel 5 at iLQR's shape (cart-pole derivatives, check_pd) and at SQP's
+    # (acrobot, with_c, mu = 0); the bound with the horizon's chain beside
+    # the bytes' and operations'
+    clock = max_sm_clock_mhz()
     d = riccati_main
-    ms["riccati_backward_batch"] = cuda_time_ms(lambda: riccati_backward_batch(*d, ones))
+    time_kernel("riccati_backward_batch", lambda: riccati_backward_batch(*d, ones))
     plain_ms["riccati_backward_batch"] = cuda_time_ms(
         lambda: riccati_backward_batch_reference(*d, ones), reps=3, warmup=1)
     per_t = S + 1 + S * S + 1 + S + S * S + S  # l_x, l_u, l_xx, l_uu, l_ux, f_x, f_u
-    bounds["riccati_backward_batch"] = bound(
-        4 * ILQR_B * (ILQR_T * (per_t + 1 + S) + S + S * S + 2),
-        ILQR_B * ILQR_T * riccati_ops(S))
+    riccati_bytes = 4 * ILQR_B * (ILQR_T * (per_t + 1 + S) + S + S * S + 2)
+    bounds["riccati_backward_batch"] = bound(riccati_bytes, ILQR_B * ILQR_T * riccati_ops(S))
+    chains["riccati_backward_batch"] = chain_ms(ILQR_T, riccati_chain(S), clock)
+    with_chain = bound(riccati_bytes, ILQR_B * ILQR_T * riccati_ops(S),
+                       chains["riccati_backward_batch"])
+    print(f"[{smi}] riccati_backward_batch at iLQR's shape (cart-pole, B={ILQR_B}, T={ILQR_T}, "
+          f"S={S}): around one call {ms['riccati_backward_batch']:.4f} ms, device "
+          f"{dev_ms['riccati_backward_batch']:.4f} ms; bound {bounds['riccati_backward_batch'][0]:.5f}"
+          f" ms ({bounds['riccati_backward_batch'][1]}), with the chain ({riccati_chain(S)} "
+          f"dependent operations a step at {clock:.0f} MHz) {with_chain[0]:.5f} ms "
+          f"({with_chain[1]})", flush=True)
+    fn = lambda: riccati_backward_batch(*sq[:8], sq[8], check_pd=False, with_c=True)  # noqa: E731
+    print(f"[{smi}] riccati_backward_batch at SQP's shape (acrobot, with_c, mu = 0, B={SQP_B}, "
+          f"T={SQP_T}): around one call {cuda_time_ms(fn):.4f} ms, device "
+          f"{device_time_ms(fn):.4f} ms; chain {chain_ms(SQP_T, riccati_chain(4, True), clock):.5f}"
+          f" ms", flush=True)
 
     ls_in = ls_inputs(model, 8)
-    ms["fused_linesearch"] = cuda_time_ms(
-        lambda: fused_linesearch(model, alphas, *ls_in, with_terminal=True))
+    time_kernel("fused_linesearch",
+                lambda: fused_linesearch(model, alphas, *ls_in, with_terminal=True))
     plain_ms["fused_linesearch"] = cuda_time_ms(
         lambda: fused_linesearch_reference(model, alphas, *ls_in, with_terminal=True),
         reps=3, warmup=1)
@@ -1147,7 +1302,7 @@ def main():
     # kernel 4 at SQP's shape and model (acrobot), kernel 7 at configuration 1's
     acro = AcrobotEnv.model
     dv_in = derivs_inputs(acro, SQP_B, SQP_T, 9, True)
-    ms["fused_derivs"] = cuda_time_ms(lambda: fused_derivs(acro, *dv_in))
+    time_kernel("fused_derivs", lambda: fused_derivs(acro, *dv_in))
     plain_ms["fused_derivs"] = cuda_time_ms(lambda: fused_derivs_reference(acro, *dv_in),
                                             reps=3, warmup=1)
     Sa = acro.state_size
@@ -1158,11 +1313,12 @@ def main():
     print(f"fused_derivs: {derivs_ops(acro)} operations per acrobot point, {pts} points",
           flush=True)
     dv_cart = derivs_inputs(model, ILQR_B, ILQR_T, 9, True)
+    fn = lambda: fused_derivs(model, *dv_cart)  # noqa: E731
     print(f"[{smi}] fused_derivs on cart-pole (the Gauss-Newton iLQR path), B={ILQR_B}, "
-          f"T={ILQR_T}: kernel {cuda_time_ms(lambda: fused_derivs(model, *dv_cart)):.4f} ms",
-          flush=True)
+          f"T={ILQR_T}: around one call {cuda_time_ms(fn):.4f} ms, device "
+          f"{device_time_ms(fn):.4f} ms", flush=True)
 
-    ms["admm_iterate"] = cuda_time_ms(lambda: admm_iterate(*admm_main, iters=QP1_ITERS))
+    time_kernel("admm_iterate", lambda: admm_iterate(*admm_main, iters=QP1_ITERS))
     plain_ms["admm_iterate"] = cuda_time_ms(
         lambda: admm_iterate_reference(*admm_main, iters=QP1_ITERS), reps=3, warmup=1)
     n = QP1_T
@@ -1178,7 +1334,6 @@ def main():
     # sweep's shape (the table's row), then the pendulum at configuration 6's.
     # Each bound is the bytes' and the operations' (the kernels line's) and,
     # beside it, the larger with the horizon's loop-carried chain
-    clock = max_sm_clock_mhz()
 
     def i2c_bounds(p):
         B_, T_, D = p[0].shape[:3]
@@ -1203,8 +1358,10 @@ def main():
         return two
 
     p, outs = i2c_first_iteration_inputs["cartpole_swingup"]
-    ms["i2c_filter"] = cuda_time_ms(lambda: i2c_filter(*p))
-    ms["i2c_rts_smooth"] = cuda_time_ms(lambda: i2c_rts_smooth(*outs, p[0]))
+    time_kernel("i2c_filter", lambda: i2c_filter(*p))
+    time_kernel("i2c_rts_smooth", lambda: i2c_rts_smooth(*outs, p[0]))
+    chains["i2c_filter"] = chain_ms(I2CS_T, i2c_filter_chain(5, 5), clock)
+    chains["i2c_rts_smooth"] = chain_ms(I2CS_T - 1, i2c_rts_chain(5), clock)
     plain_ms["i2c_filter"] = cuda_time_ms(lambda: i2c_filter_reference(*p), reps=3, warmup=1)
     plain_ms["i2c_rts_smooth"] = cuda_time_ms(lambda: i2c_rts_smooth_reference(*outs, p[0]),
                                               reps=3, warmup=1)
@@ -1214,14 +1371,19 @@ def main():
     print(f"i2c_filter: {i2c_filter_ops(5, 5)} operations per point at D = Z = 5, "
           f"i2c_rts_smooth: {i2c_rts_ops(5)}; {I2CS_B * I2CS_T} points", flush=True)
     p6, outs6 = i2c_first_iteration_inputs["pendulum"]
+    fns6 = (lambda: i2c_filter(*p6), lambda: i2c_rts_smooth(*outs6, p6[0]))
     i2c_line(f"configuration 6's shape (pendulum, B={I2C6_B}, T={I2C6_T}, D=Z=3)", p6, outs6,
-             (cuda_time_ms(lambda: i2c_filter(*p6)), cuda_time_ms(lambda: i2c_rts_smooth(*outs6, p6[0]))),
+             [cuda_time_ms(f) for f in fns6],
              (cuda_time_ms(lambda: i2c_filter_reference(*p6), reps=3, warmup=1),
               cuda_time_ms(lambda: i2c_rts_smooth_reference(*outs6, p6[0]), reps=3, warmup=1)))
+    print(f"[{smi}] i2c_filter and i2c_rts_smooth at configuration 6's shape: device "
+          f"{device_time_ms(fns6[0]):.4f} and {device_time_ms(fns6[1]):.4f} ms", flush=True)
 
     for name in ms:
-        print(f"[{smi}] {name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.3f} ms, "
-              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
+        print(f"[{smi}] {name}: around one call {ms[name]:.4f} ms, device {dev_ms[name]:.4f} ms "
+              f"(the wrapper's host work before its launch {ms[name] - dev_ms[name]:.4f} ms), "
+              f"plain {plain_ms[name]:.3f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]})",
+              flush=True)
 
     ep = {
         "mppi kernel tier": report_episodes(smi, "mppi kernel tier", episode_seconds(
@@ -1302,8 +1464,9 @@ def main():
             "source": f"benchmarking_mpc_solvers_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
-            "ms": ms[name], "plain_ms": plain_ms[name],
+            "ms": ms[name], "device_ms": dev_ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "chain_bound_ms": chains.get(name),
             "library_ms": None, "pass": True})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
                       "card": smi}), flush=True)

@@ -5,6 +5,9 @@
         for example the parent commit unpacked with ``git archive``)
     python3 kernel_ab.py i2c_smooth.cu -D I2C_RTS_SHAPE=1 -D I2C_RTS_SHAPE=2
         this checkout's source as it is and built with each define
+    python3 kernel_ab.py riccati_backward.cu --against DIR
+    python3 kernel_ab.py fused_derivs.cu --against DIR
+        kernels 5 and 4 against DIR's
 
 Every variant is compiled with the package's flags, all at once, and is
 loaded in place of the package's library for that source while it runs, so
@@ -16,8 +19,11 @@ case (a, b, ..., b, a), and each call is timed two ways:
   call (the host has enqueued them before the card reaches them, so its
   overhead stays out).
 Every variant's outputs must equal the first variant's bit for bit. The cases
-are the main paths' shapes from chip_smoke.py; a source with no cases here is
-refused. The last line is a JSON object of every reading.
+are the main paths' shapes from chip_smoke.py (``CASES``: the sources of
+kernels 8a and 8b, 5 and 4); a source with no cases here is refused. A build
+of riccati_backward.cu from before its ok flags were written as bools is
+called through the entry point and wrapper steps of that time. The last line
+is a JSON object of every reading.
 
 Imports only the port (``benchmarking_mpc_solvers_tpu_torch``), never JAX.
 """
@@ -35,24 +41,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-
-# cycles the sleeping kernel spins while the host enqueues the timed calls
-SLEEP_CYCLES = 20_000_000
-QUEUED_CALLS = 20
-
-
-def device_time_ms(fn) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    for _ in range(QUEUED_CALLS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / QUEUED_CALLS
+from benchmarking_mpc_solvers_tpu_torch import _build
 
 
 def i2c_cases(dev):
@@ -74,10 +63,72 @@ def i2c_cases(dev):
     return cases
 
 
-CASES = {"i2c_smooth.cu": i2c_cases}
+def riccati_cases(dev):
+    """Kernel 5 at iLQR's shape (cart-pole derivatives along the initial
+    plans, check_pd) and at SQP's (the acrobot's Gauss-Newton terms, with_c,
+    mu = 0), as chip_smoke.py times them."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import riccati_backward_batch
+
+    def run(d, mu, c, check_pd, with_c):
+        lib = _build._LIBS["riccati_backward.cu"]
+        if hasattr(lib, "riccati_backward_batch_launch"):
+            return riccati_backward_batch(*d, mu, c, check_pd=check_pd, with_c=with_c)
+        return riccati_float_ok(lib, d, mu, c, check_pd, with_c)
+
+    d = cs.ilqr_derivs_for("cartpole_swingup", cs.ILQR_B, cs.ILQR_T, dev)
+    ones = torch.ones((cs.ILQR_B,), device=dev)
+    sq = cs.sqp_riccati_inputs_for(cs.SQP_B, cs.SQP_T, dev)
+    return [
+        (f"iLQR's shape (cart-pole, B={cs.ILQR_B}, T={cs.ILQR_T}, check_pd)",
+         [("riccati_backward_batch", lambda: run(d, ones, None, True, False))]),
+        (f"SQP's shape (acrobot, B={cs.SQP_B}, T={cs.SQP_T}, with_c, mu = 0)",
+         [("riccati_backward_batch", lambda: run(sq[:7], sq[7], sq[8], False, True))])]
+
+
+def riccati_float_ok(lib, d, mu, c, check_pd, with_c):
+    """A library whose entry point is the one before the kernel wrote ok as
+    a bool (``riccati_backward_launch``, ok as 1.0/0.0 floats), called as its
+    wrapper called it: three outputs, then ``ok > 0.5``."""
+    fn = lib.riccati_backward_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, Tp1, S = d[0].shape
+    T = Tp1 - 1
+    dev = d[0].device
+    ks = torch.empty((B, T, 1), device=dev)
+    Ks = torch.empty((B, T, 1, S), device=dev)
+    ok = torch.empty((B,), device=dev)
+    _build.check_rc("riccati_backward_launch", fn(
+        *(t.data_ptr() for t in (*d, mu)), c.data_ptr() if with_c else None, ks.data_ptr(),
+        Ks.data_ptr(), ok.data_ptr(), B, T, S, int(check_pd), _build.stream_ptr(dev)))
+    return ks, Ks, ok > 0.5
+
+
+def derivs_cases(dev):
+    """Kernel 4 at the Gauss-Newton iLQR path's shape (cart-pole) and at
+    SQP's (acrobot), along rolled-out trajectories, as chip_smoke.py times
+    them."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_derivs import fused_derivs
+
+    cases = []
+    for label, name, B, T in (
+            ("Gauss-Newton iLQR's shape", "cartpole_swingup", cs.ILQR_B, cs.ILQR_T),
+            ("SQP's shape", "acrobot", cs.SQP_B, cs.SQP_T)):
+        model = REGISTRY[name]
+        inputs = cs.derivs_inputs_for(model, B, T, 9, True, dev)
+        cases.append((f"{label} ({name}, B={B}, T={T})",
+                      [("fused_derivs", lambda m=model, i=inputs: fused_derivs(m, *i))]))
+    return cases
+
+
+CASES = {"i2c_smooth.cu": i2c_cases, "riccati_backward.cu": riccati_cases,
+         "fused_derivs.cu": derivs_cases}
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        return a.dtype == b.dtype and bool(torch.equal(a, b))
     nan = torch.isnan(b)
     return bool(torch.equal(torch.isnan(a), nan)) and bool(torch.equal(
         a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
@@ -97,7 +148,6 @@ def main() -> int:
     if args.source not in CASES:
         print(f"FAIL: no cases for {args.source}; there are for {sorted(CASES)}")
         return 1
-    from benchmarking_mpc_solvers_tpu_torch import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -149,7 +199,7 @@ def main() -> int:
             for i in order:
                 _build._LIBS[args.source] = libs[i]
                 times[i]["around_one_call_ms"].append(cs.cuda_time_ms(fn))
-                times[i]["device_ms"].append(device_time_ms(fn))
+                times[i]["device_ms"].append(cs.device_time_ms(fn))
             base = statistics.mean(times[0]["device_ms"])
             for (vlabel, _, _), t in zip(variants, times):
                 print(f"[{smi}] {name} at {label}, {vlabel} source: around one call "

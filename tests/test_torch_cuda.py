@@ -7,8 +7,10 @@ On the card (where JAX is absent, so without the suite's conftest):
 
 Tolerance rtol/atol 1e-4: both sides run float32 one IEEE operation at a
 time (the kernels are built with --fmad=false); only summation orders in
-the softmax and plan update differ. The CEM elite masks and the Riccati
-``ok`` flags must match exactly: one swapped elite moves a plan by O(std).
+the softmax and plan update differ. The CEM elite masks must match exactly:
+one swapped elite moves a plan by O(std). The Riccati kernel sums every
+entry in the plain version's order and must match it bit for bit, its
+``ok`` flags included.
 The derivative kernel pushes forward-mode tangents where its plain version
 differentiates in reverse mode: the same formulas in another order, well
 inside 1e-4. The ADMM kernel sums its matvec in the plain version's order
@@ -133,20 +135,73 @@ def _riccati_inputs(B, T, S, dev, seed=3):
         0.3 * rng.standard_normal((B, T, S)))]
 
 
+def _bits(got, want):
+    """Bit for bit (a zero's sign included), NaN at the same places."""
+    if got.dtype == torch.bool:
+        assert torch.equal(got, want)
+        return
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def _riccati_both(d, mu, c, with_c, check_pd=None):
+    check_pd = not with_c if check_pd is None else check_pd
+    before = riccati_backward_batch.launches
+    got = riccati_backward_batch(*d, mu, c, check_pd=check_pd, with_c=with_c)
+    torch.cuda.synchronize()
+    assert riccati_backward_batch.launches == before + 1
+    assert got[2].dtype == torch.bool and got[2].shape == (d[0].shape[0],)
+    want = riccati_backward_batch_reference(*d, mu, c, check_pd=check_pd, with_c=with_c)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _bits(g, w)
+    return got, want
+
+
 @pytest.mark.parametrize("S", [2, 4, 8])
 @pytest.mark.parametrize("with_c", [False, True])
 def test_riccati_kernel_matches_plain(dev, S, with_c):
+    """ks, Ks and ok bit for bit: every entry is summed in the plain order."""
     *d, mu, c = _riccati_inputs(300, 20, S, dev)
-    before = riccati_backward_batch.launches
-    got = riccati_backward_batch(*d, mu, c, check_pd=not with_c, with_c=with_c)
-    torch.cuda.synchronize()
-    assert riccati_backward_batch.launches == before + 1
-    want = riccati_backward_batch_reference(*d, mu, c, check_pd=not with_c, with_c=with_c)
-    assert torch.equal(got[2], want[2])
+    _, want = _riccati_both(d, mu, c, with_c)
     if not with_c:
         assert 0 < int(want[2].sum()) < 300  # ok is mixed
-    for g, w in zip(got[:2], want[:2]):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, equal_nan=True)
+
+
+# At S <= 4 the kernel gives a scenario's entries a lane each, in groups of
+# 1, 4 or 16 lanes (32, 8 or 2 scenarios a warp), and stages 16 steps; above,
+# a thread per scenario, 8 a block, and stages of 4 steps. These reach every
+# S, ragged last blocks, a horizon of one step, of exactly one stage and one
+# past one or two.
+@pytest.mark.parametrize("B,T,S", [(1001, 17, 1), (999, 17, 2), (777, 33, 3), (1001, 17, 4),
+                                   (333, 5, 5), (201, 9, 6), (101, 7, 7), (97, 5, 8),
+                                   (1001, 1, 4), (33, 1, 8), (65, 16, 4), (30, 4, 8), (3, 33, 4)])
+@pytest.mark.parametrize("with_c", [False, True])
+def test_riccati_kernel_edges_bit_for_bit(dev, B, T, S, with_c):
+    *d, mu, c = _riccati_inputs(B, T, S, dev, seed=B + T + S)
+    _riccati_both(d, mu, c, with_c)
+
+
+def test_riccati_kernel_nan_scenario_and_storage_offset(dev):
+    *d, mu, c = _riccati_inputs(300, 20, 4, dev, seed=8)
+    clean = riccati_backward_batch(*d, mu, c, check_pd=True, with_c=True)
+    assert torch.isfinite(clean[1][8]).all() and bool(clean[2][8])  # scenario 8 is clean
+    d[5][8, 3, 0, 0] = float("nan")  # f_x of scenario 8 at t = 3
+    got, _ = _riccati_both(d, mu, c, with_c=True, check_pd=True)
+    # from t = 3 down: K's column 0 at t = 3 (through V_xx f_x), all of k and K below
+    assert torch.isnan(got[0][8, :3]).all() and torch.isnan(got[1][8, :3]).all()
+    assert torch.isnan(got[1][8, 3, 0, 0]) and torch.isfinite(got[1][8, 3, 0, 1:]).all()
+    assert not bool(got[2][8])
+    others = torch.arange(300, device=dev) != 8
+    for g, w in zip(got, clean):  # other scenarios as before, those that overflow NaN alike
+        _bits(g[others], w[others])
+    off = [torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t)
+           for t in _riccati_inputs(257, 11, 4, dev, seed=9)]
+    assert all(t.storage_offset() == 1 and t.is_contiguous() for t in off)
+    *d_off, mu_off, c_off = off
+    for with_c in (False, True):
+        _riccati_both(d_off, mu_off, c_off, with_c)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -172,24 +227,39 @@ def test_fused_linesearch_kernel_matches_plain(dev, name, with_terminal, return_
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_fused_derivs_kernel_matches_plain(dev, name):
-    model = REGISTRY[name]
-    B, T, S = 300, 17, model.state_size
-    rng = np.random.default_rng(5)
+def _derivs_both(model, B, T, dev, seed=5):
+    """Kernel against plain version at rtol = atol = 1e-4, the launch counted,
+    every output contiguous. Where B·T is not a multiple of 4 some output
+    ranges do not start on 16 bytes and take the kernel's 4-byte stores."""
+    S = model.state_size
+    rng = np.random.default_rng(seed)
     xs = rng.uniform(-1.2, 1.2, (B, T + 1, S))
     us = rng.uniform(-1.0, 1.0, (B, T, 1))
-    us[::7, 0], us[1::7, 1] = model.bounds_high[0], model.bounds_low[0]  # on the bounds
-    if name == "pendulum":
-        xs[0, :4, 0] = [np.pi - 0.01, np.pi + 0.01, -np.pi + 0.01, -np.pi - 0.01]
+    us[::7, 0], us[1::7, min(1, T - 1)] = model.bounds_high[0], model.bounds_low[0]
+    if model.name == "pendulum":  # angles on both sides of the wrap
+        xs[0, :min(4, T + 1), 0] = [np.pi - 0.01, np.pi + 0.01, -np.pi + 0.01,
+                                    -np.pi - 0.01][:min(4, T + 1)]
     args = [_t(a, dev) for a in (xs, us, rng.uniform(-0.2, 0.2, (T, model.goal_size)))]
     before = fused_derivs.launches
     got = fused_derivs(model, *args)
     torch.cuda.synchronize()
     assert fused_derivs.launches == before + 1
     for g, w in zip(got, fused_derivs_reference(model, *args)):
-        assert g.shape == w.shape
+        assert g.shape == w.shape and g.is_contiguous()
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fused_derivs_kernel_matches_plain(dev, name):
+    """300 x 17 points: a ragged last block of 128 points."""
+    _derivs_both(REGISTRY[name], 300, 17, dev)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("B,T", [(1, 1), (7, 7), (1, 128), (3, 43)])
+def test_fused_derivs_kernel_edges(dev, name, B, T):
+    """One point, less than a block of 128 points, a block's worth and more."""
+    _derivs_both(REGISTRY[name], B, T, dev, seed=B * T)
 
 
 @pytest.mark.parametrize("n,B,per_problem,per_bounds", [
@@ -324,13 +394,6 @@ def _i2c_problem(dev, seed, B, T, S, A, Z, shared_R=False, variant=None):
     return out
 
 
-def _same(got, want):
-    """Bit for bit (a zero's sign included), NaN at the same places."""
-    nan = torch.isnan(want)
-    assert torch.equal(torch.isnan(got), nan)
-    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
-
-
 # The kernels give a scenario 8 lanes and a block 8 scenarios with stages of
 # 4 time steps, or, the smoother above 8 scenarios per SM, 16 scenarios with
 # stages of 3 steps: the later cases reach a ragged last group and block, a
@@ -360,17 +423,17 @@ def test_i2c_filter_and_smoother_match_plain_bit_for_bit(dev, B, T, S, A, Z, sha
     before = (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches)
     got, want = ts.i2c_filter(*p), ts.i2c_filter_reference(*p)
     for g, w in zip(got, want):
-        _same(g, w)
+        _bits(g, w)
     if T > 1:
-        _same(ts.i2c_rts_smooth(*got, p[0]), ts.i2c_rts_smooth_reference(*want, p[0]))
+        _bits(ts.i2c_rts_smooth(*got, p[0]), ts.i2c_rts_smooth_reference(*want, p[0]))
     if variant == "zeros":
         # every zero of the filter's outputs made negative: the smoother's
         # factorisation then divides negative zeros (sig_pred's action rows)
         neg = [torch.where(t == 0, torch.full_like(t, -0.0), t) for t in got]
         assert bool(torch.signbit(neg[3][neg[3] == 0]).all()) and bool((neg[3] == 0).any())
-        _same(ts.i2c_rts_smooth(*neg, p[0]), ts.i2c_rts_smooth_reference(*neg, p[0]))
+        _bits(ts.i2c_rts_smooth(*neg, p[0]), ts.i2c_rts_smooth_reference(*neg, p[0]))
     out = ts.i2c_smooth_batch(*p)
-    _same(out, ts.i2c_smooth_batch_reference(*p))
+    _bits(out, ts.i2c_smooth_batch_reference(*p))
     assert out.shape == (B, T, S + A)
     n_rts = (2 if T > 1 else 0) + (variant == "zeros")  # the negative-zero smoother call
     assert (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches) == (
@@ -402,7 +465,7 @@ def test_i2c_nan_scenario_stays_nan_on_the_card(dev):
     clean = ts.i2c_smooth_batch(*p)
     p[0][7, 2, 0, 0] = float("nan")
     out = ts.i2c_smooth_batch(*p)
-    _same(out, ts.i2c_smooth_batch_reference(*p))
+    _bits(out, ts.i2c_smooth_batch_reference(*p))
     others = torch.arange(300, device=dev) != 7
     assert torch.isnan(out[7]).all() and torch.equal(out[others], clean[others])
 

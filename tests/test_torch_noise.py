@@ -79,3 +79,42 @@ def test_solve_batch_result_does_not_depend_on_batch_size(which):
     sub = st._replace(planned_us=plans[2:5], seeds=st.seeds[2:5], calls=st.calls[2:5])
     part, _, _ = solver.solve_batch(sub, xs[2:5], g_z)
     assert torch.equal(part.planned_us, full.planned_us[2:5])
+
+
+def _noisy_solvers():
+    return [MPPI(model=CartPoleSwingUpModel, T=T, K=8, model_noise_std=0.5),
+            CEM(model=CartPoleSwingUpModel, T=T, K=8, n_elite=3, max_iter=2,
+                model_noise_std=0.5)]
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["mppi", "cem"])
+def test_plain_tier_model_noise_follows_the_scenario(which):
+    """With model_noise_std > 0 the plain tier draws each scenario's state
+    noise from its own stream, at the draw count of its perturbations and at
+    timestep indices T·A onwards, which the perturbations never use: the
+    drawn noise is exactly those draws, permuting the scenarios permutes
+    every output, and a sub-batch gets the same result."""
+    solver = _noisy_solvers()[which]
+    xs, plans, g_z = _problem()
+    st = solver.init_state_batch(B, torch.Generator().manual_seed(5), device="cpu")
+    st = st._replace(planned_us=plans, calls=torch.arange(B, dtype=torch.int64))
+    drawn, u0, _ = solver.solve_batch(st, xs, g_z, use_fused=False)
+    iters = [0] if which == 0 else range(solver.max_iter)
+    xnoise = torch.stack([0.5 * scenario_normals(st.seeds, st.calls + i, 8, T * 5)[..., T:]
+                          .reshape(B, 8, T, 4) for i in iters])
+    given, _, _ = solver.solve_batch(st, xs, g_z, use_fused=False,
+                                     xnoise=xnoise[0] if which == 0 else xnoise)
+    assert torch.equal(given.planned_us, drawn.planned_us)
+    clean, _, _ = solver.solve_batch(st, xs, g_z, use_fused=False, xnoise=torch.zeros_like(
+        xnoise[0] if which == 0 else xnoise))
+    assert not torch.equal(clean.planned_us, drawn.planned_us)
+
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(1))
+    st_p = st._replace(planned_us=plans[perm], seeds=st.seeds[perm], calls=st.calls[perm])
+    for a, b in zip(_two_calls(solver, st, xs, g_z, False),
+                    _two_calls(solver, st_p, xs[perm], g_z, False)):
+        for x, y in zip(a, b):
+            assert torch.equal(x[perm], y)
+    sub = st._replace(planned_us=plans[2:5], seeds=st.seeds[2:5], calls=st.calls[2:5])
+    part, _, _ = solver.solve_batch(sub, xs[2:5], g_z, use_fused=False)
+    assert torch.equal(part.planned_us, drawn.planned_us[2:5])
