@@ -120,11 +120,13 @@ SIGNATURES = {
     "fused_cem_step_launch": (
         "fused_cem.cu",
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _W, _P]),
+    "fused_cem_launch_config": ("fused_cem.cu", [_I, _I, _I, _I, _P]),
     "riccati_backward_batch_launch": (
         "riccati_backward.cu", [_P] * 12 + [_I, _I, _I, _I, _P]),
     "fused_linesearch_launch": (
         "fused_linesearch.cu",
         [_I] + [_P] * 10 + [_I, _I, _I, _F, _F, _I, _W, _W, _P]),
+    "fused_linesearch_launch_config": ("fused_linesearch.cu", [_I, _I, _I, _P]),
     "fused_derivs_launch": (
         "fused_derivs.cu", [_I] + [_P] * 11 + [_I, _I, _W, _P]),
     "admm_iterate_launch": (

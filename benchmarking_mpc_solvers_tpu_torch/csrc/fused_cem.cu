@@ -22,14 +22,27 @@
 // states), 1.3 us at 3.35 TB/s, while it does B*K*T*max_iter = 98 M rollout
 // steps, each with one noise draw (two hashes, logf, sqrtf, cosf), the clip
 // and the model's sinf/cosf, ~72 FP32 operations: 0.11 ms at 67 TFLOP/s.
+// That count takes each libm call and division as one operation; on the
+// card each is a sequence of instructions, and what bounds the kernel is
+// the rate at which the SMs issue them (chip_smoke.py counts the rollout
+// loop's instructions and prints that floor).
 // Design: one warp per scenario, one lane per sample k (K=64 is two per
-// lane), so 10240 scenarios give 327,680 threads. mean, std, costs and the
-// elite mask sit in shared memory (2T + 2K floats per warp); the selection
-// is warp-shuffle minima. Pass 2 gives lane j the steps t = j, j+32, ...
-// and sums over k in order, as the reference does, so the moments round
-// exactly as the plain version; it redraws the noise of the elite samples
-// only (w = 0 adds nothing), n_elite*T draws instead of caching K*T
-// samples. Faster designs (fewer transcendentals, occupancy) are later work.
+// lane), so 10240 scenarios give 327,680 threads. mean, std, costs, the
+// elite mask and the elites' list sit in shared memory (2T + 3K words per
+// warp); the selection is warp-shuffle minima. Pass 2 gives lane j the
+// steps t = j, j+32, ... and sums over the elites in k order, as the
+// reference does, so the moments round exactly as the plain version; it
+// redraws the noise of the elite samples only (w = 0 adds nothing), from a
+// list of their k built once per iteration by ballots, n_elite*T draws
+// instead of caching K*T samples. The rollout issues few instructions a
+// step beside its arithmetic:
+// - the stage cost is compiled for the model's own nonzero weights
+//   (M::kCostTerms), so a step neither tests the zero weights nor loads
+//   their goals (cart-pole: 2 terms of 15);
+// - the model takes the sine and cosine of an angle with one sincosf
+//   (models.cuh), one argument reduction where there were two.
+// Neither changes an operation of the sum, so the plan and the elite masks
+// keep the bits of the parent and of the plain version.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,10 +81,11 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;  // uniform per warp: shuffles below see full warps
-  float* mean = smem + warp * (2 * T + 2 * K);
+  float* mean = smem + warp * (2 * T + 3 * K);
   float* stdv = mean + T;
   float* cost = stdv + T;
   float* sel = cost + K;
+  int* elite = reinterpret_cast<int*>(sel + K);  // the elites' k, in k order
 
   const int s = b / C, col = b % C;
   const int pid = col / lanes, l = col % lanes;
@@ -102,7 +116,7 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
         const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
         const float u = bmpc::clampf(mean[t] + stdv[t] * d, lo, hi);
         M::transform(x, u, z);
-        const float c = bmpc::quad_cost<Z>(z, gz + t * Z, q);
+        const float c = bmpc::quad_cost<Z, M::kCostTerms>(z, gz + t * Z, q);
         M::dynamics(x, u, xn);
 #pragma unroll
         for (int i = 0; i < S; ++i) x[i] = xn[i];
@@ -127,12 +141,21 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
     const float wsum = fmaxf(warp_sum(cnt), 1.0f);
     if (masks != nullptr)
       for (int k = lane; k < K; k += 32) masks[((size_t)it * K + k) * B + b] = sel[k];
+    // the elites' k in k order (a sample with w = 0 adds nothing to a moment)
+    int n_sel = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const bool on = k0 + lane < K && sel[k0 + lane] != 0.0f;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (on) elite[n_sel + __popc(m & ((1u << lane) - 1u))] = k0 + lane;
+      n_sel += __popc(m);
+    }
+    __syncwarp();
 
     // pass 2: elite moments per t, summed over k in order
     for (int t = lane; t < T; t += 32) {
       float m1 = 0.0f, m2 = 0.0f;
-      for (int k = 0; k < K; ++k) {
-        if (sel[k] == 0.0f) continue;  // w = 0: the term adds nothing
+      for (int e = 0; e < n_sel; ++e) {
+        const int k = elite[e];
         const float w = sel[k] / wsum;
         const uint32_t seed_c = seed_it + (uint32_t)k * kKStride;
         const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
@@ -153,7 +176,8 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
 
 // plan/out (T, B), x0 (S, B), gz (T, S+1): float32, contiguous, on the device;
 // masks (max_iter, K, B) float32 or null. w: host array of MAX_Z*MAX_Z
-// upper-triangle cost weights. Returns the launch's cudaGetLastError().
+// upper-triangle cost weights, nonzero exactly at the model's kCostTerms.
+// Returns the launch's cudaGetLastError().
 extern "C" int fused_cem_step_launch(int model_id, const float* plan,
                                      const float* x0, const float* gz,
                                      float* out, float* masks, int T, int B,
@@ -166,16 +190,45 @@ extern "C" int fused_cem_step_launch(int model_id, const float* plan,
   for (int i = 0; i < bmpc::kMaxZ * bmpc::kMaxZ; ++i) q.w[i] = w[i];
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const size_t smem = sizeof(float) * (2 * T + 2 * K) * kWarpsPerBlock;
+  const size_t smem = sizeof(float) * (2 * T + 3 * K) * kWarpsPerBlock;
   BMPC_DISPATCH_MODEL(model_id, {
+    // compiled for the model's own stage cost, the only one a registered
+    // (frozen) model has: any other weights are refused
+    if (bmpc::cost_terms(q) != M::kCostTerms) return (int)cudaErrorInvalidValue;
+    const auto kernel = fused_cem_kernel<M>;
     if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          fused_cem_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    fused_cem_kernel<M><<<grid, block, smem, stream>>>(
+    kernel<<<grid, block, smem, stream>>>(
         plan, x0, gz, out, masks, T, B, K, n_elite, max_iter, alpha,
         one_minus_alpha, std0, lo, hi, seed, lanes, C, q);
   });
   return (int)cudaGetLastError();
+}
+
+// The launch shape at (model, T, K, B) on the current card, into out[6]:
+// threads per block, scenarios per block, blocks, shared bytes per block,
+// registers per thread, resident blocks per SM. Returns a cudaError.
+extern "C" int fused_cem_launch_config(int model_id, int T, int K, int B, int* out) {
+  BMPC_DISPATCH_MODEL(model_id, {
+    const auto kernel = fused_cem_kernel<M>;
+    const int threads = 32 * kWarpsPerBlock;
+    const int smem = (int)sizeof(float) * (2 * T + 3 * K) * kWarpsPerBlock;
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return (int)e;
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int vals[6] = {threads, kWarpsPerBlock, (B + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                         smem, attr.numRegs, per_sm};
+    for (int i = 0; i < 6; ++i) out[i] = vals[i];
+    return 0;
+  });
 }

@@ -4,8 +4,10 @@ smoothed mean/std update, for all ``max_iter`` refinement iterations.
 Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused_cem.py:
 fused_cem_step``. On a CUDA tensor ``fused_cem_step`` launches the
 hand-written kernel in ``csrc/fused_cem.cu`` (one warp per scenario, one
-lane per sample); on a CPU tensor it runs ``fused_cem_step_reference``, the
-plain PyTorch version. ``fused_cem_step.launches`` counts kernel launches.
+lane per sample, the stage cost compiled for the model's own weights;
+``launch_config`` reports the launch shape); on a CPU tensor it runs
+``fused_cem_step_reference``, the plain PyTorch version.
+``fused_cem_step.launches`` counts kernel launches.
 
 Per iteration ``it`` (the reference kernel's semantics):
 - sample k of scenario b at step t is ``clip(mean_t + std_t·δ, lo, hi)``,
@@ -23,6 +25,8 @@ Per iteration ``it`` (the reference kernel's semantics):
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -38,6 +42,18 @@ def _smoothing(alpha: float):
     taken in float32."""
     a = np.float32(alpha)
     return float(a), float(np.float32(1.0) - a)
+
+
+def launch_config(model: Model, T: int, K: int, B: int) -> dict:
+    """The kernel's launch shape at (T, K, B) on the current card: threads
+    and scenarios per block, blocks, shared bytes per block, registers per
+    thread, resident blocks per SM."""
+    out = (ctypes.c_int * 6)()
+    _build.check_rc("launch_config", _build.kernel_fn("fused_cem_launch_config")(
+        _build.model_id(model), T, K, B, ctypes.cast(out, ctypes.c_void_p)))
+    keys = ("threads", "scenarios_per_block", "blocks", "shared_bytes", "registers",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def fused_cem_step_reference(model: Model, K: int, n_elite: int, max_iter: int, alpha: float,

@@ -2,8 +2,10 @@
 
 Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused_linesearch.py:
 fused_linesearch``. On CUDA tensors ``fused_linesearch`` launches the
-hand-written kernel in ``csrc/fused_linesearch.cu`` (one thread per
-(α, scenario) candidate, state in registers); on CPU tensors it runs
+hand-written kernel in ``csrc/fused_linesearch.cu`` (two warps a block: a
+lane of the chain warp per (α, scenario) candidate, and a producer warp
+that stages the horizon's inputs in shared memory and writes the outputs;
+``launch_config`` reports the launch shape); on CPU tensors it runs
 ``fused_linesearch_reference``, the plain PyTorch version with the
 reference kernel's order of operations. ``fused_linesearch.launches``
 counts kernel launches.
@@ -18,6 +20,8 @@ Scope as in the reference: action_size == 1 and ``quad_cost`` costs.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -43,6 +47,18 @@ def _check_shapes(model, alphas, x0, us, ks, Ks, xref, g_z):
             raise ValueError(f"fused_linesearch: {key} has shape {tuple(got[key].shape)}, "
                              f"expected {shape}")
     return B, T, S
+
+
+def launch_config(model: Model, n_a: int, B: int) -> dict:
+    """The kernel's launch shape for n_a alphas and B scenarios on the
+    current card: threads per block, scenarios and alphas per block, blocks,
+    shared bytes per block, registers per thread, resident blocks per SM."""
+    out = (ctypes.c_int * 7)()
+    _build.check_rc("launch_config", _build.kernel_fn("fused_linesearch_launch_config")(
+        _build.model_id(model), n_a, B, ctypes.cast(out, ctypes.c_void_p)))
+    keys = ("threads", "scenarios_per_block", "alphas_per_block", "blocks", "shared_bytes",
+            "registers", "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def fused_linesearch_reference(model: Model, alphas, x0, us, ks, Ks, xref, g_z,

@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the result line):
 2. build: compiles every kernel from ``benchmarking_mpc_solvers_tpu_torch/
    csrc`` (one nvcc per source, in parallel).
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, on each model, at the main paths' shapes (CEM's elite masks
-   exactly; kernels 5, 7, 8a and 8b bit for bit, 5, 8a and 8b also at the
-   edges of their lane groups, blocks and shared-memory stages).
+   card, on each model, at the main paths' shapes (kernels 3, 5, 6, 7, 8a
+   and 8b bit for bit, 3, 5, 6, 8a and 8b also at the edges of their lane
+   groups, blocks and shared-memory stages).
 4. main paths, each with the launch counters set to 0 just before its run
    and read just after:
    - MPPI, the bench configuration (cart-pole swing-up, K=32, T=50,
@@ -38,9 +38,10 @@ Phases (any failure exits non-zero before the result line):
    checks.
 5. timings with CUDA events: each kernel around one call and as device
    time (calls queued behind a sleeping kernel, ``device_time_ms``), its
-   plain version and its bound (for kernels 5, 8a and 8b also with the
-   horizon's dependent chain); host-clock episode solves/s of every path;
-   device time by kernel under the profiler.
+   plain version and its bound (for kernels 5, 6, 8a and 8b also with the
+   horizon's dependent chain; for kernel 3 also the instruction-issue floor
+   of its rollout loop, counted in its SASS); host-clock episode solves/s
+   of every path; device time by kernel under the profiler.
 Then a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -50,10 +51,13 @@ Imports only the port (``benchmarking_mpc_solvers_tpu_torch``), never JAX.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -303,6 +307,83 @@ def riccati_chain(S: int, with_c: bool = False) -> int:
     return max(_riccati_step_depth(S, 0, None, with_c), _riccati_step_depth(S, None, 0, with_c))
 
 
+def _clamp_depth(d):
+    """A clip: a max and a min."""
+    return _dep(_dep(d))
+
+
+def _pendulum_step_depths(x, u):
+    """Depths of the pendulum functor's next state (csrc/models.cuh), from
+    the depths of its state and action."""
+    torque = _clamp_depth(u)
+    newthdot = _dep(x[1], _dep(_dep(_dep(_dep(_dep(x[0]))), _dep(torque))))  # sin(th + pi)
+    newth = _dep(x[0], _dep(newthdot))
+    return [newth, _clamp_depth(newthdot)]
+
+
+def _cartpole_step_depths(x, u):
+    """Depths of the cart-pole functor's next state."""
+    action = _dep(_clamp_depth(u))  # clip, * FORCE_MAG
+    s, c = _dep(x[2]), _dep(x[2])  # sinf, cosf
+    td2, c2 = _dep(x[3], x[3]), _dep(c, c)
+    num1 = _dep(_dep(_dep(_dep(_dep(td2), s), _dep(_dep(s), c)), _dep(action)), _dep(x[1]))
+    den = _dep(_dep(c2))
+    num2 = _dep(_dep(_dep(_dep(_dep(td2), s), c), _dep(s)),
+                _dep(_dep(_dep(action, _dep(x[1]))), c))
+    return [_dep(x[0], _dep(x[1])), _dep(x[1], _dep(_dep(num1, den))), _dep(x[2], _dep(x[3])),
+            _dep(x[3], _dep(_dep(num2, den)))]
+
+
+def _acrobot_dsdt_depths(s, a):
+    cos2, sin2 = _dep(s[1]), _dep(s[1])
+    d1 = _dep(_dep(_dep(None, _dep(_dep(None, _dep(cos2))))))  # + I1 + I2 folded: two adds
+    d1 = _dep(d1)
+    d2 = _dep(_dep(_dep(None, _dep(cos2))))
+    phi2 = _dep(_dep(_dep(_dep(s[0], s[1]))))  # (t1 + t2 - pi/2), cos, * k
+    phi1 = _dep(_dep(_dep(_dep(_dep(_dep(s[3], s[3])), sin2),
+                          _dep(_dep(_dep(_dep(s[3]), s[2]), sin2))),
+                     _dep(_dep(_dep(s[0])))), phi2)
+    dd2 = _dep(_dep(_dep(_dep(a, _dep(_dep(d2, d1), phi1)),
+                         _dep(_dep(_dep(s[2], s[2])), sin2)), phi2),
+               _dep(None, _dep(_dep(d2, d2), d1)))
+    dd1 = _dep(_dep(_dep(_dep(d2, dd2), phi1)), d1)
+    return [s[2], s[3], dd1, dd2]
+
+
+def _acrobot_step_depths(x, u):
+    """Depths of the acrobot functor's next state: RK4 over dsdt, the wraps
+    (fmodf, the sign test's add, the offsets) and the velocity clips."""
+    k1 = _acrobot_dsdt_depths(x, u)
+    y = [_dep(x[i], _dep(k1[i])) for i in range(4)]
+    k2 = _acrobot_dsdt_depths(y, u)
+    y = [_dep(x[i], _dep(k2[i])) for i in range(4)]
+    k3 = _acrobot_dsdt_depths(y, u)
+    y = [_dep(x[i], _dep(k3[i])) for i in range(4)]
+    k4 = _acrobot_dsdt_depths(y, u)
+    ns = [_dep(x[i], _dep(_dep(_dep(_dep(k1[i], _dep(k2[i])), _dep(k3[i])), k4[i])))
+          for i in range(4)]
+    wrap = lambda d: _dep(_dep(_dep(_dep(d))))  # noqa: E731  - lo, fmodf, + span, + lo
+    return [wrap(ns[0]), wrap(ns[1]), _clamp_depth(ns[2]), _clamp_depth(ns[3])]
+
+
+STEP_DEPTHS = {"pendulum": _pendulum_step_depths, "cartpole_swingup": _cartpole_step_depths,
+               "acrobot": _acrobot_step_depths}
+
+
+def linesearch_chain(name: str) -> int:
+    """Dependent FP32 operations of one feedback step's loop-carried chain in
+    csrc/fused_linesearch.cu: from one step's state through the feedback
+    sum (in the reference order), the clip and the model functor's step to
+    the next state; each libm call (sinf, cosf, fmodf) and each division one
+    operation, as ``riccati_chain`` counts, so that T of them in a row are a
+    lower bound of the horizon's time. The step's inputs (gains, reference
+    state, us + alpha*ks) and the stage cost are off the chain."""
+    S = len(STEP_DEPTHS[name]([0] * 4, 0))
+    fb = _sum(_dep(None, _dep(0, None)) for _ in range(S))  # K_i * (x_i - xref_i)
+    u = _clamp_depth(_dep(None, fb))
+    return max(STEP_DEPTHS[name]([0] * S, u))
+
+
 def derivs_ops(model) -> int:
     """FP32 operations fused_derivs needs per point, a lower bound counted
     from csrc/fused_derivs.cu: one primal pass of dynamics + transform (the
@@ -375,6 +456,91 @@ def sqp_riccati_inputs_for(B, T, dev):
     l_xx = torch.cat([Q, Qf[:, None]], dim=1).contiguous()
     return [l_x, r.contiguous(), l_xx, (R + 1e-6).contiguous(), M.contiguous(), A.contiguous(),
             Bd.contiguous(), torch.zeros((B,), device=dev), torch.zeros_like(c)]
+
+
+def ls_inputs_for(model, B, T, seed, dev):
+    """The line-search kernel's inputs at an iteration: small random plans,
+    gains and feedforward terms, and the reference trajectory the plans roll
+    out to from random starts. Returns (x0, us, ks, Ks, xref, g_z)."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
+    rng = np.random.default_rng(seed)
+    S = model.state_size
+    x0 = torch.from_numpy((0.3 * rng.standard_normal((B, S))).astype(np.float32)).to(dev)
+    us = torch.from_numpy((0.5 * rng.standard_normal((B, T, 1))).astype(np.float32)).to(dev)
+    gz = torch.zeros((T, model.goal_size), device=dev)
+    xref, _ = simulate_trajectory(model, x0, us, gz)
+    ks = torch.from_numpy((0.3 * rng.standard_normal((B, T, 1))).astype(np.float32)).to(dev)
+    Ks = torch.from_numpy((0.05 * rng.standard_normal((B, T, 1, S))).astype(np.float32)).to(dev)
+    return x0, us, ks, Ks, xref.contiguous(), gz
+
+
+def sass_functions(sass: str) -> dict:
+    """{mangled name: [(address, instruction), ...]} of a cuobjdump -sass dump."""
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _branch_target(ins: str):
+    m = re.search(r"\bBRA\s+(?:`\(\S+\)\s*)?(0x[0-9a-f]+)", ins)
+    return int(m.group(1), 16) if m else None
+
+
+def fast_path_count(ins, head: int, tail: int) -> int:
+    """Instructions one trip of the loop ins[head..tail] (indices; tail its
+    back-edge) issues on its fast path: a forward branch that jumps over a
+    call (a division's or a square root's slow path) or over a loop (a sine's
+    or cosine's argument reduction for huge arguments) is taken, any other
+    unconditional one is followed, any other conditional one falls through."""
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    n, i = 0, head
+    while i <= tail:
+        a, text = ins[i]
+        n += 1
+        tgt = _branch_target(text)
+        if i == tail or tgt is None or tgt <= a or tgt not in at:
+            i += 1
+            continue
+        j = at[tgt]
+        skipped = ins[i + 1:j]
+        jumps_slow = any("CALL" in t or ((b := _branch_target(t)) is not None and b <= x)
+                         for x, t in skipped)
+        i = j if (not text.startswith("@") or jumps_slow) else i + 1
+    return n
+
+
+CEM_SASS_KERNEL = "fused_cem_kernelIN4bmpc8CartPoleE"  # kernel 3's cart-pole function
+
+
+def rollout_loop_count(sass: str, kernel: str, n_rcp: int):
+    """The fast-path instructions per trip of the rollout's time loop in the
+    function whose name holds ``kernel``: the innermost loop that holds the
+    noise's square root (MUFU.RSQ) and at least n_rcp reciprocals (the
+    model's divisions). Returns (count, static instructions of the loop), or
+    None where no such function or loop is found."""
+    ins = next((v for k, v in sass_functions(sass).items() if kernel in k), None)
+    if ins is None:
+        return None
+    best = None
+    for i, (a, text) in enumerate(ins):
+        tgt = _branch_target(text)
+        if tgt is None or tgt > a:
+            continue
+        head = next(j for j, (x, _) in enumerate(ins) if x == tgt)
+        body = [t for _, t in ins[head:i + 1]]
+        if (sum("MUFU.RSQ" in t for t in body) >= 1 and sum("MUFU.RCP" in t for t in body) >= n_rcp
+                and (best is None or i - head < best[1] - best[0])):
+            best = (head, i)
+    if best is None:
+        return None
+    return fast_path_count(ins, *best), best[1] - best[0] + 1
 
 
 def fail(msg: str):
@@ -589,10 +755,12 @@ def main():
         fused_rollout_costs_tm, fused_rollout_costs_tm_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
         fused_cem_step, fused_cem_step_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_derivs import (
         fused_derivs, fused_derivs_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import (
         fused_linesearch, fused_linesearch_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import launch_config as ls_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
         fused_mppi_step, fused_mppi_step_reference, pick_lanes)
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import (
@@ -654,17 +822,30 @@ def main():
         e = compare(f"fused_rollout_costs_tm[{name}, N={N}]", got, want)
         errs.setdefault("fused_rollout_costs_tm", e)
 
-    # CEM step: the sweep shape, a multi-tile ragged B, the seed 2**31 - 2
-    for name, B, seed in [("cartpole_swingup", CEM_B, 7), ("pendulum", 3000, 2**31 - 2),
-                          ("acrobot", 5000, 12345)]:
-        model = REGISTRY[name]
-        plan, x0, gz = mppi_inputs(model, B, CEM_T, 3, dev)
-        args = (model, CEM_K, CEM_ELITE, CEM_ITERS, 0.2, 1.0, pick_lanes(B), plan, x0, gz, seed)
+    # CEM step, the plan and the elite masks bit for bit: the sweep shape, a
+    # multi-tile ragged B, the seed 2**31 - 2; then the kernel's edges on every
+    # model: K not a multiple of the warp (lanes with one and with two
+    # samples), one step, every sample an elite, a ragged last block
+    def cem_check(label, model, B, T, K, n_elite, max_iter, seed):
+        plan, x0, gz = mppi_inputs(model, B, T, 3, dev)
+        args = (model, K, n_elite, max_iter, 0.2, 1.0, pick_lanes(B), plan, x0, gz, seed)
         got, got_masks = fused_cem_step(*args, return_masks=True)
         want, want_masks = fused_cem_step_reference(*args, return_masks=True)
-        label = f"fused_cem_step[{name}, B={B}, seed={seed}]"
+        label = (f"fused_cem_step[{label}, B={B}, T={T}, K={K}, n_elite={n_elite}, "
+                 f"max_iter={max_iter}, seed={seed}]")
         exact(f"{label} elite masks", got_masks, want_masks)
-        errs.setdefault("fused_cem_step", compare(label, got, want))
+        exact_nan(f"{label} plan", got, want)
+        return got, want
+
+    for name, B, seed in [("cartpole_swingup", CEM_B, 7), ("pendulum", 3000, 2**31 - 2),
+                          ("acrobot", 5000, 12345)]:
+        got, want = cem_check(name, REGISTRY[name], B, CEM_T, CEM_K, CEM_ELITE, CEM_ITERS, seed)
+        errs.setdefault("fused_cem_step", compare(f"fused_cem_step[{name}] plan", got, want))
+    for name in ("cartpole_swingup", "pendulum", "acrobot"):
+        for B, T, K, n_elite, max_iter in ((1001, 17, 48, CEM_ELITE, CEM_ITERS),
+                                           (333, 1, CEM_K, CEM_ELITE, 2),
+                                           (777, 33, 48, 48, 1), (100, 5, 33, 5, CEM_ITERS)):
+            cem_check(name, REGISTRY[name], B, T, K, n_elite, max_iter, 2**31 - 2)
 
     # Riccati: every model's derivatives along random plans at iLQR's shape,
     # then random well-conditioned blocks with non-PD steps (ok mixed) and
@@ -752,38 +933,50 @@ def main():
     riccati_check("random, S=4, B=777, T=30, views at a storage offset of one float, with_c",
                   d_off, torch.full((777,), 1e-3, device=dev), c_off, with_c=True)
 
-    # line search: n_alpha=10, B=1024, T=100, both flags, every model
+    # line search, every output bit for bit: n_alpha=10, B=1024, T=100, both
+    # flags, every model; SQP's step sizes (n_alpha=8); then the kernel's
+    # edges: a horizon of one step and one past one and two stages of 16, a
+    # ragged last group of scenarios, one alpha, and more alphas than a warp
+    # (two blocks of alphas, the second ragged)
     alphas = ILQR(model=REGISTRY["cartpole_swingup"], T=ILQR_T).alphas(dev)
+    sqp_alphas = SQP(model=REGISTRY["acrobot"], T=SQP_T).alphas(dev)
 
-    def ls_inputs(model, seed):
-        rng = np.random.default_rng(seed)
-        B, T, S = ILQR_B, ILQR_T, model.state_size
-        x0 = torch.from_numpy((0.3 * rng.standard_normal((B, S))).astype(np.float32)).to(dev)
-        us = torch.from_numpy((0.5 * rng.standard_normal((B, T, 1))).astype(np.float32)).to(dev)
-        gz = torch.zeros((T, model.goal_size), device=dev)
-        xref, _ = simulate_trajectory(model, x0, us, gz)
-        ks = torch.from_numpy((0.3 * rng.standard_normal((B, T, 1))).astype(np.float32)).to(dev)
-        Ks = torch.from_numpy((0.05 * rng.standard_normal((B, T, 1, S))).astype(np.float32)).to(dev)
-        return x0, us, ks, Ks, xref.contiguous(), gz
+    def ls_check(label, model, alphas_, inputs, with_terminal, return_states):
+        got = fused_linesearch(model, alphas_, *inputs, with_terminal=with_terminal,
+                               return_states=return_states)
+        want = fused_linesearch_reference(model, alphas_, *inputs, with_terminal=with_terminal,
+                                          return_states=return_states)
+        label = f"fused_linesearch[{label}, terminal={with_terminal}, states={return_states}]"
+        exact_nan(f"{label} us", got[0], want[0])
+        if return_states:
+            exact_nan(f"{label} xs", got[1], want[1])
+        exact_nan(f"{label} costs", got[-1], want[-1])
+        return got, want
 
     for name in ("cartpole_swingup", "pendulum", "acrobot"):
         model = REGISTRY[name]
-        inputs = ls_inputs(model, 8)
+        inputs = ls_inputs_for(model, ILQR_B, ILQR_T, 8, dev)
         for with_terminal in (True, False):
             for return_states in (False, True):
-                got = fused_linesearch(model, alphas, *inputs, with_terminal=with_terminal,
-                                       return_states=return_states)
-                want = fused_linesearch_reference(model, alphas, *inputs,
-                                                  with_terminal=with_terminal,
-                                                  return_states=return_states)
-                label = (f"fused_linesearch[{name}, n_a={N_ALPHAS}, B={ILQR_B}, T={ILQR_T}, "
-                         f"terminal={with_terminal}, states={return_states}]")
-                e = compare(f"{label} us", got[0], want[0])
-                if return_states:
-                    compare(f"{label} xs", got[1], want[1])
-                e = max(e, compare(f"{label} costs", got[-1], want[-1]))
+                got, want = ls_check(f"{name}, n_a={N_ALPHAS}, B={ILQR_B}, T={ILQR_T}", model,
+                                     alphas, inputs, with_terminal, return_states)
                 if name == "cartpole_swingup" and with_terminal and not return_states:
-                    errs["fused_linesearch"] = e  # the iLQR main path's flags
+                    errs["fused_linesearch"] = max(  # the iLQR main path's flags
+                        compare("fused_linesearch[iLQR's shape] us", got[0], want[0]),
+                        compare("fused_linesearch[iLQR's shape] costs", got[1], want[1]))
+        ls_check(f"{name}, SQP's step sizes n_a={len(sqp_alphas)}, B={SQP_B}, T={SQP_T}", model,
+                 sqp_alphas, ls_inputs_for(model, SQP_B, SQP_T, 9, dev), True, True)
+        for T_ in (1, 17, 33):
+            inputs = ls_inputs_for(model, 1001, T_, 10 + T_, dev)
+            for with_terminal in (True, False):
+                for return_states in (False, True):
+                    ls_check(f"{name}, n_a={N_ALPHAS}, ragged B=1001, T={T_}", model, alphas,
+                             inputs, with_terminal, return_states)
+        many = torch.pow(1.05, -torch.arange(45, dtype=torch.float32, device=dev))
+        inputs = ls_inputs_for(model, 333, 17, 11, dev)
+        for alphas_ in (alphas[:1], many):
+            ls_check(f"{name}, n_a={len(alphas_)}, B=333, T=17", model, alphas_, inputs, True,
+                     True)
 
     # derivatives: every model at SQP's shape along rolled-out trajectories
     # (some controls on the action bounds), and a ragged batch of uniform
@@ -1248,6 +1441,7 @@ def main():
     bounds["fused_rollout_costs_tm"] = bound(4 * (S * N + HORIZON * N + HORIZON * Z + N),
                                              steps * STEP_OPS[model.name])
 
+    clock = max_sm_clock_mhz()
     plan, x0, gz = mppi_inputs(model, CEM_B, CEM_T, 3, dev)
     cem_args = (model, CEM_K, CEM_ELITE, CEM_ITERS, 0.2, 1.0, pick_lanes(CEM_B), plan, x0, gz, 7)
     time_kernel("fused_cem_step", lambda: fused_cem_step(*cem_args))
@@ -1260,11 +1454,34 @@ def main():
         + CEM_B * CEM_ITERS * (CEM_ELITE * CEM_T * CEM_MOMENT_OPS + CEM_T * CEM_UPDATE_OPS
                                + CEM_K * CEM_ELITE * CEM_SELECT_OPS))
     print(f"fused_cem_step: {cem_steps} rollout steps per launch", flush=True)
+    # the instruction-issue floor: the rollout loop's fast-path SASS
+    # instructions per trip (a warp's step of ceil(K/32) samples in turn, one
+    # per lane) over every trip of the run, at one warp instruction per cycle
+    # on each of an SM's four schedulers
+    cfg_cem = cem_launch_config(model, CEM_T, CEM_K, CEM_B)
+    issue = {}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._target("fused_cem.cu"))],
+                          capture_output=True, text=True) if Path(cuobjdump).exists() else None
+    counted = (rollout_loop_count(sass.stdout, CEM_SASS_KERNEL, 2)
+               if sass is not None and sass.returncode == 0 else None)
+    if counted is not None:
+        trips = CEM_B * -(-CEM_K // 32) * CEM_T * CEM_ITERS
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        issue["fused_cem_step"] = counted[0] * trips / (sms * 4 * clock * 1e3)
+        print(f"[{smi}] fused_cem_step at the sweep's shape: device {dev_ms['fused_cem_step']:.4f}"
+              f" ms; the rollout loop issues {counted[0]} SASS instructions a trip on its fast "
+              f"path ({counted[1]} in its body; cuobjdump), {trips} warp trips: instruction-issue"
+              f" floor {issue['fused_cem_step']:.4f} ms at {sms} SMs x 4 schedulers x "
+              f"{clock:.0f} MHz, beside the FP32 bound {bounds['fused_cem_step'][0]:.4f} ms "
+              f"({bounds['fused_cem_step'][1]}); launch {cfg_cem}", flush=True)
+    else:
+        print(f"fused_cem_step: instruction-issue floor not measured (no cuobjdump, or no "
+              f"rollout loop found in its output); launch {cfg_cem}", flush=True)
 
     # kernel 5 at iLQR's shape (cart-pole derivatives, check_pd) and at SQP's
     # (acrobot, with_c, mu = 0); the bound with the horizon's chain beside
     # the bytes' and operations'
-    clock = max_sm_clock_mhz()
     d = riccati_main
     time_kernel("riccati_backward_batch", lambda: riccati_backward_batch(*d, ones))
     plain_ms["riccati_backward_batch"] = cuda_time_ms(
@@ -1287,20 +1504,38 @@ def main():
           f"{device_time_ms(fn):.4f} ms; chain {chain_ms(SQP_T, riccati_chain(4, True), clock):.5f}"
           f" ms", flush=True)
 
-    ls_in = ls_inputs(model, 8)
+    # kernel 6 at iLQR's shape (cart-pole, with_terminal) and at SQP's
+    # (acrobot, n_alpha=8, with_terminal and return_states); the bound with
+    # the horizon's chain beside the bytes' and operations'
+    acro = AcrobotEnv.model
+    ls_in = ls_inputs_for(model, ILQR_B, ILQR_T, 8, dev)
     time_kernel("fused_linesearch",
                 lambda: fused_linesearch(model, alphas, *ls_in, with_terminal=True))
     plain_ms["fused_linesearch"] = cuda_time_ms(
         lambda: fused_linesearch_reference(model, alphas, *ls_in, with_terminal=True),
         reps=3, warmup=1)
     ls_steps = N_ALPHAS * ILQR_B * ILQR_T
-    bounds["fused_linesearch"] = bound(
-        4 * (2 * ILQR_B * ILQR_T * (1 + S) + ILQR_B * S + N_ALPHAS + ILQR_T * Z
-             + N_ALPHAS * ILQR_B * (ILQR_T + 1)),
-        ls_steps * (STEP_OPS[model.name] + LS_EXTRA(S)))
+    ls_bytes = 4 * (2 * ILQR_B * ILQR_T * (1 + S) + ILQR_B * S + N_ALPHAS + ILQR_T * Z
+                    + N_ALPHAS * ILQR_B * (ILQR_T + 1))
+    bounds["fused_linesearch"] = bound(ls_bytes, ls_steps * (STEP_OPS[model.name] + LS_EXTRA(S)))
+    chains["fused_linesearch"] = chain_ms(ILQR_T, linesearch_chain(model.name), clock)
+    cfg_ls = ls_launch_config(model, N_ALPHAS, ILQR_B)
+    print(f"[{smi}] fused_linesearch at iLQR's shape (cart-pole, n_a={N_ALPHAS}, B={ILQR_B}, "
+          f"T={ILQR_T}, terminal): around one call {ms['fused_linesearch']:.4f} ms, device "
+          f"{dev_ms['fused_linesearch']:.4f} ms; bound {bounds['fused_linesearch'][0]:.5f} ms "
+          f"({bounds['fused_linesearch'][1]}), chain ({linesearch_chain(model.name)} dependent "
+          f"operations a step at {clock:.0f} MHz) {chains['fused_linesearch']:.5f} ms; launch "
+          f"{cfg_ls}", flush=True)
+    ls_sqp = ls_inputs_for(acro, SQP_B, SQP_T, 9, dev)
+    fn = lambda: fused_linesearch(acro, sqp_alphas, *ls_sqp, with_terminal=True,  # noqa: E731
+                                  return_states=True)
+    print(f"[{smi}] fused_linesearch at SQP's shape (acrobot, n_a={len(sqp_alphas)}, B={SQP_B}, "
+          f"T={SQP_T}, terminal, states): around one call {cuda_time_ms(fn):.4f} ms, device "
+          f"{device_time_ms(fn):.4f} ms; chain ({linesearch_chain(acro.name)} dependent "
+          f"operations a step) {chain_ms(SQP_T, linesearch_chain(acro.name), clock):.5f} ms; "
+          f"launch {ls_launch_config(acro, len(sqp_alphas), SQP_B)}", flush=True)
 
     # kernel 4 at SQP's shape and model (acrobot), kernel 7 at configuration 1's
-    acro = AcrobotEnv.model
     dv_in = derivs_inputs(acro, SQP_B, SQP_T, 9, True)
     time_kernel("fused_derivs", lambda: fused_derivs(acro, *dv_in))
     plain_ms["fused_derivs"] = cuda_time_ms(lambda: fused_derivs_reference(acro, *dv_in),
@@ -1466,7 +1701,7 @@ def main():
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": ms[name], "device_ms": dev_ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "chain_bound_ms": chains.get(name),
+            "chain_bound_ms": chains.get(name), "issue_bound_ms": issue.get(name),
             "library_ms": None, "pass": True})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
                       "card": smi}), flush=True)

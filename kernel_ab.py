@@ -7,7 +7,9 @@
         this checkout's source as it is and built with each define
     python3 kernel_ab.py riccati_backward.cu --against DIR
     python3 kernel_ab.py fused_derivs.cu --against DIR
-        kernels 5 and 4 against DIR's
+    python3 kernel_ab.py fused_linesearch.cu --against DIR
+    python3 kernel_ab.py fused_cem.cu --against DIR
+        kernels 5, 4, 6 and 3 against DIR's
 
 Every variant is compiled with the package's flags, all at once, and is
 loaded in place of the package's library for that source while it runs, so
@@ -20,10 +22,11 @@ case (a, b, ..., b, a), and each call is timed two ways:
   overhead stays out).
 Every variant's outputs must equal the first variant's bit for bit. The cases
 are the main paths' shapes from chip_smoke.py (``CASES``: the sources of
-kernels 8a and 8b, 5 and 4); a source with no cases here is refused. A build
-of riccati_backward.cu from before its ok flags were written as bools is
-called through the entry point and wrapper steps of that time. The last line
-is a JSON object of every reading.
+kernels 8a and 8b, 5, 4, 6 and 3); a source with no cases here is refused.
+For fused_cem.cu each variant's cart-pole rollout loop is counted in its SASS
+as chip_smoke.py counts it. A build of riccati_backward.cu from before its ok
+flags were written as bools is called through the entry point and wrapper
+steps of that time. The last line is a JSON object of every reading.
 
 Imports only the port (``benchmarking_mpc_solvers_tpu_torch``), never JAX.
 """
@@ -33,6 +36,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,8 +126,59 @@ def derivs_cases(dev):
     return cases
 
 
+def linesearch_cases(dev):
+    """Kernel 6 at iLQR's shape (cart-pole, n_alpha=10, with_terminal) and at
+    SQP's (acrobot, n_alpha=8, with_terminal and return_states), as
+    chip_smoke.py times them."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import fused_linesearch
+    from benchmarking_mpc_solvers_tpu_torch.solvers import ILQR, SQP
+
+    cart, acro = REGISTRY["cartpole_swingup"], REGISTRY["acrobot"]
+    a_ilqr = ILQR(model=cart, T=cs.ILQR_T).alphas(dev)
+    a_sqp = SQP(model=acro, T=cs.SQP_T).alphas(dev)
+    ilqr_in = cs.ls_inputs_for(cart, cs.ILQR_B, cs.ILQR_T, 8, dev)
+    sqp_in = cs.ls_inputs_for(acro, cs.SQP_B, cs.SQP_T, 9, dev)
+    return [
+        (f"iLQR's shape (cart-pole, n_a={len(a_ilqr)}, B={cs.ILQR_B}, T={cs.ILQR_T}, terminal)",
+         [("fused_linesearch",
+           lambda: fused_linesearch(cart, a_ilqr, *ilqr_in, with_terminal=True))]),
+        (f"SQP's shape (acrobot, n_a={len(a_sqp)}, B={cs.SQP_B}, T={cs.SQP_T}, terminal, "
+         f"states)",
+         [("fused_linesearch", lambda: fused_linesearch(acro, a_sqp, *sqp_in, with_terminal=True,
+                                                        return_states=True))])]
+
+
+def cem_cases(dev):
+    """Kernel 3 at the CEM sweep's shape (cart-pole), with the elite masks,
+    as chip_smoke.py checks it."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import fused_cem_step
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import pick_lanes
+
+    model = REGISTRY["cartpole_swingup"]
+    plan, x0, gz = cs.mppi_inputs(model, cs.CEM_B, cs.CEM_T, 3, dev)
+    args = (model, cs.CEM_K, cs.CEM_ELITE, cs.CEM_ITERS, 0.2, 1.0, pick_lanes(cs.CEM_B), plan,
+            x0, gz, 7)
+    return [(f"the CEM sweep's shape (cart-pole, B={cs.CEM_B}, T={cs.CEM_T}, K={cs.CEM_K}, "
+             f"n_elite={cs.CEM_ELITE}, max_iter={cs.CEM_ITERS}, masks)",
+             [("fused_cem_step", lambda: fused_cem_step(*args, return_masks=True))])]
+
+
 CASES = {"i2c_smooth.cu": i2c_cases, "riccati_backward.cu": riccati_cases,
-         "fused_derivs.cu": derivs_cases}
+         "fused_derivs.cu": derivs_cases, "fused_linesearch.cu": linesearch_cases,
+         "fused_cem.cu": cem_cases}
+
+
+def loop_count(path: Path) -> str:
+    """Kernel 3's rollout loop in a build, as chip_smoke.py counts it."""
+    dump = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(path)], capture_output=True, text=True)
+    counted = cs.rollout_loop_count(dump.stdout, cs.CEM_SASS_KERNEL, 2)
+    if dump.returncode != 0 or counted is None:
+        return "rollout loop not counted"
+    return (f"the cart-pole rollout loop issues {counted[0]} SASS instructions a trip on its "
+            f"fast path ({counted[1]} in its body)")
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -176,6 +231,8 @@ def main() -> int:
             print(f"FAIL: nvcc for {label}:\n{log}")
             return 1
         libs.append(_build.typed(ctypes.CDLL(str(path)), args.source))
+        if args.source == "fused_cem.cu":
+            print(f"{label} source: {loop_count(path)}", flush=True)
 
     _build._LIBS[args.source] = libs[0]  # the wrappers launch whichever is here
     cases = CASES[args.source](dev)

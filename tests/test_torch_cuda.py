@@ -7,8 +7,9 @@ On the card (where JAX is absent, so without the suite's conftest):
 
 Tolerance rtol/atol 1e-4: both sides run float32 one IEEE operation at a
 time (the kernels are built with --fmad=false); only summation orders in
-the softmax and plan update differ. The CEM elite masks must match exactly:
-one swapped elite moves a plan by O(std). The Riccati kernel sums every
+the softmax and plan update differ. The CEM kernel sums its moments in the
+plain version's order, and its plan and elite masks must match exactly, as
+must every output of the line-search kernel. The Riccati kernel sums every
 entry in the plain version's order and must match it bit for bit, its
 ``ok`` flags included.
 The derivative kernel pushes forward-mode tangents where its plain version
@@ -116,7 +117,26 @@ def test_fused_cem_kernel_matches_plain(dev, name):
     assert fused_cem_step.launches == before + 1
     want, want_masks = fused_cem_step_reference(*args, return_masks=True)
     assert torch.equal(got_masks, want_masks)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    _bits(got, want)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("K,n_elite,T,B,max_iter", [
+    (48, 8, 17, 1001, 3), (64, 8, 1, 333, 2), (48, 48, 33, 777, 1), (33, 5, 5, 100, 3)])
+def test_fused_cem_kernel_edges_bit_for_bit(dev, name, K, n_elite, T, B, max_iter):
+    """K not a multiple of the warp (lanes with one and two samples), one
+    step, every sample an elite, a ragged last block: the plan and the masks
+    bit for bit."""
+    model = REGISTRY[name]
+    rng = np.random.default_rng(K + T)
+    plan = _t(rng.uniform(-0.5, 0.5, (T, B)), dev)
+    x0 = _t(rng.uniform(-1, 1, (model.state_size, B)), dev)
+    gz = _t(rng.uniform(-0.2, 0.2, (T, model.goal_size)), dev)
+    args = (model, K, n_elite, max_iter, 0.3, 0.8, pick_lanes(B), plan, x0, gz, 12345)
+    got, got_masks = fused_cem_step(*args, return_masks=True)
+    want, want_masks = fused_cem_step_reference(*args, return_masks=True)
+    assert torch.equal(got_masks, want_masks)
+    _bits(got, want)
 
 
 def _riccati_inputs(B, T, S, dev, seed=3):
@@ -224,7 +244,34 @@ def test_fused_linesearch_kernel_matches_plain(dev, name, with_terminal, return_
     want = fused_linesearch_reference(model, *args, with_terminal=with_terminal,
                                       return_states=return_states)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        _bits(g, w)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("T", [1, 17, 33])
+@pytest.mark.parametrize("n_a,B", [(1, 1003), (8, 1001), (10, 1001), (45, 333)])
+def test_fused_linesearch_kernel_edges_bit_for_bit(dev, name, T, n_a, B):
+    """A horizon of one step and one past one and two stages, a ragged last
+    group of scenarios, one alpha and more alphas than a warp: every output
+    bit for bit, with and without the terminal cost and the states."""
+    model = REGISTRY[name]
+    S = model.state_size
+    rng = np.random.default_rng(T + n_a)
+    alphas = torch.pow(1.1, -(torch.arange(n_a, dtype=torch.float32, device=dev) ** 2))
+    args = [alphas] + [_t(a, dev) for a in (
+        0.3 * rng.standard_normal((B, S)), 0.5 * rng.standard_normal((B, T, 1)),
+        0.3 * rng.standard_normal((B, T, 1)), 0.2 * rng.standard_normal((B, T, 1, S)),
+        0.3 * rng.standard_normal((B, T + 1, S)),
+        rng.uniform(-0.2, 0.2, (T, model.goal_size)))]
+    for with_terminal in (False, True):
+        for return_states in (False, True):
+            got = fused_linesearch(model, *args, with_terminal=with_terminal,
+                                   return_states=return_states)
+            want = fused_linesearch_reference(model, *args, with_terminal=with_terminal,
+                                              return_states=return_states)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape
+                _bits(g, w)
 
 
 def _derivs_both(model, B, T, dev, seed=5):

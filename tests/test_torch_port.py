@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import benchmarking_mpc_solvers_tpu_torch as port
+import kernel_ab
 from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv
 from benchmarking_mpc_solvers_tpu_torch.experiment import (
     EpisodeConfig,
@@ -64,8 +65,9 @@ def test_port_sources_do_not_import_jax_or_reference(path):
             assert not any(w.startswith("jax.") for w in words), line
 
 
-def test_kernel_ab_refuses_to_run_without_a_card():
-    out = subprocess.run([sys.executable, "kernel_ab.py", "i2c_smooth.cu", "-D", "I2C_RTS_SHAPE=1"],
+@pytest.mark.parametrize("source", sorted(kernel_ab.CASES))
+def test_kernel_ab_refuses_to_run_without_a_card(source):
+    out = subprocess.run([sys.executable, "kernel_ab.py", source, "-D", "UNUSED=1"],
                          cwd=ROOT, capture_output=True, text=True, timeout=120,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
