@@ -115,8 +115,10 @@ SIGNATURES = {
     "fused_mppi_step_launch": (
         "fused_mppi.cu",
         [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _U, _I, _I, _W, _P]),
+    "fused_mppi_launch_config": ("fused_mppi.cu", [_I, _I, _I, _I, _P]),
     "fused_rollout_costs_launch": (
         "fused_rollout.cu", [_I, _P, _P, _P, _P, _I, _I, _W, _P]),
+    "fused_rollout_launch_config": ("fused_rollout.cu", [_I, _I, _P]),
     "fused_cem_step_launch": (
         "fused_cem.cu",
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _W, _P]),
@@ -167,13 +169,18 @@ def model_id(model) -> int:
 def quad_weights(cost):
     """A ``quad_cost``'s nonzero (i, j, w) terms (a model's stage or
     terminal cost) as the dense upper-triangle (MAX_Z*MAX_Z,) float array
-    the kernels take (zeros are skipped there)."""
+    the kernels take (zeros are skipped there), built once per cost and
+    kept on it beside ``W`` and ``nz``."""
+    w = getattr(cost, "w_quad", None)
+    if w is not None:
+        return w
     nz = getattr(cost, "nz", None)
     if nz is None:
         raise NotImplementedError("the kernels need a quad_cost cost")
     w = (ctypes.c_float * (MAX_Z * MAX_Z))()
     for i, j, v in nz:
         w[i * MAX_Z + j] = v
+    cost.w_quad = w
     return w
 
 

@@ -3,10 +3,11 @@
 Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused.py:
 fused_rollout_costs_tm``, the hot path of the two-stage MPPI tier. On a CUDA
 tensor ``fused_rollout_costs_tm`` launches the hand-written kernel in
-``csrc/fused_rollout.cu`` (one thread per rollout, state in registers); on a
-CPU tensor it runs ``fused_rollout_costs_tm_reference``, the plain PyTorch
-version of the same function. ``fused_rollout_costs_tm.launches`` counts
-kernel launches.
+``csrc/fused_rollout.cu`` (one thread per rollout, state in registers, the
+stage cost compiled for the model's own weights; ``launch_config`` reports
+the launch shape); on a CPU tensor it runs
+``fused_rollout_costs_tm_reference``, the plain PyTorch version of the same
+function. ``fused_rollout_costs_tm.launches`` counts kernel launches.
 
 Scope as in the reference: single-input models (action_size == 1) with a
 ``quad_cost`` stage cost, and on the card only models that have a device
@@ -15,11 +16,23 @@ function in ``csrc/models.cuh``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
 from ..models.base import Model
 from .rollout import rollout_cost
+
+
+def launch_config(model: Model, N: int) -> dict:
+    """The kernel's launch shape for N rollouts on the current card: threads
+    (rollouts) per block, blocks, registers per thread, resident blocks per
+    SM."""
+    out = (ctypes.c_int * 4)()
+    _build.check_rc("launch_config", _build.kernel_fn("fused_rollout_launch_config")(
+        _build.model_id(model), N, ctypes.cast(out, ctypes.c_void_p)))
+    return dict(zip(("threads", "blocks", "registers", "blocks_per_sm"), out))
 
 
 def fused_rollout_costs_tm_reference(model: Model, x0_tm, us_tm, g_z):

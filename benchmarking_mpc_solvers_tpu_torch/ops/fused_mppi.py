@@ -3,8 +3,11 @@
 Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused_mppi.py:
 fused_mppi_step``. On a CUDA tensor ``fused_mppi_step`` launches the
 hand-written kernel in ``csrc/fused_mppi.cu`` (one warp per scenario, one
-lane per sample); on a CPU tensor it runs ``fused_mppi_step_reference``, the
-plain PyTorch version. ``fused_mppi_step.launches`` counts kernel launches.
+lane per sample, the stage cost compiled for the model's own weights, pass
+1's noise kept in shared memory for pass 2 where it fits; ``launch_config``
+reports the launch shape); on a CPU tensor it runs
+``fused_mppi_step_reference``, the plain PyTorch version.
+``fused_mppi_step.launches`` counts kernel launches.
 
 Noise is the reference kernel's interpret-mode stream (``interp_normals``):
 counter-based and stateless, so this module, the CUDA kernel and the JAX
@@ -16,6 +19,7 @@ Scenario b takes the noise of the slot the reference's padded
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -118,6 +122,19 @@ def _seeds(seed: int, K: int, pid):
     """(K, B) combined seeds seed + k*7919 + pid*104729 mod 2**32."""
     k = torch.arange(K, dtype=torch.int64, device=pid.device)[:, None]
     return ((seed & _MASK) + k * 7919 + pid[None] * 104729) & _MASK
+
+
+def launch_config(model: Model, T: int, K: int, B: int) -> dict:
+    """The kernel's launch shape at (T, K, B) on the current card: threads
+    and scenarios per block, blocks, shared bytes per block, registers per
+    thread, resident blocks per SM, and whether pass 2 reads pass 1's noise
+    from shared memory (``noise_cache``; else it draws it again)."""
+    out = (ctypes.c_int * 7)()
+    _build.check_rc("launch_config", _build.kernel_fn("fused_mppi_launch_config")(
+        _build.model_id(model), T, K, B, ctypes.cast(out, ctypes.c_void_p)))
+    keys = ("threads", "scenarios_per_block", "blocks", "shared_bytes", "registers",
+            "blocks_per_sm", "noise_cache")
+    return {**dict(zip(keys, out)), "noise_cache": bool(out[6])}
 
 
 def fused_mppi_step_reference(model: Model, K: int, std: float, lam: float, lanes: int,

@@ -8,9 +8,11 @@ Phases (any failure exits non-zero before the result line):
 2. build: compiles every kernel from ``benchmarking_mpc_solvers_tpu_torch/
    csrc`` (one nvcc per source, in parallel).
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, on each model, at the main paths' shapes (kernels 3, 5, 6, 7, 8a
-   and 8b bit for bit, 3, 5, 6, 8a and 8b also at the edges of their lane
-   groups, blocks and shared-memory stages).
+   card, on each model, at the main paths' shapes (kernels 2, 3, 5, 6, 7,
+   8a and 8b bit for bit, 1, 2, 3, 5, 6, 8a and 8b also at the edges of their
+   lane groups, blocks and shared-memory stages; kernel 1 also at the
+   sweep's MPPI row and in the form that redraws its noise, kernel 2 also at
+   the CEM two-stage shape).
 4. main paths, each with the launch counters set to 0 just before its run
    and read just after:
    - MPPI, the bench configuration (cart-pole swing-up, K=32, T=50,
@@ -39,9 +41,12 @@ Phases (any failure exits non-zero before the result line):
 5. timings with CUDA events: each kernel around one call and as device
    time (calls queued behind a sleeping kernel, ``device_time_ms``), its
    plain version and its bound (for kernels 5, 6, 8a and 8b also with the
-   horizon's dependent chain; for kernel 3 also the instruction-issue floor
-   of its rollout loop, counted in its SASS); host-clock episode solves/s
-   of every path; device time by kernel under the profiler.
+   horizon's dependent chain; for kernels 1, 2 and 3 also the
+   instruction-issue floor of the rollout loop, counted in its SASS, and
+   the launch shape; kernels 1 and 2 at a second shape too); host-clock
+   episode solves/s of every path; device time by kernel under the
+   profiler (one episode of each MPPI and CEM tier, one solve of iLQR, SQP,
+   QP-MPC and I2C).
 Then a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -63,6 +68,9 @@ import numpy as np
 import torch
 
 HORIZON, K_SAMPLES, BATCH, N_STEPS = 50, 32, 8192, 20
+# the MPPI row of the six-family sweep (scripts/bench_suite.py:257, cart-pole,
+# T = 50), at which kernel 1 is also checked and timed
+MPPI_SWEEP_K, MPPI_SWEEP_B = 64, 10240
 # CEM sweep (scripts/bench_suite.py:256-266) and iLQR configuration 3
 # (scripts/bench_suite.py:216-223) of the reference's suite
 CEM_T, CEM_K, CEM_ELITE, CEM_ITERS, CEM_B, CEM_STEPS = 50, 64, 8, 3, 10240, 10
@@ -90,7 +98,8 @@ QP2_WEIGHTS = dict(goal_x=(0.0, 0.0, 0.0, 0.0), R=((0.1,),),
 # formulas in another order, a few ulps of the largest term of each sum,
 # inside the same tolerance (the reference holds its kernel to 1e-5 at
 # O(1) inputs). The ADMM kernel sums its matvec in the plain version's
-# order and must match it bit for bit.
+# order and must match it bit for bit, as must the rollout-cost kernel,
+# whose rollouts sum their steps in the plain version's order.
 RTOL, ATOL = 1e-4, 1e-4
 # Card vs CPU episodes of CEM and iLQR: the card's and the CPU's libm round
 # sin/cos/log apart by an ulp; CEM's std = sqrt(m2 − m1²) of nearly equal
@@ -114,11 +123,14 @@ I2C_EPISODE_TOL = 2e-3
 # sum 1.
 STEP_OPS = {"pendulum": 34, "cartpole_swingup": 59, "acrobot": 252}
 # the noise draw (u01 x2, +1e-7, log, -2*, sqrt, 2pi*, cos, r*), counted once
-# per (b, k, t): the function needs one normal there. The kernel draws it a
-# second time in pass 2 instead of keeping it; that is a cost of the design,
-# not of the function, and is left out of the bound. MPPI extras: pass 1
-# std*d, plan+sd, control term (3); pass 2 w/sum, std*d, w*(.), +=.
-NOISE_OPS, PASS1_EXTRA, PASS2_EXTRA = 9, 5, 4
+# per (b, k, t): the function needs one normal there. Where its cache does
+# not fit, the kernel draws it a second time in pass 2; that is a cost of the
+# design, not of the function, and is left out of the bound. MPPI extras
+# per (b, k, t): pass 1 std*d, plan+sd, control term (3); pass 2 w*(std*d)
+# and += (std*d is pass 1's). Per (b, k), the softmax: the min, c - beta,
+# /lam, exp, the weight sum and w/sum, once per sample as the function
+# needs them.
+NOISE_OPS, PASS1_EXTRA, PASS2_EXTRA, MPPI_WEIGHT_OPS = 9, 5, 2, 6
 # CEM, from csrc/fused_cem.cu: per (b, k, t, it) the sample mean+std*d and
 # its clip (4); per (b, elite, t, it) the moments m1 += w*u, m2 += w*(u*u)
 # (5); per (b, t, it) std_e = sqrt(max(m2 - m1*m1, 0)) and the two
@@ -516,16 +528,29 @@ def fast_path_count(ins, head: int, tail: int) -> int:
     return n
 
 
-CEM_SASS_KERNEL = "fused_cem_kernelIN4bmpc8CartPoleE"  # kernel 3's cart-pole function
+# The cart-pole rollout loop of kernels 3, 1 and 2 in their SASS, by source:
+# the function (the first of the names found: kernel 1's noise-cache form,
+# else an untemplated build from before it had one) and the least count of
+# each instruction that marks the loop. Kernels 3 and 1 draw noise in it
+# (the square root's MUFU.RSQ) beside the model's two divisions (MUFU.RCP);
+# kernel 2 draws none, and its loop is the one with the two divisions and
+# the load of us (LDG).
+SASS_LOOPS = {
+    "fused_cem.cu": (("fused_cem_kernelIN4bmpc8CartPoleE",), {"MUFU.RSQ": 1, "MUFU.RCP": 2}),
+    "fused_mppi.cu": (("fused_mppi_kernelIN4bmpc8CartPoleELb1E",
+                       "fused_mppi_kernelIN4bmpc8CartPoleE"), {"MUFU.RSQ": 1, "MUFU.RCP": 2}),
+    "fused_rollout.cu": (("fused_rollout_kernelIN4bmpc8CartPoleE",), {"MUFU.RCP": 2, "LDG": 1}),
+}
 
 
-def rollout_loop_count(sass: str, kernel: str, n_rcp: int):
-    """The fast-path instructions per trip of the rollout's time loop in the
-    function whose name holds ``kernel``: the innermost loop that holds the
-    noise's square root (MUFU.RSQ) and at least n_rcp reciprocals (the
-    model's divisions). Returns (count, static instructions of the loop), or
-    None where no such function or loop is found."""
-    ins = next((v for k, v in sass_functions(sass).items() if kernel in k), None)
+def rollout_loop_count(sass: str, source: str):
+    """The fast-path instructions per trip of the rollout's time loop in a
+    build of ``source`` (``SASS_LOOPS``): the innermost loop that holds the
+    instructions that mark it. Returns (count, static instructions of the
+    loop), or None where no such function or loop is found."""
+    names, marks = SASS_LOOPS[source]
+    funcs = sass_functions(sass)
+    ins = next((v for name in names for k, v in funcs.items() if name in k), None)
     if ins is None:
         return None
     best = None
@@ -535,12 +560,22 @@ def rollout_loop_count(sass: str, kernel: str, n_rcp: int):
             continue
         head = next(j for j, (x, _) in enumerate(ins) if x == tgt)
         body = [t for _, t in ins[head:i + 1]]
-        if (sum("MUFU.RSQ" in t for t in body) >= 1 and sum("MUFU.RCP" in t for t in body) >= n_rcp
+        if (all(sum(m in t for t in body) >= n for m, n in marks.items())
                 and (best is None or i - head < best[1] - best[0])):
             best = (head, i)
     if best is None:
         return None
     return fast_path_count(ins, *best), best[1] - best[0] + 1
+
+
+def sass_loop(library: Path, source: str):
+    """``rollout_loop_count`` of a built library of ``source`` (cuobjdump),
+    or None where the toolkit has no cuobjdump or no loop is found."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        return None
+    dump = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True)
+    return rollout_loop_count(dump.stdout, source) if dump.returncode == 0 else None
 
 
 def fail(msg: str):
@@ -753,6 +788,7 @@ def main():
     from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
     from benchmarking_mpc_solvers_tpu_torch.ops.fused import (
         fused_rollout_costs_tm, fused_rollout_costs_tm_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
         fused_cem_step, fused_cem_step_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_launch_config  # noqa: E501
@@ -763,6 +799,7 @@ def main():
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import launch_config as ls_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
         fused_mppi_step, fused_mppi_step_reference, pick_lanes)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config as mppi_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import (
         i2c_filter, i2c_filter_reference, i2c_rts_smooth, i2c_rts_smooth_reference,
         i2c_smooth_batch, i2c_smooth_batch_reference)
@@ -800,27 +837,53 @@ def main():
 
     # 3. kernel vs plain version, on the card
     errs = {}
-    cases1 = [("cartpole_swingup", BATCH, 7), ("pendulum", 3000, 2**31 - 2),
-              ("acrobot", 5000, 12345)]
-    for name, B, seed in cases1:
-        model = REGISTRY[name]
-        plan, x0, gz = mppi_inputs(model, B, HORIZON, 1, dev)
+
+    # MPPI step: the bench shape on every model; then, on every model, K = 48
+    # (lanes with one sample and lanes with two) with a ragged last block, and
+    # a K*T whose noise cache is above the kernel's budget (pass 2 redraws
+    # the noise); and the sweep's MPPI row (two samples a lane). Each case
+    # names the form its launch must take
+    def mppi_check(label, model, B, T, K, seed, cache):
+        plan, x0, gz = mppi_inputs(model, B, T, 1, dev)
+        cfg = mppi_launch_config(model, T, K, B)
+        label = (f"fused_mppi_step[{label}: {model.name}, B={B}, T={T}, K={K}, seed={seed}, "
+                 f"{'noise cache' if cfg['noise_cache'] else 'redraw'}]")
+        if cfg["noise_cache"] != cache:
+            fail(f"{label}: launch {cfg}, expected noise_cache={cache}")
         lanes = pick_lanes(B)
-        got = fused_mppi_step(model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, seed)
-        want = fused_mppi_step_reference(model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, seed)
-        e = compare(f"fused_mppi_step[{name}, B={B}, seed={seed}]", got, want)
-        errs.setdefault("fused_mppi_step", e)
-    N = BATCH * K_SAMPLES
+        got = fused_mppi_step(model, K, 1.0, 1.0, lanes, plan, x0, gz, seed)
+        want = fused_mppi_step_reference(model, K, 1.0, 1.0, lanes, plan, x0, gz, seed)
+        return compare(label, got, want)
+
+    for name, B, seed in [("cartpole_swingup", BATCH, 7), ("pendulum", 3000, 2**31 - 2),
+                          ("acrobot", 5000, 12345)]:
+        errs.setdefault("fused_mppi_step", mppi_check(
+            "bench shape", REGISTRY[name], B, HORIZON, K_SAMPLES, seed, True))
     for name in ("cartpole_swingup", "pendulum", "acrobot"):
-        model = REGISTRY[name]
-        rng = np.random.default_rng(2)
+        mppi_check("K=48, ragged last block", REGISTRY[name], 1001, 17, 48, 2**31 - 2, True)
+        mppi_check("cache above its budget", REGISTRY[name], 777, 90, 48, 12345, False)
+    mppi_check("the sweep's MPPI row", REGISTRY["cartpole_swingup"], MPPI_SWEEP_B, HORIZON,
+               MPPI_SWEEP_K, 7, True)
+
+    # rollout costs, bit for bit (each rollout sums its steps in the plain
+    # version's order): the MPPI two-stage shape on every model and a ragged
+    # N (not a multiple of the block), then the CEM two-stage shape
+    def rollout_check(model, N, T, seed):
+        rng = np.random.default_rng(seed)
         x0 = torch.from_numpy(rng.uniform(-1, 1, (model.state_size, N)).astype(np.float32)).to(dev)
-        us = torch.from_numpy(rng.uniform(-1.5, 1.5, (HORIZON, N)).astype(np.float32)).to(dev)
-        gz = torch.from_numpy(rng.uniform(-0.2, 0.2, (HORIZON, model.goal_size)).astype(np.float32)).to(dev)
+        us = torch.from_numpy(rng.uniform(-1.5, 1.5, (T, N)).astype(np.float32)).to(dev)
+        gz = torch.from_numpy(rng.uniform(-0.2, 0.2, (T, model.goal_size)).astype(np.float32)).to(dev)
         got = fused_rollout_costs_tm(model, x0, us, gz)
         want = fused_rollout_costs_tm_reference(model, x0, us, gz)
-        e = compare(f"fused_rollout_costs_tm[{name}, N={N}]", got, want)
-        errs.setdefault("fused_rollout_costs_tm", e)
+        label = f"fused_rollout_costs_tm[{model.name}, N={N}, T={T}]"
+        exact_nan(label, got, want)
+        return compare(label, got, want)
+
+    for name in ("cartpole_swingup", "pendulum", "acrobot"):
+        errs.setdefault("fused_rollout_costs_tm", rollout_check(
+            REGISTRY[name], BATCH * K_SAMPLES, HORIZON, 2))
+        rollout_check(REGISTRY[name], 4097, 23, 5)
+    rollout_check(REGISTRY["cartpole_swingup"], CEM_B * CEM_K, CEM_T, 6)
 
     # CEM step, the plan and the elite masks bit for bit: the sweep shape, a
     # multi-tile ragged B, the seed 2**31 - 2; then the kernel's edges on every
@@ -1420,17 +1483,54 @@ def main():
         difference is the wrapper's host work before its launch."""
         ms[name], dev_ms[name] = cuda_time_ms(fn), device_time_ms(fn)
 
+    # kernels 1, 2 and 3, each beside its instruction-issue floor: the
+    # rollout loop's fast-path SASS instructions per trip (a warp's step of a
+    # sample a lane, or of a rollout a thread) over every trip of the call,
+    # at one warp instruction per cycle on each of an SM's four schedulers.
+    # Kernel 1 at the bench shape (the kernels line) and the sweep's MPPI
+    # row, kernel 2 at the MPPI (the kernels line) and CEM two-stage shapes
+    clock = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    loops = {src: sass_loop(_build._target(src), src) for src in SASS_LOOPS}
+    issue, other_shapes = {}, {}
+
+    def issue_line(name, label, src, trips, around_ms, device_ms, bnd, cfg):
+        """Prints a kernel's times beside its bound and issue floor; returns
+        the floor in ms (None where the loop was not counted)."""
+        counted = loops[src]
+        floor = None if counted is None else counted[0] * trips / (sms * 4 * clock * 1e3)
+        what = ("instruction-issue floor not measured (no cuobjdump, or no rollout loop found "
+                "in its output)" if counted is None else
+                f"the rollout loop issues {counted[0]} SASS instructions a trip on its fast path "
+                f"({counted[1]} in its body; cuobjdump), {trips} warp trips: instruction-issue "
+                f"floor {floor:.4f} ms at {sms} SMs x 4 schedulers x {clock:.0f} MHz")
+        print(f"[{smi}] {name} at {label}: around one call {around_ms:.4f} ms, device "
+              f"{device_ms:.4f} ms; {what}, beside the bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"launch {cfg}", flush=True)
+        return floor
+
+    def mppi_bound(B, K, T):
+        return bound(4 * (2 * T * B + S * B + T * Z),
+                     B * K * T * (NOISE_OPS + STEP_OPS[model.name] + PASS1_EXTRA + PASS2_EXTRA)
+                     + B * K * MPPI_WEIGHT_OPS)
+
+    def rollout_bound(N, T):
+        return bound(4 * (S * N + T * N + T * Z + N), N * T * STEP_OPS[model.name])
+
     plan, x0, gz = mppi_inputs(model, BATCH, HORIZON, 1, dev)
     lanes = pick_lanes(BATCH)
     time_kernel("fused_mppi_step",
                 lambda: fused_mppi_step(model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7))
     plain_ms["fused_mppi_step"] = cuda_time_ms(lambda: fused_mppi_step_reference(
         model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7), reps=3, warmup=1)
-    steps = BATCH * K_SAMPLES * HORIZON
-    bounds["fused_mppi_step"] = bound(
-        4 * (2 * HORIZON * BATCH + S * BATCH + HORIZON * Z),
-        steps * (NOISE_OPS + STEP_OPS[model.name] + PASS1_EXTRA + PASS2_EXTRA))
+    bounds["fused_mppi_step"] = mppi_bound(BATCH, K_SAMPLES, HORIZON)
+    issue["fused_mppi_step"] = issue_line(
+        "fused_mppi_step", f"the bench shape (cart-pole, B={BATCH}, K={K_SAMPLES}, T={HORIZON})",
+        "fused_mppi.cu", BATCH * -(-K_SAMPLES // 32) * HORIZON, ms["fused_mppi_step"],
+        dev_ms["fused_mppi_step"], bounds["fused_mppi_step"],
+        mppi_launch_config(model, HORIZON, K_SAMPLES, BATCH))
 
+    N = BATCH * K_SAMPLES
     x0n = x0.repeat_interleave(K_SAMPLES, dim=1)
     usn = (plan.repeat_interleave(K_SAMPLES, dim=1)
            + torch.randn((HORIZON, N), generator=torch.Generator(device=dev).manual_seed(4),
@@ -1438,10 +1538,39 @@ def main():
     time_kernel("fused_rollout_costs_tm", lambda: fused_rollout_costs_tm(model, x0n, usn, gz))
     plain_ms["fused_rollout_costs_tm"] = cuda_time_ms(
         lambda: fused_rollout_costs_tm_reference(model, x0n, usn, gz), reps=3, warmup=1)
-    bounds["fused_rollout_costs_tm"] = bound(4 * (S * N + HORIZON * N + HORIZON * Z + N),
-                                             steps * STEP_OPS[model.name])
+    bounds["fused_rollout_costs_tm"] = rollout_bound(N, HORIZON)
+    issue["fused_rollout_costs_tm"] = issue_line(
+        "fused_rollout_costs_tm", f"the MPPI two-stage shape (cart-pole, N={N}, T={HORIZON})",
+        "fused_rollout.cu", -(-N // 32) * HORIZON, ms["fused_rollout_costs_tm"],
+        dev_ms["fused_rollout_costs_tm"], bounds["fused_rollout_costs_tm"],
+        rollout_launch_config(model, N))
 
-    clock = max_sm_clock_mhz()
+    def other_shape(name, label, src, trips, fn, bnd, cfg):
+        around, device = cuda_time_ms(fn), device_time_ms(fn)
+        floor = issue_line(name, label, src, trips, around, device, bnd, cfg)
+        other_shapes.setdefault(name, []).append({
+            "shape": label, "ms": around, "device_ms": device, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "issue_bound_ms": floor, "launch": cfg})
+
+    plan, x0, gz = mppi_inputs(model, MPPI_SWEEP_B, HORIZON, 1, dev)
+    lanes_s = pick_lanes(MPPI_SWEEP_B)
+    other_shape("fused_mppi_step", f"the sweep's MPPI row (cart-pole, B={MPPI_SWEEP_B}, "
+                f"K={MPPI_SWEEP_K}, T={HORIZON})", "fused_mppi.cu",
+                MPPI_SWEEP_B * -(-MPPI_SWEEP_K // 32) * HORIZON,
+                lambda: fused_mppi_step(model, MPPI_SWEEP_K, 1.0, 1.0, lanes_s, plan, x0, gz, 7),
+                mppi_bound(MPPI_SWEEP_B, MPPI_SWEEP_K, HORIZON),
+                mppi_launch_config(model, HORIZON, MPPI_SWEEP_K, MPPI_SWEEP_B))
+    Nc = CEM_B * CEM_K
+    rng = np.random.default_rng(4)
+    x0c = torch.from_numpy(rng.uniform(-1, 1, (S, Nc)).astype(np.float32)).to(dev)
+    usc = torch.from_numpy(rng.uniform(-1, 1, (CEM_T, Nc)).astype(np.float32)).to(dev)
+    gzc = torch.zeros((CEM_T, Z), device=dev)
+    other_shape("fused_rollout_costs_tm", f"the CEM two-stage shape (cart-pole, N={Nc}, "
+                f"T={CEM_T})", "fused_rollout.cu", -(-Nc // 32) * CEM_T,
+                lambda: fused_rollout_costs_tm(model, x0c, usc, gzc), rollout_bound(Nc, CEM_T),
+                rollout_launch_config(model, Nc))
+    del x0c, usc
+
     plan, x0, gz = mppi_inputs(model, CEM_B, CEM_T, 3, dev)
     cem_args = (model, CEM_K, CEM_ELITE, CEM_ITERS, 0.2, 1.0, pick_lanes(CEM_B), plan, x0, gz, 7)
     time_kernel("fused_cem_step", lambda: fused_cem_step(*cem_args))
@@ -1454,30 +1583,11 @@ def main():
         + CEM_B * CEM_ITERS * (CEM_ELITE * CEM_T * CEM_MOMENT_OPS + CEM_T * CEM_UPDATE_OPS
                                + CEM_K * CEM_ELITE * CEM_SELECT_OPS))
     print(f"fused_cem_step: {cem_steps} rollout steps per launch", flush=True)
-    # the instruction-issue floor: the rollout loop's fast-path SASS
-    # instructions per trip (a warp's step of ceil(K/32) samples in turn, one
-    # per lane) over every trip of the run, at one warp instruction per cycle
-    # on each of an SM's four schedulers
-    cfg_cem = cem_launch_config(model, CEM_T, CEM_K, CEM_B)
-    issue = {}
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(_build._target("fused_cem.cu"))],
-                          capture_output=True, text=True) if Path(cuobjdump).exists() else None
-    counted = (rollout_loop_count(sass.stdout, CEM_SASS_KERNEL, 2)
-               if sass is not None and sass.returncode == 0 else None)
-    if counted is not None:
-        trips = CEM_B * -(-CEM_K // 32) * CEM_T * CEM_ITERS
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        issue["fused_cem_step"] = counted[0] * trips / (sms * 4 * clock * 1e3)
-        print(f"[{smi}] fused_cem_step at the sweep's shape: device {dev_ms['fused_cem_step']:.4f}"
-              f" ms; the rollout loop issues {counted[0]} SASS instructions a trip on its fast "
-              f"path ({counted[1]} in its body; cuobjdump), {trips} warp trips: instruction-issue"
-              f" floor {issue['fused_cem_step']:.4f} ms at {sms} SMs x 4 schedulers x "
-              f"{clock:.0f} MHz, beside the FP32 bound {bounds['fused_cem_step'][0]:.4f} ms "
-              f"({bounds['fused_cem_step'][1]}); launch {cfg_cem}", flush=True)
-    else:
-        print(f"fused_cem_step: instruction-issue floor not measured (no cuobjdump, or no "
-              f"rollout loop found in its output); launch {cfg_cem}", flush=True)
+    issue["fused_cem_step"] = issue_line(
+        "fused_cem_step", "the sweep's shape", "fused_cem.cu",
+        CEM_B * -(-CEM_K // 32) * CEM_T * CEM_ITERS, ms["fused_cem_step"],
+        dev_ms["fused_cem_step"], bounds["fused_cem_step"],
+        cem_launch_config(model, CEM_T, CEM_K, CEM_B))
 
     # kernel 5 at iLQR's shape (cart-pole derivatives, check_pd) and at SQP's
     # (acrobot, with_c, mu = 0); the bound with the horizon's chain beside
@@ -1651,7 +1761,9 @@ def main():
     }
 
     profile_window("mppi kernel-tier episode", smi, mppi_episode)
+    profile_window("mppi two-stage episode", smi, lambda: mppi_episode(False))
     profile_window("cem kernel-tier episode", smi, cem_episode)
+    profile_window("cem two-stage episode", smi, lambda: cem_episode(False))
     gen = torch.Generator(device=dev).manual_seed(0)
     st = ilqr.init_state_batch(ILQR_B, gen, dev)
     gz = torch.zeros((ILQR_T, Z), device=dev)
@@ -1702,7 +1814,7 @@ def main():
             "ms": ms[name], "device_ms": dev_ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "chain_bound_ms": chains.get(name), "issue_bound_ms": issue.get(name),
-            "library_ms": None, "pass": True})
+            "other_shapes": other_shapes.get(name, []), "library_ms": None, "pass": True})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
                       "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {

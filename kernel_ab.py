@@ -9,7 +9,9 @@
     python3 kernel_ab.py fused_derivs.cu --against DIR
     python3 kernel_ab.py fused_linesearch.cu --against DIR
     python3 kernel_ab.py fused_cem.cu --against DIR
-        kernels 5, 4, 6 and 3 against DIR's
+    python3 kernel_ab.py fused_mppi.cu --against DIR
+    python3 kernel_ab.py fused_rollout.cu --against DIR
+        kernels 5, 4, 6, 3, 1 and 2 against DIR's
 
 Every variant is compiled with the package's flags, all at once, and is
 loaded in place of the package's library for that source while it runs, so
@@ -22,9 +24,12 @@ case (a, b, ..., b, a), and each call is timed two ways:
   overhead stays out).
 Every variant's outputs must equal the first variant's bit for bit. The cases
 are the main paths' shapes from chip_smoke.py (``CASES``: the sources of
-kernels 8a and 8b, 5, 4, 6 and 3); a source with no cases here is refused.
-For fused_cem.cu each variant's cart-pole rollout loop is counted in its SASS
-as chip_smoke.py counts it. A build of riccati_backward.cu from before its ok
+kernels 8a and 8b, 5, 4, 6, 3, 1 and 2); a source with no cases here is
+refused. For fused_mppi.cu and fused_rollout.cu the variants also take turns
+on whole episodes of the paths that launch them (``EPISODES``: the MPPI
+kernel tier; the MPPI and CEM two-stage tiers), timed on the host clock as
+chip_smoke.py times them, their costs bit for bit. For fused_cem.cu, fused_mppi.cu and fused_rollout.cu each variant's
+cart-pole rollout loop is counted in its SASS as chip_smoke.py counts it. A build of riccati_backward.cu from before its ok
 flags were written as bools is called through the entry point and wrapper
 steps of that time. The last line is a JSON object of every reading.
 
@@ -36,7 +41,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import statistics
 import subprocess
 import sys
@@ -165,17 +169,102 @@ def cem_cases(dev):
              [("fused_cem_step", lambda: fused_cem_step(*args, return_masks=True))])]
 
 
+def mppi_cases(dev):
+    """Kernel 1 at the bench shape and at the sweep's MPPI row (cart-pole),
+    as chip_smoke.py times it; then at three K*T past its noise cache's
+    budget (14,080, 17,280 and 32,768 bytes a scenario; with the cache an
+    SM would hold 4, 3 and 1 blocks of 4 scenarios), where the two forms
+    are compared by building with -DFUSED_MPPI_CACHE_BYTES=0 (redraw) and
+    a large value (cache)."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import fused_mppi_step, pick_lanes
+
+    model = REGISTRY["cartpole_swingup"]
+    cases = []
+    for label, B, K, T in (("the bench shape", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
+                           ("the sweep's MPPI row", cs.MPPI_SWEEP_B, cs.MPPI_SWEEP_K, cs.HORIZON),
+                           ("past the cache's budget", cs.BATCH, 32, 110),
+                           ("past the cache's budget", cs.BATCH, 48, 90),
+                           ("past the cache's budget", cs.BATCH, 64, 128)):
+        plan, x0, gz = cs.mppi_inputs(model, B, T, 1, dev)
+        args = (model, K, 1.0, 1.0, pick_lanes(B), plan, x0, gz, 7)
+        cases.append((f"{label} (cart-pole, B={B}, K={K}, T={T})",
+                      [("fused_mppi_step", lambda a=args: fused_mppi_step(*a))]))
+    return cases
+
+
+def rollout_cases(dev):
+    """Kernel 2 at the MPPI and the CEM two-stage tiers' shapes (cart-pole),
+    as chip_smoke.py times it."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import fused_rollout_costs_tm
+
+    model = REGISTRY["cartpole_swingup"]
+    cases = []
+    for label, N, T in (("the MPPI two-stage shape", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
+                        ("the CEM two-stage shape", cs.CEM_B * cs.CEM_K, cs.CEM_T)):
+        gen = torch.Generator(device=dev).manual_seed(N)
+        x0 = torch.rand((model.state_size, N), generator=gen, device=dev) * 2 - 1
+        us = torch.rand((T, N), generator=gen, device=dev) * 3 - 1.5
+        gz = torch.rand((T, model.goal_size), generator=gen, device=dev) * 0.4 - 0.2
+        cases.append((f"{label} (cart-pole, N={N}, T={T})",
+                      [("fused_rollout_costs_tm",
+                        lambda i=(x0, us, gz): fused_rollout_costs_tm(model, *i))]))
+    return cases
+
+
+def mppi_episodes(dev):
+    """The MPPI kernel tier's episode, as chip_smoke.py drives it."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv as env
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.solvers import MPPI
+
+    solver = MPPI(model=env.model, T=cs.HORIZON, K=cs.K_SAMPLES, std=1.0, lam=1.0)
+    cfg = EpisodeConfig(n_steps=cs.N_STEPS, warmstart=0, record_plans=False)
+    x0s = env.start_state(dev).expand(cs.BATCH, -1).contiguous()
+    return [(f"the MPPI kernel tier (B={cs.BATCH}, {cs.N_STEPS} steps)", 12,
+             lambda: run_episodes_fused(env, solver, cfg, x0s,
+                                        generator=torch.Generator(device=dev).manual_seed(0),
+                                        device=dev).costs)]
+
+
+def rollout_episodes(dev):
+    """The MPPI and the CEM two-stage tiers' episodes, as chip_smoke.py
+    drives them."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv as env
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, MPPI
+
+    out = []
+    for label, solver, B, steps, reps in (
+            ("the MPPI two-stage tier",
+             MPPI(model=env.model, T=cs.HORIZON, K=cs.K_SAMPLES, std=1.0, lam=1.0), cs.BATCH,
+             cs.N_STEPS, 6),
+            ("the CEM two-stage tier",
+             CEM(model=env.model, T=cs.CEM_T, K=cs.CEM_K, n_elite=cs.CEM_ELITE,
+                 max_iter=cs.CEM_ITERS), cs.CEM_B, cs.CEM_STEPS, 4)):
+        cfg = EpisodeConfig(n_steps=steps, warmstart=0, record_plans=False)
+        x0s = env.start_state(dev).expand(B, -1).contiguous()
+        out.append((f"{label} (B={B}, {steps} steps)", reps,
+                    lambda s=solver, c=cfg, x=x0s: run_episodes_fused(
+                        env, s, c, x, generator=torch.Generator(device=dev).manual_seed(0),
+                        use_kernel=False, device=dev).costs))
+    return out
+
+
 CASES = {"i2c_smooth.cu": i2c_cases, "riccati_backward.cu": riccati_cases,
          "fused_derivs.cu": derivs_cases, "fused_linesearch.cu": linesearch_cases,
-         "fused_cem.cu": cem_cases}
+         "fused_cem.cu": cem_cases, "fused_mppi.cu": mppi_cases,
+         "fused_rollout.cu": rollout_cases}
+# whole episodes of the paths that launch a source's kernel: (label, episodes
+# per turn, a run returning the episode's costs)
+EPISODES = {"fused_mppi.cu": mppi_episodes, "fused_rollout.cu": rollout_episodes}
 
 
-def loop_count(path: Path) -> str:
-    """Kernel 3's rollout loop in a build, as chip_smoke.py counts it."""
-    dump = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump", "-sass",
-                           str(path)], capture_output=True, text=True)
-    counted = cs.rollout_loop_count(dump.stdout, cs.CEM_SASS_KERNEL, 2)
-    if dump.returncode != 0 or counted is None:
+def loop_count(path: Path, source: str) -> str:
+    """A build's cart-pole rollout loop, as chip_smoke.py counts it."""
+    counted = cs.sass_loop(path, source)
+    if counted is None:
         return "rollout loop not counted"
     return (f"the cart-pole rollout loop issues {counted[0]} SASS instructions a trip on its "
             f"fast path ({counted[1]} in its body)")
@@ -231,8 +320,8 @@ def main() -> int:
             print(f"FAIL: nvcc for {label}:\n{log}")
             return 1
         libs.append(_build.typed(ctypes.CDLL(str(path)), args.source))
-        if args.source == "fused_cem.cu":
-            print(f"{label} source: {loop_count(path)}", flush=True)
+        if args.source in cs.SASS_LOOPS:
+            print(f"{label} source: {loop_count(path, args.source)}", flush=True)
 
     _build._LIBS[args.source] = libs[0]  # the wrappers launch whichever is here
     cases = CASES[args.source](dev)
@@ -266,8 +355,32 @@ def main() -> int:
                       f"device time", flush=True)
             readings.append({"kernel": name, "case": label, "variants": [
                 dict(variant=v[0], **t) for v, t in zip(variants, times)]})
+    episodes = []
+    for label, reps, run in EPISODES.get(args.source, lambda _: [])(dev):
+        first = None
+        for i, lib in enumerate(libs):
+            _build._LIBS[args.source] = lib
+            costs = run()  # also the warm-up of this variant
+            if first is None:
+                first = costs
+            elif not same_bits(costs, first):
+                print(f"FAIL: the episode of {label}: {variants[i][0]} costs differ from "
+                      f"{variants[0][0]}")
+                return 1
+        times = [[] for _ in variants]
+        for i in order:
+            _build._LIBS[args.source] = libs[i]
+            times[i] += [s * 1e3 for s in cs.episode_seconds(run, reps, warmup=False)]
+        for (vlabel, _, _), t in zip(variants, times):
+            q1, med, q3 = statistics.quantiles(t, n=4)
+            print(f"[{smi}] episode of {label}, {vlabel} source: median "
+                  f"{statistics.median(t):.3f} ms (quartiles {q1:.3f}-{q3:.3f}, n={len(t)})",
+                  flush=True)
+        episodes.append({"episode": label, "variants": [
+            {"variant": v[0], "episode_ms": t} for v, t in zip(variants, times)]})
     print(f"outputs identical across the {len(variants)} variants in every case", flush=True)
-    print(json.dumps({"device": smi, "source": args.source, "readings": readings}))
+    print(json.dumps({"device": smi, "source": args.source, "readings": readings,
+                      "episodes": episodes}))
     return 0
 
 

@@ -7,8 +7,9 @@ On the card (where JAX is absent, so without the suite's conftest):
 
 Tolerance rtol/atol 1e-4: both sides run float32 one IEEE operation at a
 time (the kernels are built with --fmad=false); only summation orders in
-the softmax and plan update differ. The CEM kernel sums its moments in the
-plain version's order, and its plan and elite masks must match exactly, as
+the softmax and plan update differ. The rollout-cost kernel sums each
+rollout's steps in the plain version's order and must match it bit for bit.
+The CEM kernel sums its moments in the plain version's order, and its plan and elite masks must match exactly, as
 must every output of the line-search kernel. The Riccati kernel sums every
 entry in the plain version's order and must match it bit for bit, its
 ``ok`` flags included.
@@ -98,8 +99,98 @@ def test_fused_rollout_kernel_matches_plain(dev, name):
     got = fused_rollout_costs_tm(model, x0, us, gz)
     torch.cuda.synchronize()
     assert fused_rollout_costs_tm.launches == before + 1
-    torch.testing.assert_close(got, fused_rollout_costs_tm_reference(model, x0, us, gz),
-                               rtol=1e-4, atol=1e-4)
+    _bits(got, fused_rollout_costs_tm_reference(model, x0, us, gz))
+
+
+# K = 48 gives lanes one sample and lanes two, with a ragged last block; K =
+# 64 two samples a lane, with blocks above 48 KB of shared memory (the
+# sweep's MPPI row); K·T = 48·90 puts pass 1's noise (17,280 bytes a
+# scenario) above the kernel's 13 KB cache, so pass 2 draws it again
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("K,T,B,cache", [(48, 17, 1001, True), (64, 50, 1030, True),
+                                         (48, 90, 777, False)],
+                         ids=["K48-ragged-block", "K64", "cache-above-budget"])
+def test_fused_mppi_kernel_edges(dev, name, K, T, B, cache):
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config
+
+    model = REGISTRY[name]
+    rng = np.random.default_rng(K + T)
+    plan = _t(rng.uniform(-0.5, 0.5, (T, B)), dev)
+    x0 = _t(rng.uniform(-1, 1, (model.state_size, B)), dev)
+    gz = _t(rng.uniform(-0.2, 0.2, (T, model.goal_size)), dev)
+    assert launch_config(model, T, K, B)["noise_cache"] is cache
+    lanes = pick_lanes(B)
+    before = fused_mppi_step.launches
+    got = fused_mppi_step(model, K, 0.9, 0.7, lanes, plan, x0, gz, 2**31 - 5)
+    torch.cuda.synchronize()
+    assert fused_mppi_step.launches == before + 1
+    want = fused_mppi_step_reference(model, K, 0.9, 0.7, lanes, plan, x0, gz, 2**31 - 5)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# one block plus one rollout at one step (no action to load ahead), and 16
+# blocks plus one at 23 steps
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("N,T", [(257, 1), (4097, 23)])
+def test_fused_rollout_kernel_ragged_n(dev, name, N, T):
+    model = REGISTRY[name]
+    rng = np.random.default_rng(N + T)
+    x0 = _t(rng.uniform(-1, 1, (model.state_size, N)), dev)
+    us = _t(rng.uniform(-1.5, 1.5, (T, N)), dev)
+    gz = _t(rng.uniform(-0.2, 0.2, (T, model.goal_size)), dev)
+    got = fused_rollout_costs_tm(model, x0, us, gz)
+    torch.cuda.synchronize()
+    _bits(got, fused_rollout_costs_tm_reference(model, x0, us, gz))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_mppi_and_rollout_launch_shapes(dev, name):
+    """The bench shape and the sweep's MPPI row keep the noise in shared
+    memory (the row's blocks above the default 48 KB); above the cache's
+    budget only the weights are kept."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_config
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config
+
+    model = REGISTRY[name]
+    for (T, K, B), cache in (((50, 32, 8192), True), ((50, 64, 10240), True),
+                             ((90, 48, 777), False)):
+        c = launch_config(model, T, K, B)
+        assert c["noise_cache"] is cache
+        assert c["scenarios_per_block"] == 4 and c["threads"] == 128
+        assert c["blocks"] == -(-B // 4)
+        assert c["shared_bytes"] == 4 * 4 * (K + (K * T if cache else 0))
+        assert 0 < c["registers"] <= 255 and c["blocks_per_sm"] >= (4 if cache else 8)
+    r = rollout_config(model, 262144)
+    assert (r["threads"], r["blocks"]) == (256, 1024)
+    assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 1
+
+
+def test_mppi_and_rollout_kernels_refuse_other_weights(dev):
+    """Kernels 1 and 2 are compiled for the model's own nonzero cost terms:
+    a weight array with another term is refused before anything launches."""
+    import ctypes
+
+    from benchmarking_mpc_solvers_tpu_torch import _build
+
+    model = REGISTRY["cartpole_swingup"]
+    w = (ctypes.c_float * (_build.MAX_Z * _build.MAX_Z))()
+    ctypes.memmove(w, _build.quad_weights(model.state_cost), ctypes.sizeof(w))
+    w[1 * _build.MAX_Z + 1] = 1.0  # W_11, zero in cart-pole's cost
+    T, B, K = 4, 8, 32
+    plan, out = torch.zeros((T, B), device=dev), torch.full((T, B), 7.0, device=dev)
+    x0, gz = torch.zeros((4, B), device=dev), torch.zeros((T, 5), device=dev)
+    stream = _build.stream_ptr(dev)
+    mid = _build.model_id(model)
+    rc = _build.kernel_fn("fused_mppi_step_launch")(
+        mid, _build.ptr(plan), _build.ptr(x0), _build.ptr(gz), _build.ptr(out), T, B, K, 1.0,
+        1.0, 1.0, 0, 128, 128, w, stream)
+    assert rc != 0
+    costs = torch.full((B,), 7.0, device=dev)
+    rc = _build.kernel_fn("fused_rollout_costs_launch")(
+        mid, _build.ptr(x0), _build.ptr(plan), _build.ptr(gz), _build.ptr(costs), T, B, w, stream)
+    assert rc != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((costs == 7.0).all())
 
 
 @pytest.mark.parametrize("name", NAMES)
