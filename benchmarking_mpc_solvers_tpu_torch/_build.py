@@ -131,8 +131,9 @@ SIGNATURES = {
     "fused_linesearch_launch_config": ("fused_linesearch.cu", [_I, _I, _I, _P]),
     "fused_derivs_launch": (
         "fused_derivs.cu", [_I] + [_P] * 11 + [_I, _I, _W, _P]),
-    "admm_iterate_launch": (
-        "admm_iterate.cu", [_P] * 5 + [_I] * 5 + [_F, _F, _F, _I, _I, _P]),
+    "admm_launch": (
+        "admm_iterate.cu", [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _F, _F] + [_I] * 4 + [_P]),
+    "admm_launch_config": ("admm_iterate.cu", [_I, _I, _I, _I, _P]),
     "i2c_filter_launch": ("i2c_smooth.cu", [_P] * 13 + [_I] * 5 + [_P]),
     "i2c_rts_launch": ("i2c_smooth.cu", [_P] * 6 + [_I] * 3 + [_P]),
     "i2c_launch_config": ("i2c_smooth.cu", [_I, _I, _I, _P]),

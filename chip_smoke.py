@@ -12,7 +12,8 @@ Phases (any failure exits non-zero before the result line):
    8a and 8b bit for bit, 1, 2, 3, 5, 6, 8a and 8b also at the edges of their
    lane groups, blocks and shared-memory stages; kernel 1 also at the
    sweep's MPPI row and in the form that redraws its noise, kernel 2 also at
-   the CEM two-stage shape).
+   the CEM two-stage shape, kernel 7 at the edges of its three forms and
+   past a block's shared memory, n up to 1,100).
 4. main paths, each with the launch counters set to 0 just before its run
    and read just after:
    - MPPI, the bench configuration (cart-pole swing-up, K=32, T=50,
@@ -40,10 +41,11 @@ Phases (any failure exits non-zero before the result line):
    checks.
 5. timings with CUDA events: each kernel around one call and as device
    time (calls queued behind a sleeping kernel, ``device_time_ms``), its
-   plain version and its bound (for kernels 5, 6, 8a and 8b also with the
-   horizon's dependent chain; for kernels 1, 2 and 3 also the
-   instruction-issue floor of the rollout loop, counted in its SASS, and
-   the launch shape; kernels 1 and 2 at a second shape too); host-clock
+   plain version and its bound (for kernels 5, 6, 7, 8a and 8b also with the
+   dependent chain of the horizon or of the iterations; for kernels 1, 2
+   and 3 also the instruction-issue floor of the rollout loop, counted in
+   its SASS; the launch shape of 1, 2, 3, 6 and 7; kernels 1, 2 and 7 at
+   further shapes too); host-clock
    episode solves/s of every path; device time by kernel under the
    profiler (one episode of each MPPI and CEM tier, one solve of iLQR, SQP,
    QP-MPC and I2C).
@@ -142,9 +144,13 @@ CEM_SAMPLE_OPS, CEM_MOMENT_OPS, CEM_UPDATE_OPS, CEM_SELECT_OPS = 4, 5, 10, 4
 # sum_i K_i*(x_i - xref_i) (3S), us + alpha*ks + fb (3), the clip (2); the
 # terminal cost, once per candidate, is left out (under 0.3 % of the ops)
 LS_EXTRA = lambda S: 3 * S + 5  # noqa: E731
-# ADMM, from csrc/admm_iterate.cu, per row and iteration: the matvec 2n, then
-# v = rho*(z-y)-g (3), u' (3), +y (1), the clip (2), y+ (2)
-ADMM_ROW_OPS = lambda n: 2 * n + 11  # noqa: E731
+# ADMM, per row and iteration, as the function needs them: the matvec's n
+# products and n - 1 adds (2n - 1), v = rho*(z-y)-g (3), u' (3), u' + y (1),
+# the clip (2), y+ = (u' + y) - z+ (1, the sum before the clip reused)
+ADMM_ROW_OPS = lambda n: 2 * n + 9  # noqa: E731
+# kernel 7 at a problem of n > 240 (the streaming form), timed beside its
+# shapes of the suite: the shared layout, as QP-MPC at linearize_at="goal"
+ADMM_BIG_N, ADMM_BIG_B, ADMM_BIG_ITERS = 300, 512, 20
 PEAK_FP32 = 67e12  # H100 SXM FP32 (non-tensor) FLOP/s, published, at 700 W
 # a dependent FP32 operation's latency in cycles, the least the card's
 # pipeline takes (a square root or a division takes many more)
@@ -382,6 +388,19 @@ STEP_DEPTHS = {"pendulum": _pendulum_step_depths, "cartpole_swingup": _cartpole_
                "acrobot": _acrobot_step_depths}
 
 
+def admm_chain(n: int) -> int:
+    """Dependent FP32 operations one ADMM iteration carries into the next,
+    as the function needs them (the reference's row sum starts from its
+    first product): v = rho*(z - y) - g (3), the first product (1), the
+    row's n - 1 adds in order (n - 1), u' = alpha*u + (1 - alpha)*z (2),
+    + y and the clip's two compares (3), and y+ = (u' + y) - z+ after the
+    clip (1). The other products run beside the adds; the kernel's own add
+    of its first product to 0, the round trip of v through shared memory
+    and the zero terms up to the register form's row width (n rounded up
+    to a multiple of 4) are costs of the design, left out."""
+    return 3 + 1 + (n - 1) + 2 + 3 + 1
+
+
 def linesearch_chain(name: str) -> int:
     """Dependent FP32 operations of one feedback step's loop-carried chain in
     csrc/fused_linesearch.cu: from one step's state through the feedback
@@ -484,6 +503,29 @@ def ls_inputs_for(model, B, T, seed, dev):
     ks = torch.from_numpy((0.3 * rng.standard_normal((B, T, 1))).astype(np.float32)).to(dev)
     Ks = torch.from_numpy((0.05 * rng.standard_normal((B, T, 1, S))).astype(np.float32)).to(dev)
     return x0, us, ks, Ks, xref.contiguous(), gz
+
+
+def qp1_problem_for(B, dev):
+    """What QP-MPC configuration 1 hands the ADMM kernel (shared layout,
+    n = 20) at B pendulum states jittered around the start."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.solvers import QPMPC
+    solver = QPMPC(model=PendulumEnv.model, T=QP1_T, method="admm", iters=QP1_ITERS)
+    xs = PendulumEnv.start_state(dev).expand(B, -1) + 0.3 * torch.randn(
+        (B, 2), generator=torch.Generator(device=dev).manual_seed(10), device=dev)
+    return solver.admm_problem(xs)
+
+
+def random_qps_for(B, n, per_problem, per_bounds, seed, dev):
+    """(Minv, g, lo, hi) of B random box-QPs of n variables: Minv (n, n)
+    shared or (B, n, n) per problem, bounds (n,) or (B, n) per problem."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(((B,) if per_problem else ()) + (n, n))
+    H = a @ np.swapaxes(a, -1, -2) / n + np.eye(n)
+    shape = (B, n) if per_bounds else (n,)
+    arrays = (np.linalg.inv(H + np.eye(n)), 2.0 * rng.standard_normal((B, n)),
+              -rng.uniform(0.2, 1.0, shape), rng.uniform(0.2, 1.0, shape))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
 
 
 def sass_functions(sass: str) -> dict:
@@ -806,6 +848,7 @@ def main():
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import launch_config as i2c_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import (
         admm_iterate, admm_iterate_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import launch_config as admm_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
         riccati_backward_batch, riccati_backward_batch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
@@ -1063,19 +1106,10 @@ def main():
     # n=20, B=512), then random SPD problems per problem (n=20 and n=50),
     # ragged batches, bounds per problem
     def qp1_problem(B):
-        solver = QPMPC(model=PendulumEnv.model, T=QP1_T, method="admm", iters=QP1_ITERS)
-        xs = PendulumEnv.start_state(dev).expand(B, -1) + 0.3 * torch.randn(
-            (B, 2), generator=torch.Generator(device=dev).manual_seed(10), device=dev)
-        return solver.admm_problem(xs)
+        return qp1_problem_for(B, dev)
 
     def random_qps(B, n, per_problem, per_bounds, seed):
-        rng = np.random.default_rng(seed)
-        a = rng.standard_normal(((B,) if per_problem else ()) + (n, n))
-        H = a @ np.swapaxes(a, -1, -2) / n + np.eye(n)
-        shape = (B, n) if per_bounds else (n,)
-        arrays = (np.linalg.inv(H + np.eye(n)), 2.0 * rng.standard_normal((B, n)),
-                  -rng.uniform(0.2, 1.0, shape), rng.uniform(0.2, 1.0, shape))
-        return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+        return random_qps_for(B, n, per_problem, per_bounds, seed, dev)
 
     admm_main = qp1_problem(QP1_B)
     admm_cases = [(f"shared, configuration 1, n={QP1_T}, B={QP1_B}", admm_main, QP1_ITERS),
@@ -1086,7 +1120,29 @@ def main():
                   ("per problem, n=50, B=256", random_qps(256, 50, True, False, 13), 60),
                   ("per problem, n=50, ragged B=251, bounds per problem",
                    random_qps(251, 50, True, True, 14), 60),
-                  ("shared, n=50, ragged B=251", random_qps(251, 50, False, False, 15), 60)]
+                  ("shared, n=50, ragged B=251", random_qps(251, 50, False, False, 15), 60),
+                  # the forms' edges: register widths 4 to 16 (two problems a
+                  # warp; the last warp of B=511 holds one), to 32, to 64 (two
+                  # rows a lane), the shared-memory form from 65 to 240, the
+                  # streaming form above (n=1100: more rows than threads)
+                  ("shared, n=1, ragged B=7", random_qps(7, 1, False, False, 16), 100),
+                  ("per problem, n=5, ragged B=77, bounds per problem",
+                   random_qps(77, 5, True, True, 27), 100),
+                  ("per problem, n=16, ragged B=511, bounds per problem",
+                   random_qps(511, 16, True, True, 17), 100),
+                  ("shared, n=17, ragged B=263", random_qps(263, 17, False, False, 18), 100),
+                  ("per problem, n=32, ragged B=530, bounds per problem",
+                   random_qps(530, 32, True, True, 19), 100),
+                  ("shared, n=33, ragged B=131", random_qps(131, 33, False, False, 20), 60),
+                  ("per problem, n=64, ragged B=129", random_qps(129, 64, True, False, 21), 60),
+                  ("shared, n=65, ragged B=9, bounds per problem",
+                   random_qps(9, 65, False, True, 22), 20),
+                  ("per problem, n=240, B=3", random_qps(3, 240, True, False, 23), 20),
+                  ("per problem, n=241, ragged B=5, bounds per problem",
+                   random_qps(5, 241, True, True, 24), 10),
+                  (f"shared, n={ADMM_BIG_N}, B={ADMM_BIG_B}",
+                   random_qps(ADMM_BIG_B, ADMM_BIG_N, False, False, 25), ADMM_BIG_ITERS),
+                  ("shared, n=1100, B=2", random_qps(2, 1100, False, False, 26), 4)]
     for label, args, iters in admm_cases:
         got = admm_iterate(*args, iters=iters)
         want = admm_iterate_reference(*args, iters=iters)
@@ -1663,17 +1719,42 @@ def main():
           f"T={ILQR_T}: around one call {cuda_time_ms(fn):.4f} ms, device "
           f"{device_time_ms(fn):.4f} ms", flush=True)
 
+    # kernel 7 at configuration 1's shape (the kernels line), per problem at
+    # n=50 and past the shared-memory form at n=300 (other_shapes); the bound
+    # with the iterations' chain beside the bytes' and operations'
+    def admm_bound(B, n, iters, per_problem):
+        return bound(4 * ((B if per_problem else 1) * n * n + 2 * B * n + 2 * n),
+                     B * iters * n * ADMM_ROW_OPS(n))
+
     time_kernel("admm_iterate", lambda: admm_iterate(*admm_main, iters=QP1_ITERS))
     plain_ms["admm_iterate"] = cuda_time_ms(
         lambda: admm_iterate_reference(*admm_main, iters=QP1_ITERS), reps=3, warmup=1)
-    n = QP1_T
-    bounds["admm_iterate"] = bound(4 * (n * n + 2 * QP1_B * n + 2 * n),
-                                   QP1_B * QP1_ITERS * n * ADMM_ROW_OPS(n))
-    pp = random_qps(256, 50, True, False, 13)
-    print(f"[{smi}] admm_iterate per problem, n=50, B=256, 60 iterations: kernel "
-          f"{cuda_time_ms(lambda: admm_iterate(*pp, iters=60)):.4f} ms, plain "
-          f"{cuda_time_ms(lambda: admm_iterate_reference(*pp, iters=60), reps=3, warmup=1):.3f} "
-          f"ms", flush=True)
+    bounds["admm_iterate"] = admm_bound(QP1_B, QP1_T, QP1_ITERS, False)
+    chains["admm_iterate"] = chain_ms(QP1_ITERS, admm_chain(QP1_T), clock)
+    print(f"[{smi}] admm_iterate at configuration 1's shape (shared, n={QP1_T}, B={QP1_B}, "
+          f"{QP1_ITERS} iterations): around one call {ms['admm_iterate']:.4f} ms, device "
+          f"{dev_ms['admm_iterate']:.4f} ms; bound {bounds['admm_iterate'][0]:.5f} ms "
+          f"({bounds['admm_iterate'][1]}), chain ({admm_chain(QP1_T)} dependent operations an "
+          f"iteration at {clock:.0f} MHz) {chains['admm_iterate']:.5f} ms; launch "
+          f"{admm_launch_config(QP1_B, QP1_T, False)}", flush=True)
+    for label, args, iters, chain in (
+            ("per problem, n=50, B=256, 60 iterations", random_qps(256, 50, True, False, 13), 60,
+             chain_ms(60, admm_chain(50), clock)),
+            (f"shared, n={ADMM_BIG_N}, B={ADMM_BIG_B}, {ADMM_BIG_ITERS} iterations (streaming)",
+             random_qps(ADMM_BIG_B, ADMM_BIG_N, False, False, 25), ADMM_BIG_ITERS, None)):
+        B_, n_ = args[1].shape
+        fn = lambda a=args, k=iters: admm_iterate(*a, iters=k)  # noqa: E731
+        around, device = cuda_time_ms(fn), device_time_ms(fn)
+        bnd, launch = admm_bound(B_, n_, iters, args[0].ndim == 3), admm_launch_config(
+            B_, n_, args[0].ndim == 3)
+        plain = cuda_time_ms(lambda a=args, k=iters: admm_iterate_reference(*a, iters=k),
+                             reps=3, warmup=1)
+        print(f"[{smi}] admm_iterate {label}: around one call {around:.4f} ms, device "
+              f"{device:.4f} ms, plain {plain:.3f} ms; bound {bnd[0]:.5f} ms ({bnd[1]})"
+              f"{'' if chain is None else f', chain {chain:.5f} ms'}; launch {launch}", flush=True)
+        other_shapes.setdefault("admm_iterate", []).append({
+            "shape": label, "ms": around, "device_ms": device, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "chain_bound_ms": chain, "launch": launch})
 
     # kernels 8a and 8b on a first iteration's matrices: cart-pole at the
     # sweep's shape (the table's row), then the pendulum at configuration 6's.

@@ -11,7 +11,8 @@
     python3 kernel_ab.py fused_cem.cu --against DIR
     python3 kernel_ab.py fused_mppi.cu --against DIR
     python3 kernel_ab.py fused_rollout.cu --against DIR
-        kernels 5, 4, 6, 3, 1 and 2 against DIR's
+    python3 kernel_ab.py admm_iterate.cu --against DIR
+        kernels 5, 4, 6, 3, 1, 2 and 7 against DIR's
 
 Every variant is compiled with the package's flags, all at once, and is
 loaded in place of the package's library for that source while it runs, so
@@ -24,14 +25,20 @@ case (a, b, ..., b, a), and each call is timed two ways:
   overhead stays out).
 Every variant's outputs must equal the first variant's bit for bit. The cases
 are the main paths' shapes from chip_smoke.py (``CASES``: the sources of
-kernels 8a and 8b, 5, 4, 6, 3, 1 and 2); a source with no cases here is
-refused. For fused_mppi.cu and fused_rollout.cu the variants also take turns
-on whole episodes of the paths that launch them (``EPISODES``: the MPPI
-kernel tier; the MPPI and CEM two-stage tiers), timed on the host clock as
-chip_smoke.py times them, their costs bit for bit. For fused_cem.cu, fused_mppi.cu and fused_rollout.cu each variant's
+kernels 8a and 8b, 5, 4, 6, 3, 1, 2 and 7); a source with no cases here is
+refused. A variant that does not take a case (a build of admm_iterate.cu
+from before its streaming form, at n > 240 and in the streaming form's
+timings at n = 120 and 240) sits that case out. For
+fused_mppi.cu, fused_rollout.cu and admm_iterate.cu the variants also take
+turns on whole episodes of the paths that launch them (``EPISODES``: the
+MPPI kernel tier; the MPPI and CEM two-stage tiers; QP-MPC configuration
+1), timed on the host clock as chip_smoke.py times them, their costs bit
+for bit. For fused_cem.cu, fused_mppi.cu and fused_rollout.cu each variant's
 cart-pole rollout loop is counted in its SASS as chip_smoke.py counts it. A build of riccati_backward.cu from before its ok
 flags were written as bools is called through the entry point and wrapper
-steps of that time. The last line is a JSON object of every reading.
+steps of that time, and so is a build of admm_iterate.cu from before its
+three forms (entry point ``admm_iterate_launch``, P problems a block). The
+last line is a JSON object of every reading.
 
 Imports only the port (``benchmarking_mpc_solvers_tpu_torch``), never JAX.
 """
@@ -213,6 +220,111 @@ def rollout_cases(dev):
     return cases
 
 
+def admm_run(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=100):
+    """Kernel 7 through the loaded build of admm_iterate.cu: this checkout's
+    entry point through ``admm_iterate``, or a build from before the
+    kernel's three forms through its own, as its wrapper called it (see
+    ``admm_old_entry``)."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import admm_iterate
+
+    lib = _build._LIBS["admm_iterate.cu"]
+    if hasattr(lib, "admm_launch"):
+        return admm_iterate(Minv, g, lo, hi, rho, alpha, iters)
+    return admm_old_entry(lib, Minv, g, lo, hi, rho, alpha, iters)
+
+
+def admm_streaming(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=100):
+    """Kernel 7's streaming form at a shape where ``block_plan`` picks
+    another, through the loaded build (the same bits); None for a build
+    from before the kernel's three forms, which has no such form."""
+    from benchmarking_mpc_solvers_tpu_torch.ops import qp_admm
+
+    if not hasattr(_build._LIBS["admm_iterate.cu"], "admm_launch"):
+        return None
+    return qp_admm.run_plan(qp_admm.streaming_plan(*g.shape), Minv, g, lo, hi, rho, alpha,
+                            iters)
+
+
+def admm_old_entry(lib, Minv, g, lo, hi, rho, alpha, iters):
+    """A build whose entry point is ``admm_iterate_launch`` (a block of P
+    problems, Minv in shared memory), called with its wrapper's plan: P =
+    128 // n problems, halved until (n² or P·n²) + 2·P·n floats fit 227 KB
+    and P·n threads 1,024. None where that wrapper refused (n > 240).
+
+    This, and the cases a variant sits out in ``main`` (None from a run),
+    serve only A/Bs against builds from before the kernel's three forms;
+    once no such build is compared, both can go."""
+    B, n = g.shape
+    per_problem = Minv.ndim == 3
+    P = max(1, min(128 // n, B))
+    while True:
+        floats = (P if per_problem else 1) * n * n + 2 * P * n
+        if 4 * floats <= 232448 and P * n <= 1024:
+            break
+        if P == 1:
+            return None
+        P //= 2
+    fn = lib.admm_iterate_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    z = torch.empty((B, n), device=g.device)
+    _build.check_rc("admm_iterate_launch", fn(
+        *(t.data_ptr() for t in (Minv, g, lo, hi, z)), B, n, P, int(per_problem),
+        int(lo.ndim == 2), rho, alpha, 1.0 - alpha, iters, 4 * floats,
+        _build.stream_ptr(g.device)))
+    return z
+
+
+def admm_cases(dev):
+    """Kernel 7 at QP-MPC configuration 1's problem (shared layout, n=20,
+    B=512) and its ragged B=509, per problem at n=20 (B=512), n=50 (B=256;
+    the register form), n=120 and n=240 (B=256) and shared at n=120 (B=256;
+    the shared-memory form, each also timed in the streaming form: where
+    the forms split), and past a block's shared memory (n=300, B=512), as
+    chip_smoke.py checks and times them."""
+    cases = []
+    for label, args, iters, split in (
+            (f"configuration 1 (shared, n={cs.QP1_T}, B={cs.QP1_B})",
+             cs.qp1_problem_for(cs.QP1_B, dev), cs.QP1_ITERS, False),
+            (f"configuration 1, ragged (shared, n={cs.QP1_T}, B=509)",
+             cs.qp1_problem_for(509, dev), cs.QP1_ITERS, False),
+            ("per problem, n=20, B=512", cs.random_qps_for(512, 20, True, False, 11, dev), 100,
+             False),
+            ("per problem, n=50, B=256", cs.random_qps_for(256, 50, True, False, 13, dev), 60,
+             False),
+            ("per problem, n=120, B=256", cs.random_qps_for(256, 120, True, False, 28, dev), 60,
+             True),
+            ("shared, n=120, B=256", cs.random_qps_for(256, 120, False, False, 29, dev), 60, True),
+            ("per problem, n=240, B=256", cs.random_qps_for(256, 240, True, False, 30, dev), 60,
+             True),
+            (f"shared, n={cs.ADMM_BIG_N}, B={cs.ADMM_BIG_B}",
+             cs.random_qps_for(cs.ADMM_BIG_B, cs.ADMM_BIG_N, False, False, 25, dev),
+             cs.ADMM_BIG_ITERS, False)):
+        kernels = [("admm_iterate", lambda a=args, k=iters: admm_run(*a, iters=k))]
+        if split:
+            kernels.append(("admm_iterate, streaming form",
+                            lambda a=args, k=iters: admm_streaming(*a, iters=k)))
+        cases.append((f"{label}, {iters} iterations", kernels))
+    return cases
+
+
+def admm_episodes(dev):
+    """QP-MPC configuration 1's episode, as chip_smoke.py drives it, its
+    solver pointed at ``admm_run`` so that a build of either entry point
+    runs it."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.solvers import QPMPC, qp_mpc
+
+    qp_mpc.admm_iterate = admm_run
+    solver = QPMPC(model=PendulumEnv.model, T=cs.QP1_T, method="admm", iters=cs.QP1_ITERS)
+    cfg = EpisodeConfig(n_steps=cs.QP1_STEPS, record_plans=False)
+    x0s = PendulumEnv.start_state(dev).expand(cs.QP1_B, -1).contiguous()
+    return [(f"QP-MPC configuration 1 (B={cs.QP1_B}, {cs.QP1_STEPS} steps)", 3,
+             lambda: run_episodes_fused(PendulumEnv, solver, cfg, x0s, device=dev).costs)]
+
+
 def mppi_episodes(dev):
     """The MPPI kernel tier's episode, as chip_smoke.py drives it."""
     from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv as env
@@ -255,10 +367,11 @@ def rollout_episodes(dev):
 CASES = {"i2c_smooth.cu": i2c_cases, "riccati_backward.cu": riccati_cases,
          "fused_derivs.cu": derivs_cases, "fused_linesearch.cu": linesearch_cases,
          "fused_cem.cu": cem_cases, "fused_mppi.cu": mppi_cases,
-         "fused_rollout.cu": rollout_cases}
+         "fused_rollout.cu": rollout_cases, "admm_iterate.cu": admm_cases}
 # whole episodes of the paths that launch a source's kernel: (label, episodes
 # per turn, a run returning the episode's costs)
-EPISODES = {"fused_mppi.cu": mppi_episodes, "fused_rollout.cu": rollout_episodes}
+EPISODES = {"fused_mppi.cu": mppi_episodes, "fused_rollout.cu": rollout_episodes,
+            "admm_iterate.cu": admm_episodes}
 
 
 def loop_count(path: Path, source: str) -> str:
@@ -329,10 +442,18 @@ def main() -> int:
     readings = []
     for label, kernels in cases:
         for name, fn in kernels:
-            first = None
+            first, takes = None, []
             for i, lib in enumerate(libs):
                 _build._LIBS[args.source] = lib
                 out = fn()
+                takes.append(out is not None)
+                if out is None:
+                    if i == 0:
+                        print(f"FAIL: {name} at {label}: {variants[0][0]} does not take it")
+                        return 1
+                    print(f"{name} at {label}: {variants[i][0]} source does not take this "
+                          f"case", flush=True)
+                    continue
                 out = list(out) if isinstance(out, tuple) else [out]
                 torch.cuda.synchronize()
                 if first is None:
@@ -343,11 +464,15 @@ def main() -> int:
                     return 1
             times = [{"around_one_call_ms": [], "device_ms": []} for _ in variants]
             for i in order:
+                if not takes[i]:
+                    continue
                 _build._LIBS[args.source] = libs[i]
                 times[i]["around_one_call_ms"].append(cs.cuda_time_ms(fn))
                 times[i]["device_ms"].append(cs.device_time_ms(fn))
             base = statistics.mean(times[0]["device_ms"])
-            for (vlabel, _, _), t in zip(variants, times):
+            for (vlabel, _, _), t, took in zip(variants, times, takes):
+                if not took:
+                    continue
                 print(f"[{smi}] {name} at {label}, {vlabel} source: around one call "
                       f"{', '.join(f'{x:.4f}' for x in t['around_one_call_ms'])} ms; device "
                       f"{', '.join(f'{x:.4f}' for x in t['device_ms'])} ms; "
@@ -378,7 +503,8 @@ def main() -> int:
                   flush=True)
         episodes.append({"episode": label, "variants": [
             {"variant": v[0], "episode_ms": t} for v, t in zip(variants, times)]})
-    print(f"outputs identical across the {len(variants)} variants in every case", flush=True)
+    print(f"outputs identical across the {len(variants)} variants in every case they take",
+          flush=True)
     print(json.dumps({"device": smi, "source": args.source, "readings": readings,
                       "episodes": episodes}))
     return 0

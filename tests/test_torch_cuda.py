@@ -400,11 +400,8 @@ def test_fused_derivs_kernel_edges(dev, name, B, T):
     _derivs_both(REGISTRY[name], B, T, dev, seed=B * T)
 
 
-@pytest.mark.parametrize("n,B,per_problem,per_bounds", [
-    (20, 512, False, False), (20, 509, True, True), (50, 251, True, False),
-    (50, 256, False, True), (240, 3, True, False)])
-def test_admm_kernel_matches_plain(dev, n, B, per_problem, per_bounds):
-    rng = np.random.default_rng(6)
+def _admm_both(dev, n, B, per_problem, per_bounds, iters, seed=6):
+    rng = np.random.default_rng(seed)
     a = rng.standard_normal(((B,) if per_problem else ()) + (n, n))
     H = a @ np.swapaxes(a, -1, -2) / n + np.eye(n)
     Minv = _t(np.linalg.inv(H + np.eye(n)), dev)
@@ -412,24 +409,85 @@ def test_admm_kernel_matches_plain(dev, n, B, per_problem, per_bounds):
     shape = (B, n) if per_bounds else (n,)
     lo, hi = _t(-rng.uniform(0.2, 1.0, shape), dev), _t(rng.uniform(0.2, 1.0, shape), dev)
     before = admm_iterate.launches
-    got = admm_iterate(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=60)
+    got = admm_iterate(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=iters)
     torch.cuda.synchronize()
     assert admm_iterate.launches == before + 1
-    want = admm_iterate_reference(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=60)
+    want = admm_iterate_reference(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=iters)
     assert torch.equal(got, want)
     assert bool(((got >= lo) & (got <= hi)).all())
 
 
-def test_admm_above_the_shared_memory_budget_raises(dev):
-    """n = 241 does not fit one block's shared memory: on the card the
-    wrapper refuses the call, naming the roadmap item, and launches nothing."""
-    n, B = 241, 2
-    Minv = torch.eye(n, device=dev) * 0.5
-    g = torch.ones((B, n), device=dev)
+@pytest.mark.parametrize("n,B,per_problem,per_bounds", [
+    (20, 512, False, False), (20, 509, True, True), (50, 251, True, False),
+    (50, 256, False, True), (240, 3, True, False),
+    # the edges of the forms: register widths 4 to 16 (two problems a warp),
+    # to 32, to 64 (two rows a lane), shared memory from 65; ragged batches
+    (1, 7, False, False), (1, 3, True, True), (5, 77, True, True), (13, 64, False, False),
+    (16, 511, True, True), (16, 512, False, False),
+    (17, 263, True, False), (32, 530, False, True), (33, 131, True, True),
+    (64, 129, False, False), (64, 40, True, True), (65, 9, True, False), (65, 6, False, True),
+    (240, 5, False, True)])
+def test_admm_kernel_matches_plain(dev, n, B, per_problem, per_bounds):
+    _admm_both(dev, n, B, per_problem, per_bounds, 60)
+
+
+@pytest.mark.parametrize("n,B,per_problem,per_bounds", [
+    (241, 5, False, False), (241, 4, True, True), (300, 3, False, True), (300, 3, True, False),
+    (1100, 2, False, False)])
+def test_admm_streaming_form_matches_plain(dev, n, B, per_problem, per_bounds):
+    """Past a block's shared memory (n > 240, and n = 1,100 with more rows
+    than a block's 1,024 threads) the kernel streams Minv from device
+    memory, bit for bit with the plain version."""
+    _admm_both(dev, n, B, per_problem, per_bounds, 4)
+
+
+@pytest.mark.parametrize("n,B,per_problem", [(20, 9, False), (65, 6, True), (120, 5, False),
+                                               (240, 3, True)])
+def test_admm_streaming_form_matches_the_planned_form(dev, n, B, per_problem):
+    """Below n = 241 ``block_plan`` picks the register or the shared-memory
+    form; the streaming form, launched at the same (B, n) through
+    ``run_plan`` (as ``kernel_ab.py`` times it), gives the same bits."""
+    from benchmarking_mpc_solvers_tpu_torch.ops import qp_admm
+
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal(((B,) if per_problem else ()) + (n, n))
+    Minv = _t(np.linalg.inv(a @ np.swapaxes(a, -1, -2) / n + 2 * np.eye(n)), dev)
+    g = _t(2.0 * rng.standard_normal((B, n)), dev)
+    lo, hi = _t(-rng.uniform(0.2, 1.0, n), dev), _t(rng.uniform(0.2, 1.0, n), dev)
+    planned = admm_iterate(Minv, g, lo, hi, iters=30)
+    assert qp_admm.block_plan(B, n, per_problem).form != "streaming"
     before = admm_iterate.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 11a"):
-        admm_iterate(Minv, g, -torch.ones(n, device=dev), torch.ones(n, device=dev), iters=3)
-    assert admm_iterate.launches == before
+    streamed = qp_admm.run_plan(qp_admm.streaming_plan(B, n), Minv, g, lo, hi, 1.0, 1.6, 30)
+    torch.cuda.synchronize()
+    assert admm_iterate.launches == before + 1
+    assert torch.equal(streamed, planned)
+
+
+def test_qpmpc_episode_past_the_shared_memory_form_runs_on_the_card(dev):
+    """QP-MPC with T·A = 242 at ``linearize_at="goal"`` goes through the
+    kernel's streaming form, with the plain version's plans. The plant is a
+    stable two-input linear model: over 121 steps an unstable plant's
+    condensed H (the pendulum's, linearised upright) is too ill-conditioned
+    for a float32 Cholesky factor, on either path."""
+    from benchmarking_mpc_solvers_tpu_torch.envs.env import Env
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.models.synthetic import make_linear_model
+    from benchmarking_mpc_solvers_tpu_torch.solvers import QPMPC
+
+    model = make_linear_model(0.95 * np.eye(2), np.eye(2), np.eye(2), 0.1 * np.eye(2),
+                              bounds=0.3)
+    env = Env(name="linear", model=model, default_start=(2.0, -1.0),
+              done_fn=lambda x: torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device))
+    solver = QPMPC(model=model, T=121, method="admm", iters=20)
+    x0s = env.start_state(dev).expand(4, -1).contiguous()
+    st = solver.init_state_batch(4, torch.Generator(device=dev).manual_seed(0), dev)
+    gz = torch.zeros((121, model.goal_size), device=dev)
+    assert torch.equal(solver.solve_batch(st, x0s, gz)[0].planned_us,
+                       solver.solve_batch(st, x0s, gz, use_fused=False)[0].planned_us)
+    before = admm_iterate.launches
+    res = run_episodes_fused(env, solver, EpisodeConfig(n_steps=2, record_plans=False), x0s,
+                             device=dev)
+    assert torch.isfinite(res.costs).all() and admm_iterate.launches == before + 2
 
 
 def test_sqp_and_qpmpc_episodes_run_on_the_card(dev):

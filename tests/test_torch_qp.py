@@ -5,7 +5,9 @@ Numpy-seeded problems go through ``benchmarking_mpc_solvers_tpu/ops/qp.py``
 and the port's ``ops/qp.py``; the plain version of ``admm_iterate`` is held
 against the reference's Pallas kernel in interpret mode at the sizes of the
 reference's own kernel test (tests/test_qp_pallas.py: shared and
-per-problem layouts, a ragged B).
+per-problem layouts, a ragged B), and at n = 256, where the card runs the
+kernel's streaming form, against the Pallas kernel (shared) and the XLA
+loop the reference falls back to (per problem).
 
 Tolerances. Condensing: rtol = atol = 1e-5 (1e-4 for g, as the reference's
 own condense test: it sums T·S products of O(1) terms). The ADMM iterates:
@@ -233,17 +235,70 @@ def test_admm_iterate_plain_matches_reference_kernel(n, B, per_problem, rho, ite
     assert torch.equal(one[0], got[0])
 
 
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per-problem"])
+def test_admm_iterate_plain_matches_reference_past_the_shared_memory_form(per_problem):
+    """n = 256, beyond what a block's shared memory holds (the card runs the
+    streaming form there), 5 iterations. The shared layout against the
+    Pallas kernel in interpret mode (its VMEM footprint fits the
+    reference's budget); per problem against ``_admm_iterate_xla``, the
+    loop the reference falls back to at this size. Tolerance atol 2e-5, as
+    at the smaller sizes: XLA sums each row's 256 terms in its own order,
+    the plain version in j order, and the iteration, a contraction, does
+    not grow the difference (under 1e-6 here)."""
+    n, B, iters = 256, 3, 5
+    H, Minv, g = _kernel_inputs(31, n, B, per_problem, 1.0)
+    lo, hi = -0.5 * np.ones(n, np.float32), 0.5 * np.ones(n, np.float32)
+    assert qp_admm.block_plan(B, n, per_problem).form == "streaming"
+    got = admm_iterate(*_t(Minv, g, lo, hi), iters=iters)
+    if per_problem:
+        lo_b, hi_b = np.broadcast_to(lo, (B, n)), np.broadcast_to(hi, (B, n))
+        want = _admm_iterate_xla(*_j(Minv, g, lo_b, hi_b), 1.0, 1.6, iters)
+    else:
+        want = j_admm_iterate(*_j(Minv, g, lo, hi), iters=iters, interpret=True)
+    assert got.shape == (B, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    assert float(got.abs().max()) <= 0.5
+    assert (got.abs() == 0.5).any() and (got.abs() < 0.5).any()  # bounds bind, not all
+
+
 def test_admm_iterate_size_rule_and_shape_checks():
-    """The block plan: P problems per block within 1024 threads and the
-    227 KB of shared memory; above it, None (the wrapper then raises on
-    the card)."""
-    assert qp_admm.block_plan(512, 20, False) == (6, 4 * (400 + 2 * 6 * 20))
-    assert qp_admm.block_plan(256, 50, True) == (2, 4 * 2 * (2500 + 100))
-    assert qp_admm.block_plan(3, 20, False)[0] == 3  # never more problems than B
-    P, smem = qp_admm.block_plan(8, 240, True)
-    assert P == 1 and smem <= qp_admm.SMEM_BUDGET_BYTES
-    assert qp_admm.block_plan(8, 241, True) is None and qp_admm.block_plan(8, 241, False) is None
-    assert qp_admm.block_plan(8, 2000, False) is None
+    """The plan picks the form and its launch shape for every n: registers
+    up to n = 64 (the row width n rounded up to a multiple of 4; two
+    problems a warp up to 16; blocks of as many warps as still give each of
+    the 132 SMs a block),
+    shared memory up to n = 240 (n² + 2n floats within 227 KB), streaming
+    above; never None."""
+    plan = qp_admm.block_plan
+    # (n, form, width, problems a block, threads, blocks at B = 512), both layouts
+    for n, form, width, ppb, threads, blocks in [
+            (1, "registers", 4, 2, 32, 256), (16, "registers", 16, 2, 32, 256),
+            (17, "registers", 20, 2, 64, 256), (20, "registers", 20, 2, 64, 256),
+            (32, "registers", 32, 2, 64, 256), (33, "registers", 36, 2, 64, 256),
+            (50, "registers", 52, 2, 64, 256), (64, "registers", 64, 2, 64, 256),
+            (65, "shared", 0, 1, 65, 512), (240, "shared", 0, 1, 240, 512),
+            (241, "streaming", 0, 1, 256, 512), (2000, "streaming", 0, 1, 1024, 512)]:
+        for per_problem in (False, True):
+            p = plan(512, n, per_problem)
+            assert p is not None and p[:5] == (form, width, ppb, threads, blocks), (n, p)
+            assert p.smem <= qp_admm.SMEM_BUDGET_BYTES
+    # the register form's warps each hold a double-buffered v (a slot a lane,
+    # two past width 32, and a spare) and stage their matrices (two a warp up
+    # to width 16, per problem) at an odd row stride
+    assert plan(512, 20, False).smem == 4 * 2 * (2 * 36 + 20 * 21)
+    assert plan(512, 16, False).smem == 4 * (2 * 36 + 16 * 17)
+    assert plan(512, 16, True).smem == 4 * (2 * 36 + 2 * 16 * 17)
+    assert plan(512, 50, True).smem == 4 * 2 * (2 * 68 + 50 * 51)
+    assert plan(512, 5, True).smem == 4 * (2 * 36 + 2 * 5 * 5)
+    assert plan(512, 240, True).smem == 4 * (240 * 240 + 2 * 240)
+    # warps a block: 4 while that still leaves every SM a block, then 2, then 1
+    assert plan(4 * 132, 20, True)[2:5] == (4, 128, 132)
+    assert plan(4 * 131, 20, True)[2:5] == (2, 64, 262)
+    assert plan(256, 50, True)[2:5] == (1, 32, 256)
+    assert plan(3, 20, False)[2:5] == (1, 32, 3)
+    assert plan(3, 16, False)[2:5] == (2, 32, 2)  # the last warp holds one problem
+    assert plan(1024, 20, False, sms=64)[2:5] == (4, 128, 256)
+    with pytest.raises(ValueError, match="no plan"):
+        plan(4, 0, False)
     Minv, g = torch.eye(4), torch.zeros((3, 4))
     with pytest.raises(ValueError, match="Minv has shape"):
         admm_iterate(torch.eye(5), g, -torch.ones(4), torch.ones(4))
