@@ -34,6 +34,12 @@ class Solver:
         """One full solver invocation (the reference ``_calc_action``)."""
         raise NotImplementedError
 
+    def has_kernel_stages(self) -> bool:
+        """Whether ``solve_batch(use_fused=True)`` runs stages as kernels
+        for this model, as the reference's vmapped ``solve`` reaches
+        kernels on the TPU; none do unless a solver says so."""
+        return False
+
     def _init_plan(self, lead: tuple, init_std: float, generator: torch.Generator,
                    device, noise=None):
         """Initial plans ``lead + (T, A)``: zeros when ``init_std == 0``
@@ -60,14 +66,20 @@ class Solver:
         return goal.expand(self.T, self.goal_size).contiguous()
 
 
+def fused_tier_applicable(model: Model) -> bool:
+    """Whether the derivative, Riccati and line-search wrappers take the
+    model: a scalar action, ``quad_cost`` costs and a state the Riccati
+    kernel holds."""
+    return (linesearch_applicable(model)
+            and pallas_riccati_applicable(model.state_size, model.action_size))
+
+
 def check_fused_tier(name: str, model: Model, g_z) -> None:
-    """Gate of the trajectory solvers' ``use_fused=True``: the derivative,
-    Riccati and line-search wrappers take a scalar action, ``quad_cost``
-    costs, a state the Riccati kernel holds and one goal trajectory (T, Z)
-    for the whole batch. Anything else is refused here, on any device, so
-    that a fused solve never runs plain stages unasked."""
-    if not (linesearch_applicable(model)
-            and pallas_riccati_applicable(model.state_size, model.action_size)):
+    """Gate of the trajectory solvers' ``use_fused=True``: the model must be
+    ``fused_tier_applicable`` and the goal one trajectory (T, Z) for the
+    whole batch. Anything else is refused here, on any device, so that a
+    fused solve never runs plain stages unasked."""
+    if not fused_tier_applicable(model):
         raise NotImplementedError(
             f"{name}(use_fused=True) needs action_size == 1, quad_cost costs and a state "
             f"size the Riccati kernel holds; pass use_fused=False")
@@ -75,6 +87,31 @@ def check_fused_tier(name: str, model: Model, g_z) -> None:
         raise NotImplementedError(
             f"{name}(use_fused=True) needs one goal trajectory (T, Z) shared by the batch, "
             f"got g_z of shape {tuple(g_z.shape)}; pass use_fused=False")
+
+
+def model_noise_draws(solver, generator: torch.Generator, B: int, device, noise=None):
+    """Planning-model noise of a batched iLQR or SQP solve: i -> iteration
+    i's standard normals (B, T, S) for the nominal rollout and
+    (B, n_alphas, T, S) for the line-search candidates, drawn from
+    ``generator``, or None when the solver has no model noise. ``noise``, a
+    pair of such draws with a leading ``max_iter`` axis, replaces the draws
+    (row i for iteration i, as the reference splits its key once an
+    iteration)."""
+    S = solver.model.state_size
+    shapes = ((B, solver.T, S), (B, solver.n_alphas, solver.T, S))
+    if solver.model_noise_std <= 0.0:
+        if noise is not None:
+            raise ValueError("noise given to a solver without model noise")
+        return lambda i: None
+    if noise is None:
+        return lambda i: tuple(torch.randn(s, generator=generator, device=device)
+                               for s in shapes)
+    noise = tuple(torch.as_tensor(n, dtype=torch.float32, device=device) for n in noise)
+    for n, s in zip(noise, shapes):
+        if tuple(n.shape) != (solver.max_iter,) + s:
+            raise ValueError(f"noise has shape {tuple(n.shape)}, expected "
+                             f"{(solver.max_iter,) + s}")
+    return lambda i: (noise[0][i], noise[1][i])
 
 
 class StepOutput(NamedTuple):

@@ -137,6 +137,12 @@ class I2C(Solver):
         sig0[S:, S:] = self.sigma_u**2 * torch.eye(A)
         return sig0.to(device), Q_proc.to(device)
 
+    def has_kernel_stages(self) -> bool:
+        """Whether the smoother kernels take the model: D = S + A and the
+        feature size Z up to ``MAX_DIM``."""
+        D = self.model.state_size + self.model.action_size
+        return max(D, self.model.state_cost.W.shape[0]) <= MAX_DIM
+
     def _check_fused(self, g_z) -> None:
         """Gate of ``use_fused=True``: the smoother kernels take one goal
         trajectory (T, Z) for the whole batch and D, Z up to ``MAX_DIM``.
@@ -144,7 +150,7 @@ class I2C(Solver):
         never runs the plain form unasked. Any action size passes."""
         D = self.model.state_size + self.model.action_size
         Z = self.model.state_cost.W.shape[0]
-        if D > MAX_DIM or Z > MAX_DIM:
+        if not self.has_kernel_stages():
             raise NotImplementedError(
                 f"I2C.solve_batch(use_fused=True) needs state_size + action_size and the "
                 f"feature size <= {MAX_DIM}, got {D} and {Z}; pass use_fused=False")

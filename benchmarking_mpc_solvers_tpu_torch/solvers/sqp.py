@@ -32,14 +32,20 @@ With ``parallel_horizon`` the subproblem is solved by the associative-scan
 Riccati (``ops/riccati.py:tvlqr_backward_assoc_general``, plain PyTorch) on
 either tier.
 
-Not ported yet, and refused at construction: ``model_noise_std > 0``
-(ROADMAP.md §1 item 9a).
+With ``model_noise_std > 0`` (the reference's ``_solve_noisy``) every
+iteration draws fresh additive state noise for its nominal rollout and for
+each line-search candidate, so no trajectory carries over: the nominal
+rollout runs each iteration, the subproblem linearizes cleanly at its noisy
+points (through the kernels with ``use_fused``, as the reference's vmapped
+solve does), and the candidates roll out plain, as they do in the
+reference. The ``pallas_backward`` field is kept, without effect, for the
+reference's signature.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -56,8 +62,8 @@ from ..ops.linearize import (
 )
 from ..ops.riccati import TVLQRPolicy, tvlqr_backward, tvlqr_backward_assoc_general
 from ..ops.riccati_backward import tvlqr_backward_cv
-from ..ops.rollout import simulate_trajectory
-from .base import Solver, check_fused_tier
+from ..ops.rollout import simulate_trajectory, simulate_trajectory_noisy
+from .base import Solver, check_fused_tier, fused_tier_applicable, model_noise_draws
 
 
 class SQPState(NamedTuple):
@@ -81,11 +87,7 @@ class SQP(Solver):
     # equilibria where a zero plan has zero gradient. 0 keeps solves
     # deterministic.
     init_std: float = 0.0
-
-    def __post_init__(self):
-        if self.model_noise_std > 0.0:
-            raise NotImplementedError(
-                "SQP(model_noise_std > 0) is not ported yet: ROADMAP.md §1 item 9a")
+    pallas_backward: Optional[bool] = None  # the reference's switch; no effect here
 
     # -- state ----------------------------------------------------------------
     def init_state(self, generator: torch.Generator, device="cuda", noise=None) -> SQPState:
@@ -97,6 +99,11 @@ class SQP(Solver):
         device = resolve_device(device)
         return SQPState(self._init_plan((batch,), self.init_std, generator, device, noise),
                         generator)
+
+    def has_kernel_stages(self) -> bool:
+        """Whether the derivative, Riccati and line-search kernels take the
+        model (``solvers/base.py:fused_tier_applicable``)."""
+        return fused_tier_applicable(self.model)
 
     def alphas(self, device=None):
         """Line-search step sizes 0.5^i, i < n_alphas, in float32."""
@@ -126,12 +133,13 @@ class SQP(Solver):
             return tvlqr_backward_cv(dyn, cost)
         return tvlqr_backward(dyn, cost, reg=0.0)
 
-    def _try_step(self, alphas, policy: TVLQRPolicy, xs, us, g_z):
+    def _try_step(self, alphas, policy: TVLQRPolicy, xs, us, g_z, xnoise=None):
         """Closed-loop forward application of the deviation policy for all
         step sizes alphas (n,): ``(us_new (n, B, T, A), xs_new (n, B, T+1, S),
         cost (n, B))``, the terminal cost included. The realized
         trajectories travel back so the accepted one is adopted without
-        re-simulating."""
+        re-simulating. ``xnoise`` (n, B, T, S) is added to the state after
+        each step (the noisy planning model)."""
         model = self.model
         n = alphas.shape[0]
         B, T, _ = us.shape
@@ -143,6 +151,8 @@ class SQP(Solver):
             u = us[:, t] + alpha * policy.k[:, t] + mv(policy.K[:, t], x - xs[:, t])
             u = model.clip_action(u)
             x, c = model.step_and_cost(x, u, g_z[..., t, :])
+            if xnoise is not None:
+                x = x + xnoise[:, :, t]
             cost = cost + c
             xs_new.append(x)
             us_new.append(u)
@@ -150,25 +160,39 @@ class SQP(Solver):
         return torch.stack(us_new, dim=2), torch.stack(xs_new, dim=2), cost
 
     # -- outer loop ---------------------------------------------------------------
-    def solve_batch(self, state: SQPState, xs, g_z, use_fused: bool = True):
+    def solve_batch(self, state: SQPState, xs, g_z, use_fused: bool = True, noise=None):
         """One SQP solve for B scenarios xs (B, S), plans (B, T, A): all
         ``max_iter`` iterations in lock-step, a scenario frozen once it
-        stops improving."""
+        stops improving. With ``model_noise_std > 0`` each iteration draws
+        standard normals (B, T, S) for its nominal rollout and
+        (B, n_alphas, T, S) for the candidates from the state's generator
+        (``noise``, a pair of such draws with a leading ``max_iter`` axis,
+        replaces them), rolls the plan out noisily, solves the subproblem at
+        the noisy trajectory and takes the best noisy candidate, rolled out
+        plain."""
         model = self.model
         x0s = xs
         B = x0s.shape[0]
         us = state.planned_us
         alphas = self.alphas(x0s.device)
-        traj, cost = simulate_trajectory(model, x0s, us, g_z)
-        cost = cost + model.final_cost(traj[:, -1], g_z[..., -1, :])
         reg = torch.full((B,), self.reg_init, dtype=torch.float32, device=x0s.device)
         done = torch.zeros((B,), dtype=torch.bool, device=x0s.device)
         rows = torch.arange(B, device=x0s.device)
         if use_fused:
             check_fused_tier("SQP.solve_batch", model, g_z)
-        for _ in range(self.max_iter):
+        draws = model_noise_draws(self, state.generator, B, x0s.device, noise)
+        noisy = self.model_noise_std > 0.0
+        if not noisy:  # afterwards the accepted candidate's trajectory
+            traj, cost = self._nominal(x0s, us, g_z)
+        for i in range(self.max_iter):
+            nz = draws(i)
+            if noisy:  # no trajectory carries over: roll out anew
+                traj, cost = self._nominal(x0s, us, g_z, self.model_noise_std * nz[0])
             policy = self._subproblem(traj, us, g_z, reg, use_fused)
-            if use_fused:
+            if noisy:
+                cand_us, cand_xs, cand_costs = self._try_step(
+                    alphas, policy, traj, us, g_z, self.model_noise_std * nz[1].transpose(0, 1))
+            elif use_fused:
                 cand_us, cand_xs, cand_costs = fused_linesearch(
                     model, alphas, traj[:, 0].contiguous(), us.contiguous(),
                     policy.k.contiguous(), policy.K.contiguous(), traj.contiguous(), g_z,
@@ -188,6 +212,15 @@ class SQP(Solver):
             done = done | ~improved
         us = model.clip_action(us)
         return state._replace(planned_us=us), us[:, 0], {}
+
+    def _nominal(self, x0s, us, g_z, xnoise=None):
+        """The plans' rollout (noisy with ``xnoise`` (B, T, S)) and its
+        cost, the terminal cost included."""
+        if xnoise is None:
+            traj, cost = simulate_trajectory(self.model, x0s, us, g_z)
+        else:
+            traj, cost = simulate_trajectory_noisy(self.model, x0s, us, g_z, xnoise)
+        return traj, cost + self.model.final_cost(traj[:, -1], g_z[..., -1, :])
 
     def solve(self, state: SQPState, x, g_z):
         """One SQP solve from state x (S,), plan (T, A): ``solve_batch`` on

@@ -36,6 +36,15 @@ Phases (any failure exits non-zero before the result line):
      50 MPC steps) and its row of the six-family sweep (cart-pole
      swing-up, T=50, max_iter=3, B=10240, 10 MPC steps), each iteration
      through the Kalman-filter and RTS-smoother kernels;
+   - through ``Experiment.run`` (its untimed first call and its timed
+     call): MPPI at the bench configuration on the kernel tier (its result
+     through a ``ResultStore`` and back bit for bit); iLQR under model
+     noise at scripts/noise_tests.py's configuration (kernel 5, no kernel
+     6); iLQR with ddp, box_ddp and diag_hessian at scripts/ilqr_tuning.py's
+     widths (kernel 6, no kernel 5); SQP under model noise at configuration
+     4's widths (kernels 4 and 5); each result with the reference's keys;
+     each new path at a tiny size on the card against the CPU; one
+     per-step timed run;
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
@@ -88,6 +97,44 @@ I2C6_T, I2C6_ITERS, I2C6_B, I2C6_STEPS = 25, 10, 256, 50
 I2CS_T, I2CS_ITERS, I2CS_B, I2CS_STEPS = 50, 3, 10240, 10
 QP2_WEIGHTS = dict(goal_x=(0.0, 0.0, 0.0, 0.0), R=((0.1,),),
                    Q=((0.5, 0, 0, 0), (0, 0.1, 0, 0), (0, 0, 5.0, 0), (0, 0, 0, 0.5)))
+# Experiment paths. iLQR under model noise at scripts/noise_tests.py's
+# configuration (cart-pole, T=25, max_iter=5, threshold=1e-7, sensor noise
+# 0.1 with model noise, 5 repetitions); its 100 steps and warm start 50 are
+# cut to EXP_NOISE_STEPS and EXP_NOISE_WARM for the time limit. The iLQR
+# variants at scripts/ilqr_tuning.py's widths (pendulum, T=25, max_iter=5,
+# threshold=1e-7, 5 repetitions), 100 steps and warm start 50 cut to
+# EXP_VARIANT_STEPS and EXP_VARIANT_WARM. Kernels 5 and 6 are also held
+# against their plain versions on one solve's inputs of those paths. SQP
+# under model noise at configuration 4's widths (acrobot, T=100,
+# max_iter=4, 1024 repetitions) for EXP_SQP_STEPS steps. The per-step
+# timed run: MPPI at the bench widths.
+EXP_NOISE_STEPS, EXP_NOISE_WARM = 20, 10
+EXP_VARIANT_STEPS, EXP_VARIANT_WARM = 10, 2
+EXP_SQP_STEPS, EXP_PER_STEP_STEPS = 5, 10
+EXP_REPS = 5
+ILQR_NOISE_CONFIG = {"T": 25, "max_iter": 5, "threshold": 1e-7, "closed_loop": False}
+# the reference's results dict (benchmarking_mpc_solvers_tpu/experiment/
+# experiment.py:167-201, :247-281), kept here because the card's machine has
+# no JAX; tests/test_torch_experiment.py holds it against the reference
+EXPERIMENT_KEYS = (
+    "name", "computation_time", "timing_mode", "passed_time", "compile_time", "warmstart",
+    "warmstart_trajectories", "env_name", "model_name", "agent_name", "agent_config",
+    "env_start_state", "env_states", "env_actions", "env_costs", "actuation_noise",
+    "sensor_noise", "model_noise", "agent_planning_states", "agent_planning_actions",
+    "agent_planning_costs", "repetitions")
+
+
+def experiment_keys(sensor: bool, actuation: bool, per_step: bool) -> list:
+    """The sorted keys of the reference's results dict for the noise flags
+    and the timing mode."""
+    keys = list(EXPERIMENT_KEYS)
+    if not per_step:
+        keys += ["batch_costs", "batch_total_costs"]
+    if sensor:
+        keys += ["env_true_states", "sensor_noise_std"]
+    if actuation:
+        keys += ["env_true_actions", "actuation_noise_std"]
+    return sorted(keys)
 
 # Kernel-vs-plain tolerance. Both sides run float32 one IEEE operation at a
 # time (the kernels are built with --fmad=false and accurate libm calls), so
@@ -447,6 +494,35 @@ def ilqr_derivs_for(name, B, T, dev):
     gz = torch.zeros((T, model.goal_size), device=dev)
     xs, _ = simulate_trajectory(model, x0, us, gz)
     return [t.contiguous() for t in solver.derivatives(xs, us, gz)]
+
+
+def ilqr_path_calls(wrapper: str, env_name: str, agent_config: dict, noise_std: float, B: int,
+                    dev) -> list:
+    """The arguments (args, kwargs) of every call that one iLQR solve of an
+    Experiment path makes to a kernel wrapper of ``solvers/ilqr.py``
+    (``riccati_backward_batch`` or ``fused_linesearch``, by name), from the
+    path's start state and the solver's initial plans, so that the kernel
+    can be held against its plain version on exactly those inputs."""
+    from benchmarking_mpc_solvers_tpu_torch.envs.env import REGISTRY as ENVS
+    from benchmarking_mpc_solvers_tpu_torch.experiment import make_solver
+    from benchmarking_mpc_solvers_tpu_torch.solvers import ilqr as ilqr_module
+    env = ENVS[env_name]
+    solver = make_solver("ILQR", env.model, agent_config, model_noise_std=noise_std)
+    st = solver.init_state_batch(B, torch.Generator(device=dev).manual_seed(0), dev)
+    x0 = env.start_state(dev).expand(B, -1).contiguous()
+    gz = torch.zeros((solver.T, env.model.goal_size), device=dev)
+    real, calls = getattr(ilqr_module, wrapper), []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(ilqr_module, wrapper, spy)
+    try:
+        solver.solve_batch(st, x0, gz)
+    finally:
+        setattr(ilqr_module, wrapper, real)
+    return calls
 
 
 def derivs_inputs_for(model, B, T, seed, rolled, dev):
@@ -1002,6 +1078,21 @@ def main():
     sq = sqp_riccati_inputs_for(SQP_B, SQP_T, dev)  # timed below
     riccati_check(f"SQP's inputs (acrobot, with_c, mu = 0), B={SQP_B}, T={SQP_T}", sq[:7], sq[7],
                   sq[8], check_pd=False, with_c=True)
+    # what iLQR under model noise hands it through Experiment (the paths'
+    # SQP inputs are the ones above): each iteration's inputs of one solve
+    # at that path's configuration (cart-pole, B=5, T=25; from the
+    # solver's initial plans no scenario's pass is ok there), and random
+    # blocks at that shape with ok mixed
+    exp_T = ILQR_NOISE_CONFIG["T"]
+    for i, (args, _) in enumerate(ilqr_path_calls("riccati_backward_batch", "cartpole_swingup",
+                                                  ILQR_NOISE_CONFIG, 0.1, EXP_REPS, dev)):
+        riccati_check(f"iLQR model noise's inputs (cart-pole), B={EXP_REPS}, T={exp_T}, "
+                      f"iteration {i}", args[:7], args[7])
+    *d_exp, _ = random_derivs(EXP_REPS, exp_T, 4, 52)
+    _, want = riccati_check(f"random, S=4, B={EXP_REPS}, T={exp_T}", d_exp,
+                            torch.ones((EXP_REPS,), device=dev))
+    if not 0 < int(want[2].sum()) < EXP_REPS:
+        fail(f"riccati at B={EXP_REPS}, T={exp_T}: ok is not mixed")
     # the kernel's edges: every S (an entry per lane in groups of 1, 4 or 16
     # lanes at S <= 4, entries S*S..G-1 idle; one thread per scenario above),
     # a ragged last block, a horizon of one step and one past one and two
@@ -1083,6 +1174,15 @@ def main():
         for alphas_ in (alphas[:1], many):
             ls_check(f"{name}, n_a={len(alphas_)}, B=333, T=17", model, alphas_, inputs, True,
                      True)
+    # what the iLQR variants hand it through Experiment: each iteration's
+    # inputs of one solve at their configuration (pendulum, B=5, T=25)
+    for variant in ("ddp", "box_ddp", "diag_hessian"):
+        for i, (args, kw) in enumerate(ilqr_path_calls(
+                "fused_linesearch", "pendulum", {**ILQR_NOISE_CONFIG, variant: True}, 0.0,
+                EXP_REPS, dev)):
+            ls_check(f"iLQR {variant}'s inputs (pendulum), n_a={N_ALPHAS}, B={EXP_REPS}, "
+                     f"T={ILQR_NOISE_CONFIG['T']}, iteration {i}", args[0], args[1], args[2:],
+                     kw["with_terminal"], False)
 
     # derivatives: every model at SQP's shape along rolled-out trajectories
     # (some controls on the action bounds), and a ragged batch of uniform
@@ -1472,6 +1572,175 @@ def main():
     if not bool((cost1 <= cost0 + 1e-3 * cost0.abs()).all() and (cost1 < cost0).any()):
         fail("i2c sweep row: a solve made a plan's rollout cost worse, or moved none")
 
+    def experiment_paths():
+        """The Experiment phases; their names stay local to this function."""
+        # the Experiment host layer's paths, each through Experiment.run (its
+        # first call and its timed call), the counts at 0 just before the run
+        from benchmarking_mpc_solvers_tpu_torch.experiment import Experiment, ResultStore
+        exp_walls, exp_results = {}, {}
+
+        def run_experiment(label, params, expect, warmstart=0):
+            """Drive one Experiment with the counts at 0; check each expected
+            count, that no other kernel launched, the reference's key set and
+            finite costs."""
+            t0 = time.perf_counter()
+            reset_counts()
+            res = Experiment(params, device=dev).run(warmstart=warmstart)
+            torch.cuda.synchronize()
+            got = {fn.__name__: fn.launches for fn in counters}
+            want = {fn.__name__: 0 for fn in counters}
+            want.update(expect)
+            if got != want:
+                fail(f"{label}: launches {got}, expected {want}")
+            keys = experiment_keys(params.get("sensor_noise", 0) > 0,
+                                   params.get("actuation_noise", 0) > 0,
+                                   params.get("timed_per_step", False))
+            if sorted(res) != keys:
+                fail(f"{label}: results keys {sorted(res)}, expected the reference's {keys}")
+            costs = res["env_costs"] if params.get("timed_per_step") else res["batch_costs"]
+            if not np.isfinite(costs).all():
+                fail(f"{label}: costs not finite")
+            launches[label] = got
+            exp_walls[label] = time.perf_counter() - t0
+            exp_results[label] = res
+            print(f"[{smi}] experiment ({label}): launches {expect}, passed_time "
+                  f"{res['passed_time']} s, compile_time {res['compile_time']} s, mean total cost "
+                  f"{float(np.mean(costs.sum(axis=-1))):.3f}, wall {exp_walls[label]:.1f} s",
+                  flush=True)
+            return res
+
+        # 1. MPPI at the bench configuration on the kernel tier: one kernel-1
+        # launch per step in each of the two calls; the result through the store
+        bench_params = dict(env="cartpole_swingup", agent="MPPI",
+                            agent_config={"K": K_SAMPLES, "T": HORIZON, "std": 1.0, "lam": 1.0},
+                            experiment_length=N_STEPS, start_state=list(env.default_start),
+                            repetitions=BATCH, fused=True)
+        res = run_experiment("experiment mppi kernel tier", bench_params,
+                             {"fused_mppi_step": 2 * N_STEPS})
+        if res["batch_costs"].shape != (BATCH, N_STEPS):
+            fail(f"experiment mppi: batch_costs {res['batch_costs'].shape}")
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            store = ResultStore(tmp, "chip_smoke")
+            store.insert(res)
+            found = store.find({"agent_config.K": K_SAMPLES})
+            if len(found) != 1:
+                fail(f"result store: find by agent_config.K gave {len(found)} results")
+            for key, val in res.items():
+                if isinstance(val, np.ndarray) and not (
+                        found[0][key].dtype == val.dtype
+                        and found[0][key].tobytes() == val.tobytes()):
+                    fail(f"result store: {key} did not come back bit for bit")
+        print("result store: the bench result inserted, found by agent_config.K and every array "
+              "back bit for bit", flush=True)
+
+        # 2. iLQR under model noise, fused=False: kernel 5 each iteration, the
+        # noisy line search plain (no kernel 6), as in the reference
+        n = 2 * (EXP_NOISE_WARM + EXP_NOISE_STEPS) * ILQR_NOISE_CONFIG["max_iter"]
+        run_experiment("experiment ilqr model noise", dict(
+            env="cartpole_swingup", agent="ILQR", agent_config=ILQR_NOISE_CONFIG,
+            experiment_length=EXP_NOISE_STEPS, start_state=list(env.default_start),
+            sensor_noise=0.1, model_noise=True, repetitions=EXP_REPS), {"riccati_backward_batch": n},
+            warmstart=EXP_NOISE_WARM)
+
+        # 3. the iLQR variants, fused=False: kernel 6 each iteration, the
+        # backward pass plain (the variant's own recursion), as in the reference
+        n = 2 * (EXP_VARIANT_WARM + EXP_VARIANT_STEPS) * ILQR_NOISE_CONFIG["max_iter"]
+        for variant in ("ddp", "box_ddp", "diag_hessian"):
+            run_experiment(f"experiment ilqr {variant}", dict(
+                env="pendulum", agent="ILQR", agent_config={**ILQR_NOISE_CONFIG, variant: True},
+                experiment_length=EXP_VARIANT_STEPS, start_state=list(PendulumEnv.default_start),
+                repetitions=EXP_REPS), {"fused_linesearch": n}, warmstart=EXP_VARIANT_WARM)
+
+        # 4. SQP under model noise at configuration 4's widths, fused=False:
+        # kernels 4 and 5 each iteration, the noisy candidates plain
+        n = 2 * EXP_SQP_STEPS * SQP_ITERS
+        run_experiment("experiment sqp model noise", dict(
+            env="acrobot", agent="SQP", agent_config={"T": SQP_T, "max_iter": SQP_ITERS},
+            experiment_length=EXP_SQP_STEPS, start_state=list(SQP_START), sensor_noise=0.1,
+            model_noise=True, repetitions=SQP_B), {"fused_derivs": n, "riccati_backward_batch": n})
+
+        # 5. each new path on the card against the CPU at a tiny size, from the
+        # same plans (and, under model noise, the same injected draws: the card's
+        # and the CPU's generators are different streams)
+        t0 = time.perf_counter()
+        tiny = {"ilqr model noise": ("cartpole_swingup", "ILQR", {"T": 8, "max_iter": 3},
+                                     ILQR_EPISODE_TOL),
+                "ilqr ddp": ("pendulum", "ILQR", {"T": 8, "max_iter": 3, "ddp": True},
+                             ILQR_EPISODE_TOL),
+                "ilqr box_ddp": ("pendulum", "ILQR", {"T": 8, "max_iter": 3, "box_ddp": True},
+                                 ILQR_EPISODE_TOL),
+                "ilqr diag_hessian": ("pendulum", "ILQR",
+                                      {"T": 8, "max_iter": 3, "diag_hessian": True},
+                                      ILQR_EPISODE_TOL),
+                "sqp model noise": ("acrobot", "SQP", {"T": 8, "max_iter": 3}, SQP_EPISODE_TOL)}
+        rng = np.random.default_rng(8)
+        for label, (env_name, agent, cfg, tol) in tiny.items():
+            env_ = {"pendulum": PendulumEnv, "cartpole_swingup": CartPoleSwingUpEnv,
+                    "acrobot": AcrobotEnv}[env_name]
+            noisy = "noise" in label
+            solver = Experiment(dict(env=env_name, agent=agent, agent_config=cfg,
+                                     experiment_length=1, start_state=list(env_.default_start),
+                                     sensor_noise=0.1 if noisy else 0.0, model_noise=noisy),
+                                device="cpu")._build()[0]
+            S, B_ = env_.model.state_size, 8
+            plans = (0.3 * rng.standard_normal((B_, cfg["T"], 1))).astype(np.float32)
+            x0s_ = (env_.start_state("cpu").expand(B_, -1) + torch.from_numpy(
+                0.05 * rng.standard_normal((B_, S)).astype(np.float32))).contiguous()
+            if noisy:
+                draws = (rng.standard_normal((cfg["max_iter"], B_, cfg["T"], S)),
+                         rng.standard_normal((cfg["max_iter"], B_, solver.n_alphas, cfg["T"], S)))
+                gz_ = torch.zeros((cfg["T"], env_.model.goal_size))
+
+                def run_tiny(d):
+                    st_ = solver.init_state_batch(B_, torch.Generator(device=d).manual_seed(0), d)
+                    st_ = st_._replace(planned_us=torch.from_numpy(plans).to(d))
+                    return solver.solve_batch(st_, x0s_.to(d), gz_.to(d), noise=draws)[0].planned_us
+            else:
+                def run_tiny(d):
+                    return run_episodes_fused(env_, solver, EpisodeConfig(n_steps=3, warmstart=1),
+                                              x0s_.to(d), use_kernel=False, init_plans=plans,
+                                              device=d).planned_actions
+            got, want = run_tiny(dev).cpu(), run_tiny("cpu")
+            if not torch.allclose(got, want, rtol=tol, atol=tol):
+                fail(f"tiny {label}: card vs CPU max err {float((got - want).abs().max()):.3e}")
+            print(f"tiny {label} ({'one solve, injected noise' if noisy else '3 steps'}, B={B_}, "
+                  f"T={cfg['T']}): card matches the CPU (tol {tol}), max err "
+                  f"{float((got - want).abs().max()):.3e}", flush=True)
+        exp_walls["card against CPU"] = time.perf_counter() - t0
+
+        # 6. one per-step timed run: MPPI at the bench widths, one scenario
+        res = run_experiment("experiment mppi per step", dict(
+            bench_params, repetitions=1, fused=False, experiment_length=EXP_PER_STEP_STEPS,
+            timed_per_step=True), {})
+        if res["timing_mode"] != "per_step":
+            fail("experiment per step: timing_mode is not per_step")
+        print(f"[{smi}] experiment mppi per step: median solve "
+              f"{1e3 * statistics.median(res['computation_time']):.3f} ms over "
+              f"{EXP_PER_STEP_STEPS} steps (K={K_SAMPLES}, T={HORIZON}, one scenario)", flush=True)
+        print(f"[{smi}] experiment phases: {json.dumps({k: round(v, 2) for k, v in exp_walls.items()})}"
+              f", {sum(exp_walls.values()):.1f} s in all", flush=True)
+
+        # the device's busy share over one solve of each new path's solver,
+        # from its experiment's start state and the solver's initial plans
+        from benchmarking_mpc_solvers_tpu_torch.experiment import make_solver
+        for label, env_, cfg_, noise_std, B_ in (
+                ("ilqr model noise", CartPoleSwingUpEnv, ILQR_NOISE_CONFIG, 0.1, EXP_REPS),
+                ("ilqr ddp", PendulumEnv, {**ILQR_NOISE_CONFIG, "ddp": True}, 0.0, EXP_REPS),
+                ("sqp model noise", AcrobotEnv, {"T": SQP_T, "max_iter": SQP_ITERS}, 0.1, SQP_B)):
+            solver_ = make_solver(label.split()[0].upper(), env_.model, cfg_,
+                                  model_noise_std=noise_std)
+            gen_ = torch.Generator(device=dev).manual_seed(0)
+            st_ = solver_.init_state_batch(B_, gen_, dev)
+            start = SQP_START if env_ is AcrobotEnv else env_.default_start
+            x0_ = torch.tensor(start, device=dev).expand(B_, -1).contiguous()
+            gz_ = torch.zeros((solver_.T, env_.model.goal_size), device=dev)
+            profile_window(f"{label} solve (one MPC step, B={B_}, {solver_.max_iter} "
+                           f"iterations)", smi, lambda: solver_.solve_batch(st_, x0_, gz_))
+        return exp_walls, exp_results
+
+    exp_walls, exp_results = experiment_paths()
+
     # small episodes on the card against the plain versions on the CPU
     def small_match(label, tol, run):
         on_card, on_cpu = run(dev), run("cpu")
@@ -1841,6 +2110,12 @@ def main():
             I2CS_B, I2CS_STEPS),
     }
 
+    print(f"[{smi}] experiment mppi kernel tier: passed_time "
+          f"{exp_results['experiment mppi kernel tier']['passed_time']:.4f} s with "
+          f"record_plans=True (a simulate_trajectory of the plans each step), beside the "
+          f"direct run_episodes_fused episode of the same path without it, median "
+          f"{ep['mppi kernel tier']:.4f} s", flush=True)
+
     profile_window("mppi kernel-tier episode", smi, mppi_episode)
     profile_window("mppi two-stage episode", smi, lambda: mppi_episode(False))
     profile_window("cem kernel-tier episode", smi, cem_episode)
@@ -1897,7 +2172,7 @@ def main():
             "chain_bound_ms": chains.get(name), "issue_bound_ms": issue.get(name),
             "other_shapes": other_shapes.get(name, []), "library_ms": None, "pass": True})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
-                      "card": smi}), flush=True)
+                      "experiment_wall_s": exp_walls, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -718,3 +718,71 @@ def test_i2c_solve_batch_launches_and_matches_cpu(dev, name, T, iters):
     torch.testing.assert_close(plain.planned_us, on_card.planned_us, rtol=2e-3, atol=2e-3)
     with pytest.raises(NotImplementedError, match="pass use_fused=False"):
         solver.solve_batch(st, x0s.to(dev), g_z.to(dev).expand(64, T, -1))
+
+
+# The Experiment paths of the iLQR variants and noisy SQP: (agent, env,
+# agent_config, noise params, the kernels expected per solver iteration)
+EXPERIMENT_ROUTES = {
+    "ilqr model noise": ("ILQR", "cartpole_swingup", {"T": 8, "max_iter": 2},
+                         {"sensor_noise": 0.1, "model_noise": True},
+                         {"riccati_backward_batch"}),
+    "ilqr ddp": ("ILQR", "pendulum", {"T": 8, "max_iter": 2, "ddp": True}, {},
+                 {"fused_linesearch"}),
+    "ilqr box_ddp": ("ILQR", "pendulum", {"T": 8, "max_iter": 2, "box_ddp": True}, {},
+                     {"fused_linesearch"}),
+    "ilqr diag_hessian": ("ILQR", "pendulum", {"T": 8, "max_iter": 2, "diag_hessian": True},
+                          {}, {"fused_linesearch"}),
+    "sqp model noise": ("SQP", "acrobot", {"T": 8, "max_iter": 2},
+                        {"sensor_noise": 0.1, "model_noise": True},
+                        {"fused_derivs", "riccati_backward_batch"}),
+}
+
+
+@pytest.mark.parametrize("label", sorted(EXPERIMENT_ROUTES))
+def test_experiment_routes_the_reference_kernels(dev, label):
+    """``Experiment(fused=False)`` launches the kernels the reference's
+    vmapped solve reaches on the accelerator, once per solver iteration of
+    each of its two calls, and no other; the card's plans match the CPU's
+    from the same plans and noise (2e-3, tests/test_torch_ilqr.py and
+    tests/test_torch_sqp.py)."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import REGISTRY as ENVS
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, Experiment
+    from benchmarking_mpc_solvers_tpu_torch.experiment import run_episodes_fused
+
+    agent, env_name, cfg, noise, kernels = EXPERIMENT_ROUTES[label]
+    env = ENVS[env_name]
+    counters = {f.__name__: f for f in (riccati_backward_batch, fused_linesearch, fused_derivs)}
+    before = {k: f.launches for k, f in counters.items()}
+    steps, reps = 2, 4
+    params = dict(env=env_name, agent=agent, agent_config=cfg, experiment_length=steps,
+                  start_state=list(env.default_start), repetitions=reps, **noise)
+    exp = Experiment(params, device=dev)
+    res = exp.run(warmstart=1)
+    torch.cuda.synchronize()
+    iters = 2 * (1 + steps) * cfg["max_iter"]
+    got = {k: f.launches - before[k] for k, f in counters.items()}
+    assert got == {k: iters if k in kernels else 0 for k in counters}
+    assert res["batch_costs"].shape == (reps, steps) and np.isfinite(res["batch_costs"]).all()
+
+    solver, _ = exp._build()
+    rng = np.random.default_rng(5)
+    plans = (0.3 * rng.standard_normal((reps, cfg["T"], 1))).astype(np.float32)
+    x0s = env.start_state("cpu").expand(reps, -1) + torch.from_numpy(
+        0.05 * rng.standard_normal((reps, env.model.state_size)).astype(np.float32))
+    if noise:
+        # one solve, the noise injected so that both devices draw alike
+        S, n = env.model.state_size, solver.n_alphas
+        draws = (rng.standard_normal((cfg["max_iter"], reps, cfg["T"], S)),
+                 rng.standard_normal((cfg["max_iter"], reps, n, cfg["T"], S)))
+        g_z = torch.zeros((cfg["T"], env.model.goal_size))
+
+        def run(d):
+            st = solver.init_state_batch(reps, torch.Generator(device=d).manual_seed(0), d)
+            st = st._replace(planned_us=torch.from_numpy(plans).to(d))
+            return solver.solve_batch(st, x0s.to(d), g_z.to(d), noise=draws)[0].planned_us
+    else:
+        def run(d):
+            return run_episodes_fused(env, solver, EpisodeConfig(n_steps=2, warmstart=1),
+                                      x0s.to(d), use_kernel=False, init_plans=plans,
+                                      device=d).planned_actions
+    torch.testing.assert_close(run(dev).cpu(), run("cpu"), rtol=2e-3, atol=2e-3)

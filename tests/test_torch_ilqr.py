@@ -99,9 +99,15 @@ def test_derivatives_match_reference():
                                     {"box_ddp": True},
                                     {"diag_hessian": True}, {"model_noise_std": 0.1}])
 def test_unported_options_raise_naming_the_roadmap(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9a"):
-        TILQR(model=TENVS["pendulum"].model, T=4, **option)
-    TILQR(model=TENVS["pendulum"].model, T=4, gauss_newton=True)  # ported
+    """The options once refused here (naming the roadmap) are ported: each
+    constructs, with the reference's ``pallas_backward`` field too, and
+    solves (tests/test_torch_ilqr_variants.py holds them against the
+    reference)."""
+    ts = TILQR(model=TENVS["pendulum"].model, T=4, max_iter=1, pallas_backward=True, **option)
+    st = convert.ilqr_state_from_numpy(np.full((2, 4, 1), 0.3, np.float32), device="cpu")
+    out, u0, _ = ts.solve_batch(st, torch.tensor([[3.0, 0.0], [2.0, 0.5]]),
+                                torch.zeros((4, 3)), use_fused=False)
+    assert out.planned_us.shape == (2, 4, 1) and torch.isfinite(u0).all()
 
 
 def test_init_state_is_hi_times_normal():

@@ -168,8 +168,14 @@ def test_init_state_draws_clipped_plans_from_injected_noise():
 
 @pytest.mark.parametrize("option,item", [({"model_noise_std": 0.1}, "item 9a")])
 def test_unported_sqp_options_raise_naming_the_roadmap(option, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-        TSQP(model=TENVS["acrobot"].model, T=4, **option)
+    """The option once refused here (naming the roadmap's ``item``) is
+    ported: it constructs, with the reference's ``pallas_backward`` field
+    too, and solves (tests/test_torch_sqp_noise.py holds it against the
+    reference)."""
+    ts = TSQP(model=TENVS["acrobot"].model, T=4, max_iter=1, pallas_backward=True, **option)
+    st = convert.sqp_state_from_numpy(np.full((2, 4, 1), 0.3, np.float32), device="cpu")
+    out, u0, _ = ts.solve_batch(st, torch.zeros((2, 4)), torch.zeros((4, 5)), use_fused=False)
+    assert out.planned_us.shape == (2, 4, 1) and torch.isfinite(u0).all()
 
 
 @pytest.mark.parametrize("fused", [False, True])
