@@ -6,6 +6,7 @@ Entry points run on the card unless the caller asks for the CPU: the default
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,8 @@ def default_generator(generator, device: torch.device) -> torch.Generator:
     if generator is not None:
         return generator
     return torch.Generator(device=device).manual_seed(0)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A host copy of a tensor on any device; other array-likes as numpy."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -55,6 +55,19 @@ class Env:
         return torch.tensor(self.default_start, dtype=torch.float32,
                             device=resolve_device(device))
 
+    def reset(self, generator: Optional[torch.Generator] = None, state=None,
+              device="cuda") -> torch.Tensor:
+        """A start state (S,) on ``device``: ``state`` as float32, else drawn
+        uniformly from ``generator``. Keeps the reference's quirk of taking
+        the range from the *action* bounds, [bounds_low[0], bounds_high[0]]
+        in every coordinate."""
+        device = resolve_device(device)
+        if state is not None:
+            return torch.as_tensor(state, dtype=torch.float32, device=device)
+        lo, hi = float(self.model.bounds_low[0]), float(self.model.bounds_high[0])
+        u = torch.rand((self.model.state_size,), generator=generator, device=device)
+        return lo + (hi - lo) * u
+
 
 def env_step(
     env: Env,

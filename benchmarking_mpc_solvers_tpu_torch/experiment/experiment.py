@@ -19,7 +19,9 @@ Which tier runs:
   rules (iLQR's and SQP's routed per stage, ``ILQR.stage_routes``); MPPI,
   CEM and QP-MPC, whose vmapped solve reaches no kernel, take
   ``run_episodes_batch``, the plain batched tier. A model the kernel stages
-  do not take runs plain, as it does in the reference.
+  do not take, or a solver built with ``pallas_backward=False`` (iLQR,
+  SQP) or ``pallas_smoother=False`` (I2C), runs plain, as it does in the
+  reference.
 
 Timing keeps the reference's meaning: the batch runs twice, the first call
 holds the kernel build, the allocator's and the caches' warm-up; the
@@ -43,7 +45,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, to_numpy as _np
 from ..envs.env import REGISTRY as ENV_REGISTRY
 from ..envs.env import Env, NoiseConfig, env_step
 from ..solvers import CEM, I2C, ILQR, MPPI, QPMPC, SQP
@@ -82,10 +84,6 @@ def make_solver(name: str, model, config: Dict[str, Any], **extra):
     kwargs = {pmap[k]: v for k, v in config.items() if k in pmap}
     kwargs.update(extra)
     return cls(model=model, **kwargs)
-
-
-def _np(t):
-    return t.detach().cpu().numpy()
 
 
 class Experiment:

@@ -1,4 +1,11 @@
-from .fused import fused_rollout_costs_tm, fused_rollout_costs_tm_reference  # noqa: F401
+from .fused import (  # noqa: F401
+    fused_rollout_cost_samples,
+    fused_rollout_cost_samples_reference,
+    fused_rollout_costs,
+    fused_rollout_costs_reference,
+    fused_rollout_costs_tm,
+    fused_rollout_costs_tm_reference,
+)
 from .fused_cem import fused_cem_step, fused_cem_step_reference  # noqa: F401
 from .fused_derivs import fused_derivs, fused_derivs_reference  # noqa: F401
 from .fused_linesearch import (  # noqa: F401
@@ -67,6 +74,7 @@ from .rollout import (  # noqa: F401
     rollout,
     rollout_cost,
     rollout_cost_noisy,
+    rollout_cost_samples,
     rollout_noisy,
     simulate_trajectory,
     simulate_trajectory_noisy,

@@ -1,13 +1,17 @@
 """Fused rollout + cost: N independent horizon-T rollouts in one launch.
 
-Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused.py:
-fused_rollout_costs_tm``, the hot path of the two-stage MPPI tier. On a CUDA
+Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused.py``:
+``fused_rollout_costs_tm``, the hot path of the two-stage MPPI tier, and its
+batch-major wrappers ``fused_rollout_costs`` (N, S), (N, T) and
+``fused_rollout_cost_samples`` (K samples from one state). On a CUDA
 tensor ``fused_rollout_costs_tm`` launches the hand-written kernel in
 ``csrc/fused_rollout.cu`` (one thread per rollout, state in registers, the
 stage cost compiled for the model's own weights; ``launch_config`` reports
 the launch shape); on a CPU tensor it runs
 ``fused_rollout_costs_tm_reference``, the plain PyTorch version of the same
-function. ``fused_rollout_costs_tm.launches`` counts kernel launches.
+function; each batch-major wrapper has its own plain version too.
+``fused_rollout_costs_tm.launches`` counts kernel launches, the wrappers'
+included.
 
 Scope as in the reference: single-input models (action_size == 1) with a
 ``quad_cost`` stage cost, and on the card only models that have a device
@@ -72,3 +76,29 @@ def fused_rollout_costs_tm(model: Model, x0_tm, us_tm, g_z):
 
 
 fused_rollout_costs_tm.launches = 0
+
+
+def fused_rollout_costs_reference(model: Model, x0b, usb, g_z):
+    """Plain version of ``fused_rollout_costs``."""
+    return fused_rollout_costs_tm_reference(model, x0b.T, usb.T, g_z)
+
+
+def fused_rollout_costs(model: Model, x0b, usb, g_z):
+    """Batch-major summed rollout costs: x0b (N, S), usb (N, T) single-input
+    action sequences, g_z (T, Z) -> (N,), the contract of summing
+    ``rollout``'s per-step costs. The kernel takes the time-major layout:
+    the transposes are made contiguous before it sees them."""
+    return fused_rollout_costs_tm(model, x0b.T.contiguous(), usb.T.contiguous(), g_z)
+
+
+def fused_rollout_cost_samples_reference(model: Model, x0, samples, g_z):
+    """Plain version of ``fused_rollout_cost_samples``."""
+    K = samples.shape[0]
+    return fused_rollout_costs_reference(model, x0.expand(K, x0.shape[0]), samples[..., 0], g_z)
+
+
+def fused_rollout_cost_samples(model: Model, x0, samples, g_z):
+    """(K, T, A=1) samples from one state x0 (S,) -> (K,) costs: the cost
+    part of ``rollout.rollout_cost_samples`` on the kernel."""
+    K = samples.shape[0]
+    return fused_rollout_costs(model, x0.expand(K, x0.shape[0]), samples[..., 0], g_z)

@@ -43,6 +43,15 @@ def rollout_cost(model: Model, x0, us, g_z):
     return acc, x
 
 
+def rollout_cost_samples(model: Model, x0, samples, g_z):
+    """K sampled plans from one state: x0 (S,), samples (K, T, A) -> costs
+    (K,) and final states (K, S); ``rollout_cost`` with x0 broadcast over
+    K, the reference's vmap of it over the samples. Leading dimensions
+    broadcast as in ``rollout_cost``: x0 (B, 1, S) with samples
+    (B, K, T, A) rolls out each scenario's own samples."""
+    return rollout_cost(model, x0, samples, g_z)
+
+
 def rollout_cost_noisy(model: Model, x0, us, g_z, xnoise):
     """``rollout_cost`` with additive per-step state noise xnoise (..., T, S)
     (the planning-model sensor noise of the noise sweeps)."""

@@ -29,7 +29,10 @@ and smoother are one launch each of ``ops/i2c_smooth.py``'s kernels on the
 card (their plain versions on the CPU); a per-scenario goal (B, T, Z), or an
 augmented state or feature size the kernels do not hold, is refused and
 needs ``use_fused=False``, which runs the per-step ``_kf_rts`` form.
-``solve`` is ``solve_batch`` on a batch of one without the kernels.
+The reference's ``pallas_smoother`` switch resolves as there: ``None`` and
+``True`` leave the smoother to ``use_fused``, and an explicit ``False`` runs
+``_kf_rts``, ``use_fused=True`` included. ``solve`` is ``solve_batch`` on a
+batch of one without the kernels.
 """
 
 from __future__ import annotations
@@ -72,10 +75,10 @@ class I2C(Solver):
     # planning-model noise: the nominal rollout the smoother linearizes
     # around gets additive state noise
     model_noise_std: float = 0.0
-    # The reference's switch for its smoother kernels (None = on its own
-    # accelerator only). Kept for the reader who looks for it; it has no
-    # effect here: ``solve_batch(use_fused=...)`` chooses the tier, and the
-    # tensors' device chooses between a kernel and its plain version.
+    # the reference's switch for its smoother kernels: False runs the plain
+    # ``_kf_rts`` whatever ``use_fused`` asks for (None and True: as
+    # ``use_fused`` says; the tensors' device then chooses between a kernel
+    # and its plain version)
     pallas_smoother: Optional[bool] = None
     # init_std > 0: random initial plan ~ N(0, init_std) clipped to the box
     # (symmetric-equilibrium escape, cf. sqp.py init_std). Default 0 = zeros
@@ -137,11 +140,16 @@ class I2C(Solver):
         sig0[S:, S:] = self.sigma_u**2 * torch.eye(A)
         return sig0.to(device), Q_proc.to(device)
 
-    def has_kernel_stages(self) -> bool:
+    def _kernels_hold(self) -> bool:
         """Whether the smoother kernels take the model: D = S + A and the
         feature size Z up to ``MAX_DIM``."""
         D = self.model.state_size + self.model.action_size
         return max(D, self.model.state_cost.W.shape[0]) <= MAX_DIM
+
+    def has_kernel_stages(self) -> bool:
+        """Whether ``pallas_smoother`` allows the smoother kernels and they
+        take the model."""
+        return self.pallas_smoother is not False and self._kernels_hold()
 
     def _check_fused(self, g_z) -> None:
         """Gate of ``use_fused=True``: the smoother kernels take one goal
@@ -150,7 +158,7 @@ class I2C(Solver):
         never runs the plain form unasked. Any action size passes."""
         D = self.model.state_size + self.model.action_size
         Z = self.model.state_cost.W.shape[0]
-        if not self.has_kernel_stages():
+        if not self._kernels_hold():
             raise NotImplementedError(
                 f"I2C.solve_batch(use_fused=True) needs state_size + action_size and the "
                 f"feature size <= {MAX_DIM}, got {D} and {Z}; pass use_fused=False")
@@ -261,6 +269,7 @@ class I2C(Solver):
         model = self.model
         us = state.planned_us
         B = xs.shape[0]
+        use_fused = use_fused and self.pallas_smoother is not False
         if use_fused:
             self._check_fused(g_z)
         if self.model_noise_std > 0.0:

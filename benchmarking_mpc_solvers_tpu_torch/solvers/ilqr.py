@@ -43,8 +43,9 @@ search as ``fused_linesearch`` unless the model is noisy, and with
 plain versions on the CPU. A model these do not take is refused
 (``solvers/base.py:check_fused_tier``) and needs ``use_fused=False``.
 ``solve`` is ``solve_batch`` on a batch of one without the kernels. The
-reference's ``pallas_backward`` switch is this ``use_fused`` argument here;
-the field is kept, without effect, for the reference's signature.
+reference's ``pallas_backward`` switch resolves as there: ``None`` and
+``True`` leave the stages to ``use_fused``, and an explicit ``False`` runs
+every stage plain, ``use_fused=True`` included.
 """
 
 from __future__ import annotations
@@ -106,7 +107,9 @@ class ILQR(Solver):
     # planning-model noise: the nominal rollout and the line-search
     # candidates are noisy, the derivatives clean at the noisy points
     model_noise_std: float = 0.0
-    pallas_backward: Optional[bool] = None  # the reference's switch; no effect here
+    # the reference's kernel switch: False runs the plain stages whatever
+    # ``use_fused`` asks for (None and True: as ``use_fused`` says)
+    pallas_backward: Optional[bool] = None
 
     # -- state ----------------------------------------------------------------
     def init_state(self, generator: torch.Generator, device="cuda") -> ILQRState:
@@ -126,9 +129,10 @@ class ILQR(Solver):
         return ILQRState(us, generator)
 
     def has_kernel_stages(self) -> bool:
-        """Whether the derivative, Riccati and line-search kernels take the
-        model (``solvers/base.py:fused_tier_applicable``)."""
-        return fused_tier_applicable(self.model)
+        """Whether ``pallas_backward`` allows the kernels and the
+        derivative, Riccati and line-search kernels take the model
+        (``solvers/base.py:fused_tier_applicable``)."""
+        return self.pallas_backward is not False and fused_tier_applicable(self.model)
 
     def alphas(self, device=None):
         """Line-search step sizes 1.1^(−i²), i < n_alphas, in float32."""
@@ -139,7 +143,9 @@ class ILQR(Solver):
         """The stages ``use_fused`` sends to kernels, by the reference's
         conditions (``solvers/ilqr.py:_solve``): the Riccati kernel for the
         plain recursion only, the line-search kernel without model noise,
-        the derivative kernel for Gauss-Newton terms at x_T."""
+        the derivative kernel for Gauss-Newton terms at x_T; none under
+        ``pallas_backward=False``."""
+        use_fused = use_fused and self.pallas_backward is not False
         return StageRoutes(
             derivs=use_fused and self.gauss_newton and not self.diag_hessian,
             riccati=use_fused and not (self.ddp or self.box_ddp or self.diag_hessian),
@@ -470,6 +476,7 @@ class ILQR(Solver):
         draws with a leading ``max_iter`` axis, replaces them (iteration i
         takes row i, as the reference's key splits of its i-th iteration)."""
         B = xs.shape[0]
+        use_fused = use_fused and self.pallas_backward is not False
         routes = self.stage_routes(use_fused)
         if use_fused:
             check_fused_tier("ILQR.solve_batch", self.model, g_z)

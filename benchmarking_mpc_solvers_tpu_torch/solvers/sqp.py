@@ -38,8 +38,9 @@ each line-search candidate, so no trajectory carries over: the nominal
 rollout runs each iteration, the subproblem linearizes cleanly at its noisy
 points (through the kernels with ``use_fused``, as the reference's vmapped
 solve does), and the candidates roll out plain, as they do in the
-reference. The ``pallas_backward`` field is kept, without effect, for the
-reference's signature.
+reference. The reference's ``pallas_backward`` switch resolves as there:
+``None`` and ``True`` leave the stages to ``use_fused``, and an explicit
+``False`` runs every stage plain, ``use_fused=True`` included.
 """
 
 from __future__ import annotations
@@ -87,7 +88,9 @@ class SQP(Solver):
     # equilibria where a zero plan has zero gradient. 0 keeps solves
     # deterministic.
     init_std: float = 0.0
-    pallas_backward: Optional[bool] = None  # the reference's switch; no effect here
+    # the reference's kernel switch: False runs the plain stages whatever
+    # ``use_fused`` asks for (None and True: as ``use_fused`` says)
+    pallas_backward: Optional[bool] = None
 
     # -- state ----------------------------------------------------------------
     def init_state(self, generator: torch.Generator, device="cuda", noise=None) -> SQPState:
@@ -101,9 +104,10 @@ class SQP(Solver):
                         generator)
 
     def has_kernel_stages(self) -> bool:
-        """Whether the derivative, Riccati and line-search kernels take the
-        model (``solvers/base.py:fused_tier_applicable``)."""
-        return fused_tier_applicable(self.model)
+        """Whether ``pallas_backward`` allows the kernels and the
+        derivative, Riccati and line-search kernels take the model
+        (``solvers/base.py:fused_tier_applicable``)."""
+        return self.pallas_backward is not False and fused_tier_applicable(self.model)
 
     def alphas(self, device=None):
         """Line-search step sizes 0.5^i, i < n_alphas, in float32."""
@@ -178,6 +182,7 @@ class SQP(Solver):
         reg = torch.full((B,), self.reg_init, dtype=torch.float32, device=x0s.device)
         done = torch.zeros((B,), dtype=torch.bool, device=x0s.device)
         rows = torch.arange(B, device=x0s.device)
+        use_fused = use_fused and self.pallas_backward is not False
         if use_fused:
             check_fused_tier("SQP.solve_batch", model, g_z)
         draws = model_noise_draws(self, state.generator, B, x0s.device, noise)

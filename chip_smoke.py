@@ -45,6 +45,17 @@ Phases (any failure exits non-zero before the result line):
      4's widths (kernels 4 and 5); each result with the reference's keys;
      each new path at a tiny size on the card against the CPU; one
      per-step timed run;
+   - the sharded paths on a one-device mesh: ``sharded_episodes_kernel``
+     at the MPPI bench width and the CEM sweep's (bit for bit with
+     ``run_episodes_fused``, kernel 1 or 3 once a call), ``sharded_episodes``
+     (equal to ``run_episodes_batch``), the sample-sharded MPPI step at the
+     bench width against the closed form and ``MPPI.solve_batch``; the
+     batch-major wrappers of kernel 2 (``fused_rollout_costs``,
+     ``fused_rollout_cost_samples``) at the MPPI two-stage shape, bit for
+     bit; iLQR (configuration 3, both Hessians), SQP (configuration 4) and
+     I2C (configuration 6) under ``pallas_backward=False`` /
+     ``pallas_smoother=False`` with ``use_fused=True`` (no kernel launched,
+     results against the kernel route), SWITCH_STEPS steps each;
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
@@ -57,7 +68,8 @@ Phases (any failure exits non-zero before the result line):
    further shapes too); host-clock
    episode solves/s of every path; device time by kernel under the
    profiler (one episode of each MPPI and CEM tier, one solve of iLQR, SQP,
-   QP-MPC and I2C).
+   QP-MPC and I2C); ``utils.device_step_latency`` and ``utils.slope_timer``
+   on kernel 1 at the bench shape, within 2x of its device time.
 Then a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -164,6 +176,25 @@ SQP_EPISODE_TOL, QP_EPISODE_TOL = 2e-3, 1e-3
 # the card's and the CPU's libm and matrix products round apart, and the
 # line search compares three rollout costs (tests/test_torch_i2c.py)
 I2C_EPISODE_TOL = 2e-3
+# The sample-sharded MPPI step against the closed form and MPPI.solve_batch on
+# the same deltas: the card-vs-CPU tolerance of the solver paths (the
+# softmax of other sums, kernel 2's rollouts)
+SHARDED_STEP_TOL = 2e-3
+# Host-clock episodes of each long path (iLQR, SQP, QP-MPC configuration 2,
+# I2C): its launch-count run, which follows the kernels' warm-up, is the
+# first of them
+LONG_EPISODE_REPS = 3
+# episodes of the sharded kernel tier and of run_episodes_fused, timed in turns
+SHARDED_ROUNDS = 8
+# The plain routes under pallas_backward=False / pallas_smoother=False
+# against the kernel routes, SWITCH_STEPS MPC steps at each configuration's
+# width: the plain stages sum in another order than the kernels
+# (tests/test_torch_kernel_switch.py, 2e-3 as the solver tests), so a
+# scenario whose accept test, alpha argmin or line-search pick ties within
+# rounding can take the other branch and its closed loop splits (1 of 128
+# scenarios for iLQR configuration 3 and for I2C configuration 6 on the CPU).
+# At most SWITCH_SPLIT of the scenarios may lie apart by more than SWITCH_TOL.
+SWITCH_TOL, SWITCH_STEPS, SWITCH_SPLIT = 2e-3, 2, 0.05
 
 # FP32 operations per rollout step, counted by hand from csrc/models.cuh
 # (each add, mul, div, clamp compare and each libm call counted once, so
@@ -1360,7 +1391,7 @@ def main():
                 i2c_rts_smooth_reference(*want, p[0]))
 
     # 4. main paths
-    launches = {}
+    launches, path_s = {}, {}
     env = CartPoleSwingUpEnv
     x0s = env.start_state(dev).expand(BATCH, -1).contiguous()
     solver = MPPI(model=env.model, T=HORIZON, K=K_SAMPLES, std=1.0, lam=1.0)
@@ -1373,10 +1404,14 @@ def main():
 
     def run_path(label, run, expect):
         """Drive one path with the counts at 0; check each expected count
-        and that no other kernel launched."""
+        and that no other kernel launched. The run's host-clock time is kept
+        in ``path_s``: the long episodes take it as their first timed
+        sample."""
         reset_counts()
+        t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
+        path_s[label] = time.perf_counter() - t0
         got = {fn.__name__: fn.launches for fn in counters}
         want = {fn.__name__: 0 for fn in counters}
         want.update(expect)
@@ -1571,6 +1606,171 @@ def main():
           f"{int((cost1 < cost0).sum())}", flush=True)
     if not bool((cost1 <= cost0 + 1e-3 * cost0.abs()).all() and (cost1 < cost0).any()):
         fail("i2c sweep row: a solve made a plan's rollout cost worse, or moved none")
+
+    def port_layer_paths():
+        """The sharded tiers on a one-device mesh, the sample-sharded MPPI
+        step, the batch-major kernel-2 wrappers and the plain routes under
+        the kernel switches; their names stay local to this function."""
+        from benchmarking_mpc_solvers_tpu_torch.experiment import run_episodes_batch
+        from benchmarking_mpc_solvers_tpu_torch.ops.fused import (
+            fused_rollout_cost_samples, fused_rollout_cost_samples_reference,
+            fused_rollout_costs, fused_rollout_costs_reference)
+        from benchmarking_mpc_solvers_tpu_torch.ops.rollout import rollout_cost
+        from benchmarking_mpc_solvers_tpu_torch.parallel import (
+            BATCH_AXIS, SAMPLE_AXIS, make_mesh, make_sharded_mppi_step, sharded_episodes,
+            sharded_episodes_kernel)
+        readings = {}
+        mesh = make_mesh(1)
+
+        def gen(seed):
+            return torch.Generator(device=dev).manual_seed(seed)
+
+        def same(label, got, want):
+            torch.cuda.synchronize()
+            for field, w in zip(want._fields, want):
+                g = getattr(got, field)
+                if (g is None) != (w is None) or (w is not None and not torch.equal(g, w)):
+                    fail(f"{label}: {field} differs from the unsharded run")
+            print(f"{label}: every field identical to the unsharded run", flush=True)
+
+        # (a) the kernel tier on a one-device mesh at the MPPI bench width and
+        # the CEM sweep's, bit for bit with run_episodes_fused, one launch a call
+        for label, sol, c, xs, direct, kernel in (
+                ("mppi sharded kernel tier", solver, cfg, x0s, mppi_episode, "fused_mppi_step"),
+                ("cem sharded kernel tier", cem, cem_cfg, cem_x0s, cem_episode,
+                 "fused_cem_step")):
+            fn = sharded_episodes_kernel(env, sol, c, mesh)
+
+            def sharded(fn=fn, xs=xs):
+                return fn(xs, generators=[gen(0)])
+
+            same(label, run_path(label, sharded, {kernel: c.warmstart + c.n_steps}), direct())
+            # in turns (sharded, direct, direct, sharded, ...): the host-bound
+            # episodes drift within a call
+            times = {sharded: [], direct: []}
+            for r in range(SHARDED_ROUNDS):
+                for run in ((sharded, direct) if r % 2 == 0 else (direct, sharded)):
+                    times[run] += episode_seconds(run, 1, warmup=False)
+            t_sharded, t_direct = (statistics.median(times[f]) for f in (sharded, direct))
+            readings[label] = {"sharded_ms": t_sharded * 1e3, "direct_ms": t_direct * 1e3}
+            print(f"[{smi}] {label} (B={xs.shape[0]}, {c.n_steps} steps, one-device mesh): "
+                  f"median episode {t_sharded * 1e3:.3f} ms, run_episodes_fused "
+                  f"{t_direct * 1e3:.3f} ms ({SHARDED_ROUNDS} each, in turns)", flush=True)
+
+        # (b) the plain batched tier on the mesh, equal to run_episodes_batch
+        small = MPPI(model=env.model, T=10, K=16)
+        small_cfg = EpisodeConfig(n_steps=3, warmstart=1, record_plans=True)
+        fn = sharded_episodes(env, small, small_cfg, mesh)
+        got = run_path("mppi sharded plain tier", lambda: fn(x0s[:64], generators=[gen(1)]), {})
+        same("mppi sharded plain tier", got, run_episodes_batch(
+            env, small, small_cfg, x0s[:64], generator=gen(1), device=dev))
+
+        # (c) the sample-sharded MPPI step on a (batch 1 x sample 1) mesh at the
+        # bench width, with injected normals: against the closed form and
+        # against MPPI.solve_batch's update (kernel 2's rollouts) on the same deltas
+        step = make_sharded_mppi_step(
+            solver, make_mesh(1, axes=(BATCH_AXIS, SAMPLE_AXIS), shape=(1, 1)))
+        g = gen(5)
+        noise = torch.randn((BATCH, K_SAMPLES, HORIZON, 1), generator=g, device=dev)
+        planned = 0.3 * torch.randn((BATCH, HORIZON, 1), generator=g, device=dev)
+        xs_c = x0s + 0.1 * torch.randn(x0s.shape, generator=g, device=dev)
+        gz0 = torch.zeros((HORIZON, env.model.goal_size), device=dev)
+        reset_counts()
+        new_planned, u0s = step(planned, xs_c, noise=noise)
+        torch.cuda.synchronize()
+        if any(f.launches for f in counters):
+            fail("sample-sharded mppi step: a kernel launched on its plain path")
+        delta = solver.std * noise
+        samples = planned[:, None] + delta
+        roll, _ = rollout_cost(env.model, xs_c[:, None], samples, gz0)
+        cost = roll + solver.lam * (samples * delta).sum(dim=(2, 3)) / solver.std**2
+        w = torch.softmax(-(cost - cost.min(dim=1, keepdim=True).values) / solver.lam, dim=1)
+        closed = planned + (w[:, :, None, None] * delta).sum(dim=1)
+        st = solver.init_state_batch(BATCH, gen(0), dev)._replace(planned_us=planned)
+        delta_tm = delta[..., 0].permute(2, 0, 1).reshape(HORIZON, BATCH * K_SAMPLES)
+        via_solve = solver.solve_batch(st, xs_c, gz0, delta_tm=delta_tm)[0].planned_us
+        errs_c = [float((new_planned - want).abs().max()) for want in (closed, via_solve)]
+        print(f"sample-sharded mppi step (B={BATCH}, K={K_SAMPLES}, T={HORIZON}, one-by-one "
+              f"mesh): max abs err {errs_c[0]:.3e} against the closed form, {errs_c[1]:.3e} "
+              f"against MPPI.solve_batch on the same deltas (tol {SHARDED_STEP_TOL}); u0 "
+              f"within the box: {bool((u0s.abs() <= 1.0).all())}", flush=True)
+        if max(errs_c) > SHARDED_STEP_TOL or not bool((u0s.abs() <= 1.0).all()):
+            fail("sample-sharded mppi step disagrees with the closed form or MPPI.solve_batch")
+        readings["sample-sharded step max abs err"] = errs_c
+
+        # (d) the batch-major wrappers of kernel 2 at the MPPI two-stage shape,
+        # through their entry points with the counts at 0, then held against
+        # their plain versions bit for bit
+        N = BATCH * K_SAMPLES
+        rng = np.random.default_rng(12)
+        x0b = torch.from_numpy(rng.uniform(-1, 1, (N, env.model.state_size)).astype(
+            np.float32)).to(dev)
+        usb = torch.from_numpy(rng.uniform(-1.5, 1.5, (N, HORIZON)).astype(np.float32)).to(dev)
+        reset_counts()
+        costs_b = fused_rollout_costs(env.model, x0b, usb, gz0)
+        costs_s = fused_rollout_cost_samples(env.model, x0b[0], usb[:, :, None], gz0)
+        torch.cuda.synchronize()
+        got = {f.__name__: f.launches for f in counters}
+        want = {f.__name__: 0 for f in counters}
+        want["fused_rollout_costs_tm"] = 2
+        if got != want:
+            fail(f"batch-major kernel-2 wrappers: launches {got}, expected {want}")
+        launches["batch-major kernel-2 wrappers"] = got
+        exact_nan(f"fused_rollout_costs[cart-pole, N={N}, T={HORIZON}]", costs_b,
+                  fused_rollout_costs_reference(env.model, x0b, usb, gz0))
+        exact_nan(f"fused_rollout_cost_samples[cart-pole, K={N}, T={HORIZON}]", costs_s,
+                  fused_rollout_cost_samples_reference(env.model, x0b[0], usb[:, :, None], gz0))
+
+        # (e) pallas_backward=False / pallas_smoother=False under use_fused=True:
+        # no launch of the route's kernels, results against the None route
+        for label, env_, cls, kw, switch, xs in (
+                ("ilqr", env, ILQR, dict(T=ILQR_T, max_iter=ILQR_ITERS, reference_accept=False),
+                 "pallas_backward", ilqr_x0s),
+                ("ilqr gauss-newton", env, ILQR, dict(T=ILQR_T, max_iter=ILQR_ITERS,
+                                                      reference_accept=False, gauss_newton=True),
+                 "pallas_backward", ilqr_x0s),
+                ("sqp", AcrobotEnv, SQP, dict(T=SQP_T, max_iter=SQP_ITERS), "pallas_backward",
+                 sqp_x0s),
+                ("i2c configuration 6", PendulumEnv, I2C, dict(T=I2C6_T, max_iter=I2C6_ITERS),
+                 "pallas_smoother", i2c6_x0s)):
+            c = EpisodeConfig(n_steps=SWITCH_STEPS, record_plans=False)
+
+            def run(flag, env_=env_, cls=cls, kw=kw, switch=switch, xs=xs, c=c):
+                sol = cls(model=env_.model, **{switch: flag}, **kw)
+                if sol.has_kernel_stages() != (flag is None):
+                    fail(f"{cls.__name__}({switch}={flag}).has_kernel_stages() is wrong")
+                return run_episodes_fused(env_, sol, c, xs, generator=gen(0), device=dev)
+
+            t0 = time.perf_counter()
+            off = run_path(f"{label}, {switch}=False", lambda run=run: run(False), {})
+            t_off = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on = run(None)
+            torch.cuda.synchronize()
+            t_on = time.perf_counter() - t0
+            fields = ("costs", "true_states", "true_actions")
+            per = torch.stack([(getattr(off, f) - getattr(on, f)).abs().flatten(1).max(dim=1).values
+                               for f in fields]).max(dim=0).values  # each scenario's largest
+            split = per > SWITCH_TOL
+            n_split, err = int(split.sum()), float(per.max())
+            rest = float(per[~split].max()) if bool((~split).any()) else float("nan")
+            bits = all(torch.equal(getattr(off, f), getattr(on, f)) for f in fields)
+            print(f"[{smi}] {label}, {switch}=False, use_fused=True (B={xs.shape[0]}, "
+                  f"{SWITCH_STEPS} steps): no kernel launched; against the None route "
+                  f"{'bit for bit' if bits else f'max abs err {err:.3e}'}; {n_split} scenarios "
+                  f"apart by more than {SWITCH_TOL} (at most {SWITCH_SPLIT:.0%} allowed), the "
+                  f"others within {rest:.3e}; episode {t_off:.3f} s plain, {t_on:.3f} s with the "
+                  f"kernels", flush=True)
+            if n_split > SWITCH_SPLIT * xs.shape[0]:
+                fail(f"{label}: the plain route under {switch}=False leaves the kernel route")
+            readings[f"{label} {switch}=False"] = {
+                "bit_for_bit": bits, "max_abs_err": err, "scenarios_apart": n_split,
+                "max_abs_err_of_the_others": rest, "plain_s": t_off, "kernels_s": t_on}
+        return readings
+
+    t0 = time.perf_counter()
+    port_layer = port_layer_paths()
+    print(f"port layer phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def experiment_paths():
         """The Experiment phases; their names stay local to this function."""
@@ -1855,6 +2055,33 @@ def main():
         dev_ms["fused_mppi_step"], bounds["fused_mppi_step"],
         mppi_launch_config(model, HORIZON, K_SAMPLES, BATCH))
 
+    # (f) the ported timers on kernel 1 at the bench shape, beside its device
+    # time: a chain of steps, each one launch (and the scalar it returns)
+    from benchmarking_mpc_solvers_tpu_torch.utils import device_step_latency, slope_timer
+
+    def mppi_chain_step(carry, seed):
+        out = fused_mppi_step(model, K_SAMPLES, 1.0, 1.0, lanes, carry, x0, gz, seed)
+        return out, out[0, 0]
+
+    def mppi_fresh(g):
+        fresh = plan + 0.01 * torch.randn(plan.shape, generator=g, device=dev)
+        return fused_mppi_step(model, K_SAMPLES, 1.0, 1.0, lanes, fresh, x0, gz, 7)[0, 0]
+
+    p50, p90, resolution = device_step_latency(mppi_chain_step, plan, np.arange(7, 23),
+                                               return_stats=True, device=dev)
+    slope = slope_timer(mppi_fresh, generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev) * 1e3
+    timers = {"device_step_latency_p50_ms": p50, "device_step_latency_p90_ms": p90,
+              "resolution_ms": resolution, "slope_timer_ms": slope,
+              "device_time_ms": dev_ms["fused_mppi_step"]}
+    print(f"[{smi}] utils timers on fused_mppi_step at the bench shape: device_step_latency "
+          f"p50 {p50:.4f} ms, p90 {p90:.4f} ms (resolution {resolution:.4f} ms); slope_timer "
+          f"{slope:.4f} ms a call (a fresh plan each, one randn and one add more); "
+          f"device_time_ms {dev_ms['fused_mppi_step']:.4f} ms", flush=True)
+    if not (p50 > 0 and slope > 0 and dev_ms["fused_mppi_step"] / 2 <= p50
+            <= 2 * dev_ms["fused_mppi_step"]):
+        fail("the utils timers read kernel 1 outside 2x of its device time")
+
     N = BATCH * K_SAMPLES
     x0n = x0.repeat_interleave(K_SAMPLES, dim=1)
     usn = (plan.repeat_interleave(K_SAMPLES, dim=1)
@@ -2080,6 +2307,11 @@ def main():
               f"plain {plain_ms[name]:.3f} ms, bound {bounds[name][0]:.4f} ms ({bounds[name][1]})",
               flush=True)
 
+    def timed_again(label, run):
+        """LONG_EPISODE_REPS host-clock episodes of a long path: its
+        launch-count run (already warm) and the others run now."""
+        return [path_s[label]] + episode_seconds(run, LONG_EPISODE_REPS - 1, warmup=False)
+
     ep = {
         "mppi kernel tier": report_episodes(smi, "mppi kernel tier", episode_seconds(
             mppi_episode, 12), BATCH, N_STEPS),
@@ -2090,23 +2322,23 @@ def main():
         "cem two-stage tier": report_episodes(smi, "cem two-stage tier", episode_seconds(
             lambda: cem_episode(False), 4), CEM_B, CEM_STEPS),
         "ilqr": report_episodes(smi, f"ilqr (warm start {ILQR_WARM} in the time)",
-                                episode_seconds(ilqr_episode, 3, warmup=False),
+                                timed_again("ilqr", ilqr_episode),
                                 ILQR_B, ILQR_STEPS),
         "ilqr gauss-newton": report_episodes(
             smi, f"ilqr gauss-newton (warm start {ILQR_WARM} in the time)",
-            episode_seconds(ilqr_gn_episode, 3, warmup=False), ILQR_B, ILQR_STEPS),
-        "sqp": report_episodes(smi, "sqp", episode_seconds(sqp_episode, 3, warmup=False),
+            timed_again("ilqr gauss-newton", ilqr_gn_episode), ILQR_B, ILQR_STEPS),
+        "sqp": report_episodes(smi, "sqp", timed_again("sqp", sqp_episode),
                                SQP_B, SQP_STEPS),
         "qpmpc configuration 1": report_episodes(
             smi, "qpmpc configuration 1", episode_seconds(qp1_episode, 5), QP1_B, QP1_STEPS),
         "qpmpc configuration 2": report_episodes(
-            smi, "qpmpc configuration 2", episode_seconds(qp2_episode, 3, warmup=False),
+            smi, "qpmpc configuration 2", timed_again("qpmpc configuration 2", qp2_episode),
             QP2_B, QP2_STEPS),
         "i2c configuration 6": report_episodes(
-            smi, "i2c configuration 6", episode_seconds(i2c6_episode, 3, warmup=False),
+            smi, "i2c configuration 6", timed_again("i2c configuration 6", i2c6_episode),
             I2C6_B, I2C6_STEPS),
         "i2c sweep row": report_episodes(
-            smi, "i2c sweep row", episode_seconds(i2cs_episode, 3, warmup=False),
+            smi, "i2c sweep row", timed_again("i2c sweep row", i2cs_episode),
             I2CS_B, I2CS_STEPS),
     }
 
@@ -2172,7 +2404,8 @@ def main():
             "chain_bound_ms": chains.get(name), "issue_bound_ms": issue.get(name),
             "other_shapes": other_shapes.get(name, []), "library_ms": None, "pass": True})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
-                      "experiment_wall_s": exp_walls, "card": smi}), flush=True)
+                      "experiment_wall_s": exp_walls, "port_layer": port_layer,
+                      "utils_timers": timers, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -786,3 +786,125 @@ def test_experiment_routes_the_reference_kernels(dev, label):
                                       x0s.to(d), use_kernel=False, init_plans=plans,
                                       device=d).planned_actions
     torch.testing.assert_close(run(dev).cpu(), run("cpu"), rtol=2e-3, atol=2e-3)
+
+
+# The kernel switches: (solver, options, switch, the kernels of its fused route)
+SWITCH_ROUTES = {
+    "ilqr": ("ILQR", "cartpole_swingup", {"reference_accept": False}, "pallas_backward",
+             {"riccati_backward_batch", "fused_linesearch"}),
+    "ilqr gauss-newton": ("ILQR", "cartpole_swingup", {"reference_accept": False,
+                                                       "gauss_newton": True},
+                          "pallas_backward",
+                          {"fused_derivs", "riccati_backward_batch", "fused_linesearch"}),
+    "sqp": ("SQP", "acrobot", {}, "pallas_backward",
+            {"fused_derivs", "riccati_backward_batch", "fused_linesearch"}),
+    "i2c": ("I2C", "pendulum", {}, "pallas_smoother", {"i2c_filter", "i2c_rts_smooth"}),
+}
+
+
+@pytest.mark.parametrize("label", sorted(SWITCH_ROUTES))
+def test_switch_false_launches_no_kernel(dev, label):
+    """``pallas_backward=False`` / ``pallas_smoother=False`` under
+    ``use_fused=True``: no launch of the route's kernels, and the plans of
+    the kernel route within the solver tests' 2e-3 (the plain stages sum
+    in another order than the kernels)."""
+    from benchmarking_mpc_solvers_tpu_torch import solvers
+    from benchmarking_mpc_solvers_tpu_torch.envs import REGISTRY as ENVS
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+
+    agent, env_name, options, switch, kernels = SWITCH_ROUTES[label]
+    env = ENVS[env_name]
+    counters = {f.__name__: f for f in (riccati_backward_batch, fused_linesearch, fused_derivs,
+                                        ts.i2c_filter, ts.i2c_rts_smooth)}
+    T, B, iters = 10, 64, 3
+    rng = np.random.default_rng(9)
+    plans = torch.from_numpy((0.5 * rng.standard_normal((B, T, 1))).astype(np.float32)).to(dev)
+    x0s = (env.start_state(dev).expand(B, -1) + torch.from_numpy(
+        0.1 * rng.standard_normal((B, env.model.state_size)).astype(np.float32)).to(dev))
+    g_z = torch.zeros((T, env.model.goal_size), device=dev)
+    out = {}
+    for flag in (False, None):
+        solver = getattr(solvers, agent)(model=env.model, T=T, max_iter=iters,
+                                         **{switch: flag}, **options)
+        st = solver.init_state_batch(B, torch.Generator(device=dev).manual_seed(0), dev)
+        before = {k: f.launches for k, f in counters.items()}
+        out[flag] = solver.solve_batch(st._replace(planned_us=plans), x0s, g_z)[0].planned_us
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        assert got == {k: (iters if flag is None and k in kernels else 0) for k in counters}
+        assert solver.has_kernel_stages() == (flag is None)
+    torch.testing.assert_close(out[False], out[None], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("agent", ["MPPI", "CEM"])
+def test_one_device_sharded_kernel_tier_is_run_episodes_fused(dev, agent):
+    """``sharded_episodes_kernel`` on a one-device mesh is
+    ``run_episodes_fused`` with the same generator, bit for bit, one launch
+    of kernel 1 (MPPI) or 3 (CEM) per solver call."""
+    from benchmarking_mpc_solvers_tpu_torch import solvers
+    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv as env
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.parallel import make_mesh, sharded_episodes_kernel
+
+    kw = {"MPPI": dict(K=32), "CEM": dict(K=16, n_elite=4, max_iter=2)}[agent]
+    solver = getattr(solvers, agent)(model=env.model, T=20, **kw)
+    kernel = fused_mppi_step if agent == "MPPI" else fused_cem_step
+    cfg = EpisodeConfig(n_steps=4, warmstart=2, record_plans=True)
+    x0s = env.start_state(dev).expand(300, -1).contiguous()
+    before = kernel.launches
+    got = sharded_episodes_kernel(env, solver, cfg, make_mesh(1))(
+        x0s, generators=[torch.Generator(device=dev).manual_seed(4)])
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 6
+    want = run_episodes_fused(env, solver, cfg, x0s,
+                              generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    for field, w in zip(want._fields, want):
+        torch.testing.assert_close(getattr(got, field), w, rtol=0, atol=0, msg=field)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_batch_major_rollout_wrappers_match_plain_bit_for_bit(dev, name):
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import (
+        fused_rollout_cost_samples,
+        fused_rollout_cost_samples_reference,
+        fused_rollout_costs,
+        fused_rollout_costs_reference,
+    )
+
+    model = REGISTRY[name]
+    rng = np.random.default_rng(8)
+    N, T = 4097, 23
+    x0b = _t(rng.uniform(-1, 1, (N, model.state_size)), dev)
+    usb = _t(rng.uniform(-1.5, 1.5, (N, T)), dev)
+    gz = _t(rng.uniform(-0.2, 0.2, (T, model.goal_size)), dev)
+    before = fused_rollout_costs_tm.launches
+    got = fused_rollout_costs(model, x0b, usb, gz)
+    torch.testing.assert_close(got, fused_rollout_costs_reference(model, x0b, usb, gz),
+                               rtol=0, atol=0, equal_nan=True)
+    got = fused_rollout_cost_samples(model, x0b[0], usb[:, :, None], gz)
+    torch.testing.assert_close(
+        got, fused_rollout_cost_samples_reference(model, x0b[0], usb[:, :, None], gz),
+        rtol=0, atol=0, equal_nan=True)
+    assert fused_rollout_costs_tm.launches - before == 2
+
+
+def test_new_entry_points_raise_without_cuda(monkeypatch):
+    """The entry points of the mesh, the timers, ``Env.reset`` and the
+    process group default to the card and raise without it (also on the
+    CPU, where this test runs too)."""
+    from benchmarking_mpc_solvers_tpu_torch.envs import PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.parallel import (
+        distributed_init, global_mesh, make_mesh)
+    from benchmarking_mpc_solvers_tpu_torch.utils import device_step_latency, slope_timer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.zeros(2)
+    for call in (lambda: make_mesh(),
+                 lambda: make_mesh(1, axes=("batch", "sample"), shape=(1, 1)),
+                 lambda: global_mesh(),
+                 lambda: distributed_init(num_processes=2, process_id=0),
+                 lambda: PendulumEnv.reset(torch.Generator()),
+                 lambda: device_step_latency(lambda c, i: (c, c.sum()), x, x[:, None]),
+                 lambda: slope_timer(lambda g: x.sum())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

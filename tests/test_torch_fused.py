@@ -116,3 +116,55 @@ def test_wrappers_reject_models_without_device_function(name):
     with pytest.raises(NotImplementedError):
         _build.model_id(odd)
     assert [_build.model_id(tmodels.REGISTRY[n]) for n in _build.DEVICE_MODELS] == [0, 1, 2]
+
+
+@pytest.mark.parametrize("name", ["pendulum", "cartpole_swingup", "acrobot"])
+def test_batch_major_wrappers_match_reference(name):
+    """``fused_rollout_costs`` (N, S), (N, T) and ``fused_rollout_cost_samples``
+    (K samples from one state) against the reference's, whose Pallas kernel
+    runs in interpret mode at one tile (N = K = 100 of 128 lanes); each
+    wrapper equals its plain version bit for bit on the CPU."""
+    jm, tm = jmodels.REGISTRY[name], tmodels.REGISTRY[name]
+    T, N = 7, 100
+    rng = np.random.default_rng(5)
+    x0b = rng.uniform(-1, 1, (N, jm.state_size)).astype(np.float32)
+    usb = rng.uniform(-1.5, 1.5, (N, T)).astype(np.float32)
+    g_z = rng.uniform(-0.5, 0.5, (T, jm.goal_size)).astype(np.float32)
+    want = np.asarray(jfused.fused_rollout_costs(jm, jnp.asarray(x0b), jnp.asarray(usb),
+                                                 jnp.asarray(g_z), 128))
+    args = (tm, torch.tensor(x0b), torch.tensor(usb), torch.tensor(g_z))
+    got = tfused.fused_rollout_costs(*args)
+    assert got.shape == (N,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-4)
+    torch.testing.assert_close(got, tfused.fused_rollout_costs_reference(*args), rtol=0, atol=0)
+
+    samples = usb[..., None]
+    want = np.asarray(jfused.fused_rollout_cost_samples(jm, jnp.asarray(x0b[0]),
+                                                        jnp.asarray(samples), jnp.asarray(g_z),
+                                                        128))
+    args = (tm, torch.tensor(x0b[0]), torch.tensor(samples), torch.tensor(g_z))
+    got = tfused.fused_rollout_cost_samples(*args)
+    assert got.shape == (N,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-4)
+    torch.testing.assert_close(got, tfused.fused_rollout_cost_samples_reference(*args),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["pendulum", "cartpole_swingup", "acrobot"])
+def test_rollout_cost_samples_matches_reference(name):
+    """``rollout_cost_samples``: (S,), (K, T, A) -> (K,) costs and (K, S)
+    final states, against the reference's vmap of ``rollout_cost``."""
+    from benchmarking_mpc_solvers_tpu.ops import rollout_cost_samples as j_samples
+    from benchmarking_mpc_solvers_tpu_torch.ops import rollout_cost_samples as t_samples
+
+    jm, tm = jmodels.REGISTRY[name], tmodels.REGISTRY[name]
+    T, K = 6, 5
+    rng = np.random.default_rng(6)
+    x0 = rng.uniform(-1, 1, (jm.state_size,)).astype(np.float32)
+    samples = rng.uniform(-1.5, 1.5, (K, T, 1)).astype(np.float32)
+    g_z = rng.uniform(-0.5, 0.5, (T, jm.goal_size)).astype(np.float32)
+    want = j_samples(jm, jnp.asarray(x0), jnp.asarray(samples), jnp.asarray(g_z))
+    got = t_samples(tm, torch.tensor(x0), torch.tensor(samples), torch.tensor(g_z))
+    assert got[0].shape == (K,) and got[1].shape == (K, jm.state_size)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=1e-4)

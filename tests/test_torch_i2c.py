@@ -329,11 +329,14 @@ def test_init_state_and_reference_field_names():
     mine = {f.name: f.default for f in dataclasses.fields(TI2C) if f.name not in ("model", "T")}
     theirs = {f.name: f.default for f in dataclasses.fields(JI2C) if f.name not in ("model", "T")}
     assert mine == theirs
-    # the reference's kernel switch is a field only: both settings solve alike
+    # the reference's kernel switch: True solves as None (the smoother
+    # kernels' route), False as use_fused=False (the plain _kf_rts), bit for bit
     env, x0s, plans, g_z = _problem("pendulum", seed=8)
-    outs = [TI2C(model=tm, T=T, max_iter=2, pallas_smoother=flag).solve_batch(
+    outs = {(flag, fused): TI2C(model=tm, T=T, max_iter=2, pallas_smoother=flag).solve_batch(
         convert.i2c_state_from_numpy(plans, device="cpu"), torch.tensor(x0s),
-        torch.tensor(g_z))[0].planned_us for flag in (True, False)]
-    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+        torch.tensor(g_z), use_fused=fused)[0].planned_us
+        for flag, fused in ((None, True), (True, True), (False, True), (None, False))}
+    torch.testing.assert_close(outs[True, True], outs[None, True], rtol=0, atol=0)
+    torch.testing.assert_close(outs[False, True], outs[None, False], rtol=0, atol=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TI2C(model=tm, T=4).init_state(torch.Generator().manual_seed(0))

@@ -35,7 +35,10 @@ def test_port_imports_neither_jax_nor_reference():
     mods = _port_modules()
     assert "benchmarking_mpc_solvers_tpu_torch.experiment.episode" in mods
     for new in ("solvers.i2c", "ops.i2c_smooth", "models.synthetic", "estimation",
-                "estimation.kalman", "estimation.quadrature", "estimation.cubature"):
+                "estimation.kalman", "estimation.quadrature", "estimation.cubature",
+                "parallel.mesh", "parallel.mppi_sharded", "parallel.distributed",
+                "utils.checkpoint", "utils.profiling", "utils.logging", "envs.render",
+                "envs.gym_wrapper"):
         assert f"benchmarking_mpc_solvers_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
