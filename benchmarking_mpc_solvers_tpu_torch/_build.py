@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from .models import REGISTRY
+from .models import acrobot, cartpole, pendulum, synthetic
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -38,11 +38,28 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# The registered models that have a device functor in csrc/models.cuh; the
-# index is the case of its BMPC_DISPATCH_MODEL switch, and MAX_Z its kMaxZ
-# (the largest feature size a functor has). Edit the two files together.
+# The device functors of csrc/models.cuh, by the case of BMPC_DISPATCH_MODEL:
+# the three plants (ids 0 to 2, in DEVICE_MODELS' order), then the dummy
+# family (make_dummy_model(S, 1)) at S in DUMMY_STATES (id dummy_id(S)).
+# MAX_Z is its kMaxZ, the largest feature size a functor has: the dummy's
+# S + 1 at S = 8, the Riccati kernel's largest state. Edit the two files
+# together.
 DEVICE_MODELS = ("pendulum", "cartpole_swingup", "acrobot")
-MAX_Z = 5
+DUMMY_STATES = tuple(range(1, 9))
+MAX_Z = 9
+
+
+def dummy_id(S: int) -> int:
+    """The functor id of ``Dummy<S>``."""
+    return len(DEVICE_MODELS) + DUMMY_STATES.index(S)
+
+
+# A plant's functor by its physics: (dynamics, transform) -> (index, state
+# size), so that a dataclasses.replace of a plant with other costs or bounds
+# keeps it
+_PLANTS = {(m.dynamics, m.transform): (DEVICE_MODELS.index(m.name), m.state_size)
+           for m in (pendulum.PendulumModel, cartpole.CartPoleSwingUpModel,
+                     acrobot.AcrobotModel)}
 
 _LIBS: dict = {}
 
@@ -115,20 +132,20 @@ SIGNATURES = {
     "fused_mppi_step_launch": (
         "fused_mppi.cu",
         [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _U, _I, _I, _W, _P]),
-    "fused_mppi_launch_config": ("fused_mppi.cu", [_I, _I, _I, _I, _P]),
+    "fused_mppi_launch_config": ("fused_mppi.cu", [_I, _I, _I, _I, _W, _P]),
     "fused_rollout_costs_launch": (
         "fused_rollout.cu", [_I, _P, _P, _P, _P, _I, _I, _W, _P]),
-    "fused_rollout_launch_config": ("fused_rollout.cu", [_I, _I, _P]),
+    "fused_rollout_launch_config": ("fused_rollout.cu", [_I, _I, _W, _P]),
     "fused_cem_step_launch": (
         "fused_cem.cu",
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _W, _P]),
-    "fused_cem_launch_config": ("fused_cem.cu", [_I, _I, _I, _I, _P]),
+    "fused_cem_launch_config": ("fused_cem.cu", [_I, _I, _I, _I, _W, _P]),
     "riccati_backward_batch_launch": (
         "riccati_backward.cu", [_P] * 12 + [_I, _I, _I, _I, _P]),
     "fused_linesearch_launch": (
         "fused_linesearch.cu",
         [_I] + [_P] * 10 + [_I, _I, _I, _F, _F, _I, _W, _W, _P]),
-    "fused_linesearch_launch_config": ("fused_linesearch.cu", [_I, _I, _I, _P]),
+    "fused_linesearch_launch_config": ("fused_linesearch.cu", [_I, _I, _I, _W, _P]),
     "fused_derivs_launch": (
         "fused_derivs.cu", [_I] + [_P] * 11 + [_I, _I, _W, _P]),
     "admm_launch": (
@@ -156,24 +173,51 @@ def kernel_fn(name: str):
     return getattr(load(SIGNATURES[name][0]), name)
 
 
+WAY_ROUND = ("run it on the plain stages: use_fused=False (solve_batch, and "
+             "run_episodes_batch for MPPI and CEM, whose use_kernel=False tier still calls "
+             "the rollout kernel) or pallas_backward=False (iLQR, SQP)")
+
+
 def model_id(model) -> int:
-    """Index of the model's CUDA device functor. The functors hard-code the
-    registered models' physics, so only those very Model instances have
-    one; any other model (a non-scalar action, no functor yet, or a model
-    that reuses a registered name with other functions) raises."""
-    for i, name in enumerate(DEVICE_MODELS):
-        if model is REGISTRY[name]:
-            return i
-    raise NotImplementedError(f"no CUDA device function for model {model.name!r}")
+    """Index of the model's CUDA device functor, found by its physics: the
+    pair (``model.dynamics``, ``model.transform``). A plant's module-level
+    functions map to its functor whatever its costs and bounds (the kernels
+    take the weights and bounds as arguments); the dummy family's shared
+    functions map to ``Dummy<S>`` for a scalar action and 1 ≤ S ≤ 8. Any
+    other model raises ``NotImplementedError`` naming it and why: the
+    linear model (its dynamics contract the state axis, which the
+    reference's kernels cannot trace either), a model that reuses a plant's
+    name with other functions, a dummy with S > 8 or a larger action."""
+    key = (model.dynamics, model.transform)
+    if key in _PLANTS:
+        index, S = _PLANTS[key]
+        if model.state_size == S and model.action_size == 1:
+            return index
+        why = (f"state size {model.state_size} and action size {model.action_size} are not "
+               f"the plant's")
+    elif key == (synthetic.dummy_dynamics, synthetic.features):
+        S = model.state_size
+        if model.action_size == 1 and S in DUMMY_STATES:
+            return dummy_id(S)
+        why = (f"the dummy's functor takes state sizes {DUMMY_STATES[0]} to {DUMMY_STATES[-1]} "
+               f"and a scalar action, got S={S}, A={model.action_size}")
+    elif model.transform is synthetic.features:
+        why = ("its dynamics are not the dummy's identity (a make_linear_model contracts the "
+               "state axis, which the reference's kernels do not trace either: they call "
+               "dynamics on lane tiles)")
+    else:
+        why = "its dynamics and transform are not a plant's or the dummy's"
+    raise NotImplementedError(
+        f"no CUDA device function for model {model.name!r}: {why}; {WAY_ROUND}")
 
 
 def quad_weights(cost):
     """A ``quad_cost``'s nonzero (i, j, w) terms (a model's stage or
     terminal cost) as the dense upper-triangle (MAX_Z*MAX_Z,) float array
     the kernels take (zeros are skipped there), built once per cost and
-    kept on it beside ``W`` and ``nz``."""
+    layout and kept on it beside ``W`` and ``nz``."""
     w = getattr(cost, "w_quad", None)
-    if w is not None:
+    if w is not None and len(w) == MAX_Z * MAX_Z:
         return w
     nz = getattr(cost, "nz", None)
     if nz is None:
@@ -188,9 +232,9 @@ def quad_weights(cost):
 def sym_weights(cost):
     """A ``quad_cost``'s dense symmetrised weights 0.5·(W + Wᵀ) as the
     (MAX_Z*MAX_Z,) float array ``fused_derivs`` takes (row stride MAX_Z),
-    built once per cost and kept on it beside ``W`` and ``nz``."""
+    built once per cost and layout and kept on it beside ``W`` and ``nz``."""
     w = getattr(cost, "w_sym", None)
-    if w is not None:
+    if w is not None and len(w) == MAX_Z * MAX_Z:
         return w
     W = getattr(cost, "W", None)
     if W is None:

@@ -38,7 +38,8 @@
 // step beside its arithmetic:
 // - the stage cost is compiled for the model's own nonzero weights
 //   (M::kCostTerms), so a step neither tests the zero weights nor loads
-//   their goals (cart-pole: 2 terms of 15);
+//   their goals (cart-pole: 2 terms of 15); other weights take the same
+//   kernel with the generic cost (models.cuh: generic_cost);
 // - the model takes the sine and cosine of an angle with one sincosf
 //   (models.cuh), one argument reduction where there were two.
 // Neither changes an operation of the sum, so the plan and the elite masks
@@ -66,7 +67,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <class M>
+template <class M, uint64_t kTerms>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
                  const float* __restrict__ gz, float* __restrict__ out,
@@ -116,7 +117,7 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
         const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
         const float u = bmpc::clampf(mean[t] + stdv[t] * d, lo, hi);
         M::transform(x, u, z);
-        const float c = bmpc::quad_cost<Z, M::kCostTerms>(z, gz + t * Z, q);
+        const float c = bmpc::quad_cost<Z, kTerms>(z, gz + t * Z, q);
         M::dynamics(x, u, xn);
 #pragma unroll
         for (int i = 0; i < S; ++i) x[i] = xn[i];
@@ -172,11 +173,17 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
   for (int t = lane; t < T; t += 32) out[t * B + b] = mean[t];
 }
 
+template <class M>
+auto kernel_for(bool generic) {
+  constexpr uint64_t kTerms = bmpc::compiled_terms<M>();
+  return generic ? fused_cem_kernel<M, 0> : fused_cem_kernel<M, kTerms>;
+}
+
 }  // namespace
 
 // plan/out (T, B), x0 (S, B), gz (T, S+1): float32, contiguous, on the device;
 // masks (max_iter, K, B) float32 or null. w: host array of MAX_Z*MAX_Z
-// upper-triangle cost weights, nonzero exactly at the model's kCostTerms.
+// upper-triangle cost weights (row stride MAX_Z).
 // Returns the launch's cudaGetLastError().
 extern "C" int fused_cem_step_launch(int model_id, const float* plan,
                                      const float* x0, const float* gz,
@@ -186,16 +193,12 @@ extern "C" int fused_cem_step_launch(int model_id, const float* plan,
                                      float std0, float lo, float hi,
                                      uint32_t seed, int lanes, int C,
                                      const float* w, cudaStream_t stream) {
-  bmpc::QuadW q;
-  for (int i = 0; i < bmpc::kMaxZ * bmpc::kMaxZ; ++i) q.w[i] = w[i];
+  const bmpc::QuadW q = bmpc::quad_w(w);
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const size_t smem = sizeof(float) * (2 * T + 3 * K) * kWarpsPerBlock;
   BMPC_DISPATCH_MODEL(model_id, {
-    // compiled for the model's own stage cost, the only one a registered
-    // (frozen) model has: any other weights are refused
-    if (bmpc::cost_terms(q) != M::kCostTerms) return (int)cudaErrorInvalidValue;
-    const auto kernel = fused_cem_kernel<M>;
+    const auto kernel = kernel_for<M>(bmpc::generic_cost<M>(q));
     if (smem > 48 * 1024) {
       const cudaError_t e =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -208,12 +211,17 @@ extern "C" int fused_cem_step_launch(int model_id, const float* plan,
   return (int)cudaGetLastError();
 }
 
-// The launch shape at (model, T, K, B) on the current card, into out[6]:
-// threads per block, scenarios per block, blocks, shared bytes per block,
-// registers per thread, resident blocks per SM. Returns a cudaError.
-extern "C" int fused_cem_launch_config(int model_id, int T, int K, int B, int* out) {
+// The launch shape at (model, T, K, B, weights w) on the current card, into
+// out[7]: threads per block, scenarios per block, blocks, shared bytes per
+// block, registers per thread, resident blocks per SM, and 1 where the stage
+// cost is the generic form (0: compiled for the model's kCostTerms).
+// Returns a cudaError.
+extern "C" int fused_cem_launch_config(int model_id, int T, int K, int B, const float* w,
+                                       int* out) {
+  const bmpc::QuadW q = bmpc::quad_w(w);
   BMPC_DISPATCH_MODEL(model_id, {
-    const auto kernel = fused_cem_kernel<M>;
+    const bool generic = bmpc::generic_cost<M>(q);
+    const auto kernel = kernel_for<M>(generic);
     const int threads = 32 * kWarpsPerBlock;
     const int smem = (int)sizeof(float) * (2 * T + 3 * K) * kWarpsPerBlock;
     cudaFuncAttributes attr;
@@ -226,9 +234,9 @@ extern "C" int fused_cem_launch_config(int model_id, int T, int K, int B, int* o
     int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (e != cudaSuccess) return (int)e;
-    const int vals[6] = {threads, kWarpsPerBlock, (B + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                         smem, attr.numRegs, per_sm};
-    for (int i = 0; i < 6; ++i) out[i] = vals[i];
+    const int vals[7] = {threads, kWarpsPerBlock, (B + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                         smem, attr.numRegs, per_sm, generic ? 1 : 0};
+    for (int i = 0; i < 7; ++i) out[i] = vals[i];
     return 0;
   });
 }

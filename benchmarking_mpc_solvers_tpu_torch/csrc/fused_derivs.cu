@@ -36,7 +36,9 @@
 //   contiguous range of each of the eight outputs. The outputs are staged in
 //   shared memory, then each range is written with contiguous 16-byte
 //   stores (4-byte stores where a range does not start on 16 bytes, and for
-//   a ragged tail).
+//   a ragged tail). Where 128 points' outputs pass the default 48 KB of
+//   shared memory (the dummy at S = 6 to 8: 2S^2 + 4S + 2 floats a point), a
+//   block of 2 warps owns 64 points.
 // - c's residual i is summed over j in the reference order, from the A and
 //   Bd entries staged for the point. Every value is computed as the
 //   one-thread-per-point kernel before this one computed it, so the outputs
@@ -48,25 +50,26 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // = the points a block owns
-
 template <int S>
 struct DerivLayout {
   // floats per point of output k: A, Bd, c, Q, R, M, q, r
   __host__ __device__ static constexpr int X(int k) {
     return (k == 0 || k == 3) ? S * S : (k == 4 || k == 7) ? 1 : S;
   }
-  // staged output k's offset; kThreads is a multiple of 4, so each range
+  // the points a block owns (= its threads): 128 where their staged outputs
+  // fit the default 48 KB, else 64
+  static constexpr int kPoints = 128 * (2 * S * S + 4 * S + 2) * 4 <= 48 * 1024 ? 128 : 64;
+  // staged output k's offset; kPoints is a multiple of 4, so each range
   // starts on 16 bytes
   __host__ __device__ static constexpr int off(int k) {
-    return k == 0 ? 0 : off(k - 1) + kThreads * X(k - 1);
+    return k == 0 ? 0 : off(k - 1) + kPoints * X(k - 1);
   }
   static constexpr int kBytes = off(8) * (int)sizeof(float);
   static_assert(kBytes <= 48 * 1024, "fused_derivs' shared memory must fit the default");
 };
 
 template <class M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(DerivLayout<M::S>::kPoints)
 fused_derivs_kernel(const float* __restrict__ xs, const float* __restrict__ us,
                     const float* __restrict__ gz, float* __restrict__ A,
                     float* __restrict__ Bd, float* __restrict__ c, float* __restrict__ Q,
@@ -78,6 +81,7 @@ fused_derivs_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   constexpr int D = S + 1;
   constexpr int kW = bmpc::kMaxZ;
   using L = DerivLayout<S>;
+  constexpr int kThreads = L::kPoints;
   extern __shared__ float smem[];
   float* sA = smem + L::off(0);
   float* sBd = smem + L::off(1);
@@ -222,9 +226,11 @@ extern "C" int fused_derivs_launch(int model_id, const float* xs, const float* u
   bmpc::SymW w;
   for (int i = 0; i < bmpc::kMaxZ * bmpc::kMaxZ; ++i) w.w[i] = w_sym[i];
   const size_t n = (size_t)B * T;
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
-  BMPC_DISPATCH_MODEL(model_id,
-      fused_derivs_kernel<M><<<grid, kThreads, DerivLayout<M::S>::kBytes, stream>>>(
-          xs, us, gz, A, Bd, c, Q, R, Mx, q, r, B, T, w));
+  BMPC_DISPATCH_MODEL(model_id, {
+    using L = DerivLayout<M::S>;
+    const dim3 grid((unsigned)((n + L::kPoints - 1) / L::kPoints));
+    fused_derivs_kernel<M><<<grid, L::kPoints, L::kBytes, stream>>>(
+        xs, us, gz, A, Bd, c, Q, R, Mx, q, r, B, T, w);
+  });
   return (int)cudaGetLastError();
 }

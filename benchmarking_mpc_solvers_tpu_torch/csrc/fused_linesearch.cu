@@ -48,8 +48,10 @@
 //   candidate's row while the chain runs stage n. The cost, the last state
 //   and the terminal cost are written by the chain lanes once.
 // - The step issues little beside its arithmetic: the stage cost is
-//   compiled for the model's own nonzero weights (M::kCostTerms), and the
-//   model takes an angle's sine and cosine with one sincosf (models.cuh).
+//   compiled for the model's own nonzero weights (M::kCostTerms; other
+//   weights take the same kernel with the generic cost, models.cuh:
+//   generic_cost), and the model takes an angle's sine and cosine with one
+//   sincosf (models.cuh).
 // Every candidate's arithmetic is the parent's, operation for operation, so
 // every output keeps the parent's bits and the plain version's. (Measured
 // against it on the same inputs, slower at iLQR's shape: the chain warp
@@ -112,7 +114,7 @@ void shape(int n_a, int B, int& Ab, int& G) {
   while (G > 1 && (B + G - 1) / G < sm_count()) --G;
 }
 
-template <class M>
+template <class M, uint64_t kTerms>
 __global__ void __launch_bounds__(kThreads)
 fused_linesearch_kernel(const float* __restrict__ alphas, const float* __restrict__ x0,
                         const float* __restrict__ us, const float* __restrict__ ks,
@@ -227,7 +229,7 @@ fused_linesearch_kernel(const float* __restrict__ alphas, const float* __restric
           for (int i = 0; i < S; ++i) gx[j * S + i] = x[i];
         }
         M::transform(x, u, z);
-        const float c = bmpc::quad_cost<Z, M::kCostTerms>(z, sgz + j * Z, q);
+        const float c = bmpc::quad_cost<Z, kTerms>(z, sgz + j * Z, q);
         M::dynamics(x, u, xn);
 #pragma unroll
         for (int i = 0; i < S; ++i) x[i] = xn[i];
@@ -260,6 +262,12 @@ fused_linesearch_kernel(const float* __restrict__ alphas, const float* __restric
 }
 
 template <class M>
+auto kernel_for(bool generic) {
+  constexpr uint64_t kTerms = bmpc::compiled_terms<M>();
+  return generic ? fused_linesearch_kernel<M, 0> : fused_linesearch_kernel<M, kTerms>;
+}
+
+template <class M>
 int launch(const float* alphas, const float* x0, const float* us, const float* ks,
            const float* Ks, const float* xref, const float* gz, float* us_hat, float* costs,
            float* xs_hat, int n_a, int B, int T, float lo, float hi, int with_terminal,
@@ -268,10 +276,7 @@ int launch(const float* alphas, const float* x0, const float* us, const float* k
   shape(n_a, B, Ab, G);
   const Layout<M::S> lay{G};
   const size_t smem = sizeof(float) * lay.floats();
-  // compiled for the model's own stage cost, the only one a registered
-  // (frozen) model has: any other weights are refused
-  if (bmpc::cost_terms(q) != M::kCostTerms) return (int)cudaErrorInvalidValue;
-  const auto kernel = fused_linesearch_kernel<M>;
+  const auto kernel = kernel_for<M>(bmpc::generic_cost<M>(q));
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -289,9 +294,8 @@ int launch(const float* alphas, const float* x0, const float* us, const float* k
 // alphas (n_a,), x0 (B, S), us/ks (B, T), Ks (B, T, S), xref (B, T+1, S),
 // gz (T, S+1); out us_hat (n_a, B, T), costs (n_a, B), xs_hat
 // (n_a, B, T+1, S) or null: float32, contiguous, on the device. w, w_term:
-// host arrays of MAX_Z*MAX_Z upper-triangle stage and terminal cost weights,
-// w nonzero exactly at the model's kCostTerms.
-// Returns the launch's cudaGetLastError().
+// host arrays of MAX_Z*MAX_Z upper-triangle stage and terminal cost weights
+// (row stride MAX_Z). Returns the launch's cudaGetLastError().
 extern "C" int fused_linesearch_launch(int model_id, const float* alphas,
                                        const float* x0, const float* us,
                                        const float* ks, const float* Ks,
@@ -300,11 +304,7 @@ extern "C" int fused_linesearch_launch(int model_id, const float* alphas,
                                        int n_a, int B, int T, float lo, float hi,
                                        int with_terminal, const float* w,
                                        const float* w_term, cudaStream_t stream) {
-  bmpc::QuadW q, q_term;
-  for (int i = 0; i < bmpc::kMaxZ * bmpc::kMaxZ; ++i) {
-    q.w[i] = w[i];
-    q_term.w[i] = w_term[i];
-  }
+  const bmpc::QuadW q = bmpc::quad_w(w), q_term = bmpc::quad_w(w_term);
   int rc = 0;
   BMPC_DISPATCH_MODEL(model_id,
       rc = launch<M>(alphas, x0, us, ks, Ks, xref, gz, us_hat, costs, xs_hat, n_a, B, T, lo,
@@ -312,17 +312,21 @@ extern "C" int fused_linesearch_launch(int model_id, const float* alphas,
   return rc;
 }
 
-// The launch shape at (model, n_a, B) on the current card, into out[7]:
-// threads per block, scenarios and alphas per block, blocks, shared bytes
-// per block, registers per thread, resident blocks per SM. Returns a
-// cudaError.
-extern "C" int fused_linesearch_launch_config(int model_id, int n_a, int B, int* out) {
+// The launch shape at (model, n_a, B, stage weights w) on the current card,
+// into out[8]: threads per block, scenarios and alphas per block, blocks,
+// shared bytes per block, registers per thread, resident blocks per SM, and
+// 1 where the stage cost is the generic form (0: compiled for the model's
+// kCostTerms). Returns a cudaError.
+extern "C" int fused_linesearch_launch_config(int model_id, int n_a, int B, const float* w,
+                                              int* out) {
+  const bmpc::QuadW q = bmpc::quad_w(w);
   BMPC_DISPATCH_MODEL(model_id, {
     int Ab, G;
     shape(n_a, B, Ab, G);
     const Layout<M::S> lay{G};
     const int smem = (int)sizeof(float) * lay.floats();
-    const auto kernel = fused_linesearch_kernel<M>;
+    const bool generic = bmpc::generic_cost<M>(q);
+    const auto kernel = kernel_for<M>(generic);
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return (int)e;
@@ -333,9 +337,9 @@ extern "C" int fused_linesearch_launch_config(int model_id, int n_a, int B, int*
     int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
     if (e != cudaSuccess) return (int)e;
-    const int vals[7] = {kThreads, G, Ab, ((B + G - 1) / G) * ((n_a + Ab - 1) / Ab), smem,
-                         attr.numRegs, per_sm};
-    for (int i = 0; i < 7; ++i) out[i] = vals[i];
+    const int vals[8] = {kThreads, G, Ab, ((B + G - 1) / G) * ((n_a + Ab - 1) / Ab), smem,
+                         attr.numRegs, per_sm, generic ? 1 : 0};
+    for (int i = 0; i < 8; ++i) out[i] = vals[i];
     return 0;
   });
 }

@@ -28,7 +28,9 @@
 // plan[t, b]. A step issues few instructions beside its arithmetic:
 // - the stage cost is compiled for the model's own nonzero weights
 //   (M::kCostTerms, as fused_cem.cu), so a step neither tests the zero
-//   weights nor loads their goals (cart-pole: 2 terms of 15);
+//   weights nor loads their goals (cart-pole: 2 terms of 15); other weights
+//   (a reweighted plant, the dummy family) take the same kernel with the
+//   generic cost, which tests each weight as it runs (same terms, same order);
 // - pass 1 keeps each std*delta in shared memory, [t][k] per scenario (a
 //   warp's 32 stores and loads fall in 32 banks), and pass 2 reads them back,
 //   as the TPU kernel caches its noise in VMEM (cache_noise): no second draw.
@@ -74,7 +76,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <class M, bool kCache>
+template <class M, bool kCache, uint64_t kTerms>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fused_mppi_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
                   const float* __restrict__ gz, float* __restrict__ out, int T,
@@ -113,7 +115,7 @@ fused_mppi_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
       if (kCache) sdk[t * K + k] = sd;
       const float u = plan[t * B + b] + sd;
       M::transform(x, u, z);
-      float c = bmpc::quad_cost<Z, M::kCostTerms>(z, gz + t * Z, q);
+      float c = bmpc::quad_cost<Z, kTerms>(z, gz + t * Z, q);
       c = c + ctrl_scale * (u * sd);
       M::dynamics(x, u, xn);
 #pragma unroll
@@ -168,8 +170,10 @@ using KernelFn = void (*)(const float*, const float*, const float*, float*, int,
                           float, float, float, uint32_t, int, int, bmpc::QuadW);
 
 template <class M>
-KernelFn kernel_for(bool cache) {
-  return cache ? fused_mppi_kernel<M, true> : fused_mppi_kernel<M, false>;
+KernelFn kernel_for(bool cache, bool generic) {
+  if (generic) return cache ? fused_mppi_kernel<M, true, 0> : fused_mppi_kernel<M, false, 0>;
+  constexpr uint64_t kTerms = bmpc::compiled_terms<M>();
+  return cache ? fused_mppi_kernel<M, true, kTerms> : fused_mppi_kernel<M, false, kTerms>;
 }
 
 // Shared memory beyond the default 48 KB. The sweep's MPPI row asks for 52,224
@@ -183,24 +187,20 @@ cudaError_t allow_smem(F kernel, size_t smem) {
 }  // namespace
 
 // plan/out (T, B), x0 (S, B), gz (T, S+1): float32, contiguous, on the device.
-// w: host array of MAX_Z*MAX_Z upper-triangle cost weights, nonzero exactly
-// at the model's kCostTerms. Returns the launch's cudaGetLastError().
+// w: host array of MAX_Z*MAX_Z upper-triangle cost weights (row stride
+// MAX_Z). Returns the launch's cudaGetLastError().
 extern "C" int fused_mppi_step_launch(int model_id, const float* plan,
                                       const float* x0, const float* gz,
                                       float* out, int T, int B, int K,
                                       float stdv, float ctrl_scale, float lam,
                                       uint32_t seed, int lanes, int C,
                                       const float* w, cudaStream_t stream) {
-  bmpc::QuadW q;
-  for (int i = 0; i < bmpc::kMaxZ * bmpc::kMaxZ; ++i) q.w[i] = w[i];
+  const bmpc::QuadW q = bmpc::quad_w(w);
   const Shape sh = shape_for(T, K);
   const dim3 block(32 * kWarpsPerBlock);
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
   BMPC_DISPATCH_MODEL(model_id, {
-    // compiled for the model's own stage cost, the only one a registered
-    // (frozen) model has: any other weights are refused
-    if (bmpc::cost_terms(q) != M::kCostTerms) return (int)cudaErrorInvalidValue;
-    const auto kernel = kernel_for<M>(sh.cache);
+    const auto kernel = kernel_for<M>(sh.cache, bmpc::generic_cost<M>(q));
     const cudaError_t e = allow_smem(kernel, sh.smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<grid, block, sh.smem, stream>>>(
@@ -209,14 +209,18 @@ extern "C" int fused_mppi_step_launch(int model_id, const float* plan,
   return (int)cudaGetLastError();
 }
 
-// The launch shape at (model, T, K, B) on the current card, into out[7]:
-// threads per block, scenarios per block, blocks, shared bytes per block,
-// registers per thread, resident blocks per SM, and 1 where pass 2 reads the
-// noise cache (0: it redraws). Returns a cudaError.
-extern "C" int fused_mppi_launch_config(int model_id, int T, int K, int B, int* out) {
+// The launch shape at (model, T, K, B, weights w) on the current card, into
+// out[8]: threads per block, scenarios per block, blocks, shared bytes per
+// block, registers per thread, resident blocks per SM, 1 where pass 2 reads
+// the noise cache (0: it redraws), and 1 where the stage cost is the generic
+// form (0: compiled for the model's kCostTerms). Returns a cudaError.
+extern "C" int fused_mppi_launch_config(int model_id, int T, int K, int B, const float* w,
+                                        int* out) {
   const Shape sh = shape_for(T, K);
+  const bmpc::QuadW q = bmpc::quad_w(w);
   BMPC_DISPATCH_MODEL(model_id, {
-    const auto kernel = kernel_for<M>(sh.cache);
+    const bool generic = bmpc::generic_cost<M>(q);
+    const auto kernel = kernel_for<M>(sh.cache, generic);
     const int threads = 32 * kWarpsPerBlock;
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
@@ -225,10 +229,10 @@ extern "C" int fused_mppi_launch_config(int model_id, int T, int K, int B, int* 
     int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, sh.smem);
     if (e != cudaSuccess) return (int)e;
-    const int vals[7] = {threads, kWarpsPerBlock, (B + kWarpsPerBlock - 1) / kWarpsPerBlock,
+    const int vals[8] = {threads, kWarpsPerBlock, (B + kWarpsPerBlock - 1) / kWarpsPerBlock,
                          (int)sh.smem,
-                         attr.numRegs, per_sm, sh.cache ? 1 : 0};
-    for (int i = 0; i < 7; ++i) out[i] = vals[i];
+                         attr.numRegs, per_sm, sh.cache ? 1 : 0, generic ? 1 : 0};
+    for (int i = 0; i < 8; ++i) out[i] = vals[i];
     return 0;
   });
 }

@@ -18,7 +18,8 @@
 // instructions beside its arithmetic:
 // - the stage cost is compiled for the model's own nonzero weights
 //   (M::kCostTerms, as fused_cem.cu): no tests of the zero weights and no
-//   loads of their goals (cart-pole: 2 terms of 15);
+//   loads of their goals (cart-pole: 2 terms of 15); other weights take the
+//   same kernel with the generic cost (models.cuh: generic_cost);
 // - step t+1's action is loaded while step t computes (one register), so the
 //   load's latency stays off the state's dependent chain.
 // Neither changes an operation of the sum, so the costs keep their bits.
@@ -30,7 +31,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <class M>
+template <class M, uint64_t kTerms>
 __global__ void __launch_bounds__(kThreads)
 fused_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ us,
                      const float* __restrict__ gz, float* __restrict__ out,
@@ -52,7 +53,7 @@ fused_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ us,
       u_next = *un;
     }
     M::transform(x, u, z);
-    const float c = bmpc::quad_cost<Z, M::kCostTerms>(z, gz + t * Z, q);
+    const float c = bmpc::quad_cost<Z, kTerms>(z, gz + t * Z, q);
     M::dynamics(x, u, xn);
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = xn[i];
@@ -61,42 +62,49 @@ fused_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ us,
   out[n] = acc;
 }
 
+template <class M>
+auto kernel_for(bool generic) {
+  constexpr uint64_t kTerms = bmpc::compiled_terms<M>();
+  return generic ? fused_rollout_kernel<M, 0> : fused_rollout_kernel<M, kTerms>;
+}
+
 }  // namespace
 
 // x0 (S, N), us (T, N), gz (T, S+1), out (N,): float32, contiguous, on the
-// device. w: host array of MAX_Z*MAX_Z upper-triangle cost weights, nonzero
-// exactly at the model's kCostTerms. Returns the launch's cudaGetLastError().
+// device. w: host array of MAX_Z*MAX_Z upper-triangle cost weights (row
+// stride MAX_Z). Returns the launch's cudaGetLastError().
 extern "C" int fused_rollout_costs_launch(int model_id, const float* x0,
                                           const float* us, const float* gz,
                                           float* out, int T, int N,
                                           const float* w, cudaStream_t stream) {
-  bmpc::QuadW q;
-  for (int i = 0; i < bmpc::kMaxZ * bmpc::kMaxZ; ++i) q.w[i] = w[i];
+  const bmpc::QuadW q = bmpc::quad_w(w);
   const dim3 block(kThreads);
   const dim3 grid((N + kThreads - 1) / kThreads);
   BMPC_DISPATCH_MODEL(model_id, {
-    // compiled for the model's own stage cost, the only one a registered
-    // (frozen) model has: any other weights are refused
-    if (bmpc::cost_terms(q) != M::kCostTerms) return (int)cudaErrorInvalidValue;
-    fused_rollout_kernel<M><<<grid, block, 0, stream>>>(x0, us, gz, out, T, N, q);
+    const auto kernel = kernel_for<M>(bmpc::generic_cost<M>(q));
+    kernel<<<grid, block, 0, stream>>>(x0, us, gz, out, T, N, q);
   });
   return (int)cudaGetLastError();
 }
 
-// The launch shape at (model, N) on the current card, into out[4]: threads
-// (rollouts) per block, blocks, registers per thread, resident blocks per
-// SM. Returns a cudaError.
-extern "C" int fused_rollout_launch_config(int model_id, int N, int* out) {
+// The launch shape at (model, N, weights w) on the current card, into
+// out[5]: threads (rollouts) per block, blocks, registers per thread,
+// resident blocks per SM, and 1 where the stage cost is the generic form (0:
+// compiled for the model's kCostTerms). Returns a cudaError.
+extern "C" int fused_rollout_launch_config(int model_id, int N, const float* w, int* out) {
+  const bmpc::QuadW q = bmpc::quad_w(w);
   BMPC_DISPATCH_MODEL(model_id, {
-    const auto kernel = fused_rollout_kernel<M>;
+    const bool generic = bmpc::generic_cost<M>(q);
+    const auto kernel = kernel_for<M>(generic);
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
     if (e != cudaSuccess) return (int)e;
     int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
     if (e != cudaSuccess) return (int)e;
-    const int vals[4] = {kThreads, (N + kThreads - 1) / kThreads, attr.numRegs, per_sm};
-    for (int i = 0; i < 4; ++i) out[i] = vals[i];
+    const int vals[5] = {kThreads, (N + kThreads - 1) / kThreads, attr.numRegs, per_sm,
+                         generic ? 1 : 0};
+    for (int i = 0; i < 5; ++i) out[i] = vals[i];
     return 0;
   });
 }

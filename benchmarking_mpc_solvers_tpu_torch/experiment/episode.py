@@ -23,7 +23,8 @@ import torch
 from ..device import default_generator, resolve_device
 from ..envs.env import Env, NoiseConfig, env_step
 from ..ops.rollout import simulate_trajectory
-from ..solvers.base import Solver, predict_action, shift_plan, warm_start
+from ..solvers.base import (
+    Solver, check_device_functor, predict_action, shift_plan, warm_start)
 
 
 class EpisodeResult(NamedTuple):
@@ -193,11 +194,18 @@ def run_episodes_fused(env: Env, solver, cfg: EpisodeConfig, x0s,
     (and Gauss-Newton derivatives) in one launch each, for QPMPC with
     ``method="admm"`` all ADMM iterations of a step in one launch, for I2C
     each iteration's Kalman filter and RTS smoother in one launch each.
-    ``init_plans`` (B, T, A) replaces the initial plans."""
+    ``init_plans`` (B, T, A) replaces the initial plans. On the card a
+    model whose physics has no device functor (``_build.model_id``) is
+    refused first, before anything is allocated or launched, where a kernel
+    of the tier calls the model."""
     device = resolve_device(device)
+    kernel_tier = bool(use_kernel and getattr(solver, "kernel_ok", None) and solver.kernel_ok())
+    if kernel_tier or solver.calls_model_kernels():
+        check_device_functor(f"run_episodes_fused({type(solver).__name__})", solver.model,
+                             device)
     x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)
     gen = default_generator(generator, device)
-    if use_kernel and getattr(solver, "kernel_ok", None) and solver.kernel_ok():
+    if kernel_tier:
         return _run_episodes_kernel(env, solver, cfg, x0s, seeds=seeds, generator=gen,
                                     init_plans=init_plans, device=device)
     return _run_episodes_two_stage(env, solver, cfg, x0s, gen, use_fused=True,
@@ -213,8 +221,11 @@ def _run_episodes_kernel(env: Env, solver, cfg: EpisodeConfig, x0s, seeds=None,
 
     ``seeds`` holds one int32 per solver call (warm-start iterations, then
     episode steps), as the reference derives them from its keys; without it
-    they are drawn from ``generator`` over [-2**31, 2**31 - 1)."""
+    they are drawn from ``generator`` over [-2**31, 2**31 - 1). On the card
+    a model without a device functor is refused first, before anything is
+    allocated or launched."""
     device = resolve_device(device)
+    check_device_functor(f"{type(solver).__name__}.solve_batch_tm", solver.model, device)
     x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)
     gen = default_generator(generator, device)
     model = env.model

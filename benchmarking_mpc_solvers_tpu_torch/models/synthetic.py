@@ -6,9 +6,14 @@ over z = (x, u), to isolate solver logic from dynamics.
 ``make_linear_model`` exists so solvers can be validated against closed-form
 finite-horizon LQR solutions.
 
-Neither has a device functor in ``csrc/models.cuh``: the kernels that call a
-model's dynamics refuse them by name (``_build.model_id``). The Kalman
-filter and smoother kernels see only matrices, so I2C runs them on any model.
+Every ``make_dummy_model(S, 1)`` shares the module-level ``dummy_dynamics``
+and ``features``, and the kernels that call a model's dynamics map that pair
+to the ``Dummy<S>`` functor of ``csrc/models.cuh`` for 1 ≤ S ≤ 8
+(``_build.model_id``), with the identity weights as the generic cost. The
+linear model has no functor: its dynamics contract the state axis, which the
+reference's kernels cannot trace either, so the card refuses it there. The
+Kalman filter and smoother kernels see only matrices, so I2C runs them on
+any model.
 """
 
 from __future__ import annotations
@@ -19,25 +24,26 @@ import torch
 from .base import Model, quad_cost
 
 
-def _features(x, u):
+def features(x, u):
+    """z = (x, u), the synthetic models' feature transform."""
     return torch.cat([x, u], dim=-1)
+
+
+def dummy_dynamics(x, u):
+    """Identity in x, broadcast against u's leading batch dimensions."""
+    return x.expand(torch.broadcast_shapes(x.shape[:-1], u.shape[:-1]) + x.shape[-1:])
 
 
 def make_dummy_model(state_size: int, action_size: int) -> Model:
     W = np.eye(state_size + action_size, dtype=np.float32)
-
-    def dynamics(x, u):
-        # identity in x, broadcast against u's leading batch dimensions
-        return x.expand(torch.broadcast_shapes(x.shape[:-1], u.shape[:-1]) + x.shape[-1:])
-
     return Model(
         name="dummy",
         state_size=state_size,
         action_size=action_size,
         bounds_low=tuple([-1.0] * action_size),
         bounds_high=tuple([1.0] * action_size),
-        dynamics=dynamics,
-        transform=_features,
+        dynamics=dummy_dynamics,
+        transform=features,
         state_cost=quad_cost(W),
         terminal_cost=quad_cost(W),
     )
@@ -91,7 +97,7 @@ def make_linear_model(
         bounds_low=tuple([-bounds] * na),
         bounds_high=tuple([bounds] * na),
         dynamics=dynamics,
-        transform=_features,
+        transform=features,
         state_cost=quad_cost(W),
         terminal_cost=quad_cost(W_T),
     )

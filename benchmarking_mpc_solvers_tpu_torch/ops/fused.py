@@ -15,7 +15,8 @@ included.
 
 Scope as in the reference: single-input models (action_size == 1) with a
 ``quad_cost`` stage cost, and on the card only models that have a device
-function in ``csrc/models.cuh``.
+function in ``csrc/models.cuh`` (the plants under any weights, the dummy
+family; ``_build.model_id``).
 """
 
 from __future__ import annotations
@@ -30,13 +31,16 @@ from .rollout import rollout_cost
 
 
 def launch_config(model: Model, N: int) -> dict:
-    """The kernel's launch shape for N rollouts on the current card: threads
-    (rollouts) per block, blocks, registers per thread, resident blocks per
-    SM."""
-    out = (ctypes.c_int * 4)()
+    """The kernel's launch shape for N rollouts of the model on the current
+    card: threads (rollouts) per block, blocks, registers per thread,
+    resident blocks per SM, and the stage cost's form (``generic_cost``:
+    True where the model's weights are not its functor's compiled terms)."""
+    out = (ctypes.c_int * 5)()
     _build.check_rc("launch_config", _build.kernel_fn("fused_rollout_launch_config")(
-        _build.model_id(model), N, ctypes.cast(out, ctypes.c_void_p)))
-    return dict(zip(("threads", "blocks", "registers", "blocks_per_sm"), out))
+        _build.model_id(model), N, _build.quad_weights(model.state_cost),
+        ctypes.cast(out, ctypes.c_void_p)))
+    keys = ("threads", "blocks", "registers", "blocks_per_sm", "generic_cost")
+    return {**dict(zip(keys, out)), "generic_cost": bool(out[4])}
 
 
 def fused_rollout_costs_tm_reference(model: Model, x0_tm, us_tm, g_z):

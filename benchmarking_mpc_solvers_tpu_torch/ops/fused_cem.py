@@ -47,13 +47,16 @@ def _smoothing(alpha: float):
 def launch_config(model: Model, T: int, K: int, B: int) -> dict:
     """The kernel's launch shape at (T, K, B) on the current card: threads
     and scenarios per block, blocks, shared bytes per block, registers per
-    thread, resident blocks per SM."""
-    out = (ctypes.c_int * 6)()
+    thread, resident blocks per SM, and the stage cost's form
+    (``generic_cost``: True where the model's weights are not its functor's
+    compiled terms)."""
+    out = (ctypes.c_int * 7)()
     _build.check_rc("launch_config", _build.kernel_fn("fused_cem_launch_config")(
-        _build.model_id(model), T, K, B, ctypes.cast(out, ctypes.c_void_p)))
+        _build.model_id(model), T, K, B, _build.quad_weights(model.state_cost),
+        ctypes.cast(out, ctypes.c_void_p)))
     keys = ("threads", "scenarios_per_block", "blocks", "shared_bytes", "registers",
-            "blocks_per_sm")
-    return dict(zip(keys, out))
+            "blocks_per_sm", "generic_cost")
+    return {**dict(zip(keys, out)), "generic_cost": bool(out[6])}
 
 
 def fused_cem_step_reference(model: Model, K: int, n_elite: int, max_iter: int, alpha: float,

@@ -52,13 +52,16 @@ def _check_shapes(model, alphas, x0, us, ks, Ks, xref, g_z):
 def launch_config(model: Model, n_a: int, B: int) -> dict:
     """The kernel's launch shape for n_a alphas and B scenarios on the
     current card: threads per block, scenarios and alphas per block, blocks,
-    shared bytes per block, registers per thread, resident blocks per SM."""
-    out = (ctypes.c_int * 7)()
+    shared bytes per block, registers per thread, resident blocks per SM,
+    and the stage cost's form (``generic_cost``: True where the model's
+    weights are not its functor's compiled terms)."""
+    out = (ctypes.c_int * 8)()
     _build.check_rc("launch_config", _build.kernel_fn("fused_linesearch_launch_config")(
-        _build.model_id(model), n_a, B, ctypes.cast(out, ctypes.c_void_p)))
+        _build.model_id(model), n_a, B, _build.quad_weights(model.state_cost),
+        ctypes.cast(out, ctypes.c_void_p)))
     keys = ("threads", "scenarios_per_block", "alphas_per_block", "blocks", "shared_bytes",
-            "registers", "blocks_per_sm")
-    return dict(zip(keys, out))
+            "registers", "blocks_per_sm", "generic_cost")
+    return {**dict(zip(keys, out)), "generic_cost": bool(out[7])}
 
 
 def fused_linesearch_reference(model: Model, alphas, x0, us, ks, Ks, xref, g_z,

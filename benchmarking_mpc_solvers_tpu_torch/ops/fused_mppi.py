@@ -128,13 +128,16 @@ def launch_config(model: Model, T: int, K: int, B: int) -> dict:
     """The kernel's launch shape at (T, K, B) on the current card: threads
     and scenarios per block, blocks, shared bytes per block, registers per
     thread, resident blocks per SM, and whether pass 2 reads pass 1's noise
-    from shared memory (``noise_cache``; else it draws it again)."""
-    out = (ctypes.c_int * 7)()
+    from shared memory (``noise_cache``; else it draws it again), and the
+    stage cost's form (``generic_cost``: True where the model's weights are
+    not its functor's compiled terms)."""
+    out = (ctypes.c_int * 8)()
     _build.check_rc("launch_config", _build.kernel_fn("fused_mppi_launch_config")(
-        _build.model_id(model), T, K, B, ctypes.cast(out, ctypes.c_void_p)))
+        _build.model_id(model), T, K, B, _build.quad_weights(model.state_cost),
+        ctypes.cast(out, ctypes.c_void_p)))
     keys = ("threads", "scenarios_per_block", "blocks", "shared_bytes", "registers",
-            "blocks_per_sm", "noise_cache")
-    return {**dict(zip(keys, out)), "noise_cache": bool(out[6])}
+            "blocks_per_sm", "noise_cache", "generic_cost")
+    return {**dict(zip(keys, out)), "noise_cache": bool(out[6]), "generic_cost": bool(out[7])}
 
 
 def fused_mppi_step_reference(model: Model, K: int, std: float, lam: float, lanes: int,

@@ -13,6 +13,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import _build
 from ..device import resolve_device
 from ..models.base import Model
 from ..ops.fused_linesearch import linesearch_applicable
@@ -38,6 +39,13 @@ class Solver:
         """Whether ``solve_batch(use_fused=True)`` runs stages as kernels
         for this model, as the reference's vmapped ``solve`` reaches
         kernels on the TPU; none do unless a solver says so."""
+        return False
+
+    def calls_model_kernels(self) -> bool:
+        """Whether ``solve_batch(use_fused=True)`` launches a kernel that
+        calls the model's device functor (kernels 1, 2, 3, 4, 6), so that on
+        the card the model needs one (``check_device_functor``); none does
+        unless a solver says so."""
         return False
 
     def _init_plan(self, lead: tuple, init_std: float, generator: torch.Generator,
@@ -74,10 +82,26 @@ def fused_tier_applicable(model: Model) -> bool:
             and pallas_riccati_applicable(model.state_size, model.action_size))
 
 
-def check_fused_tier(name: str, model: Model, g_z) -> None:
+def check_device_functor(name: str, model: Model, device) -> None:
+    """On a CUDA device, refuse a model whose physics has no device functor
+    (``_build.model_id``: the three plants under any weights and the dummy
+    family have one), before anything is allocated or launched: else the
+    first model-calling kernel would refuse it after other stages had run.
+    On the CPU the plain versions take every model."""
+    if torch.device(device).type != "cuda":
+        return
+    try:
+        _build.model_id(model)
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{name}: {e}") from None
+
+
+def check_fused_tier(name: str, model: Model, g_z, calls_model: bool = True) -> None:
     """Gate of the trajectory solvers' ``use_fused=True``: the model must be
     ``fused_tier_applicable`` and the goal one trajectory (T, Z) for the
-    whole batch. Anything else is refused here, on any device, so that a
+    whole batch; on the card, where a routed kernel calls the model
+    (``calls_model``), it must have a device functor
+    (``check_device_functor``). Anything else is refused here, so that a
     fused solve never runs plain stages unasked."""
     if not fused_tier_applicable(model):
         raise NotImplementedError(
@@ -87,6 +111,8 @@ def check_fused_tier(name: str, model: Model, g_z) -> None:
         raise NotImplementedError(
             f"{name}(use_fused=True) needs one goal trajectory (T, Z) shared by the batch, "
             f"got g_z of shape {tuple(g_z.shape)}; pass use_fused=False")
+    if calls_model:
+        check_device_functor(f"{name}(use_fused=True)", model, g_z.device)
 
 
 def model_noise_draws(solver, generator: torch.Generator, B: int, device, noise=None):

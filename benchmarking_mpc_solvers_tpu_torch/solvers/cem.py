@@ -207,6 +207,11 @@ class CEM(Solver):
         return e_mean, torch.sqrt(((elites - e_mean[:, None]) ** 2).mean(dim=1))
 
     # -- single-kernel tier ------------------------------------------------------
+    def calls_model_kernels(self) -> bool:
+        """``solve_batch(use_fused=True)`` (a scalar action) rolls out on
+        kernel 2."""
+        return self.model.action_size == 1
+
     def kernel_ok(self) -> bool:
         """True when the single-kernel step applies: scalar action, a
         quad_cost stage cost and no planning-model noise."""

@@ -130,9 +130,21 @@ class ILQR(Solver):
 
     def has_kernel_stages(self) -> bool:
         """Whether ``pallas_backward`` allows the kernels and the
-        derivative, Riccati and line-search kernels take the model
-        (``solvers/base.py:fused_tier_applicable``)."""
+        derivative, Riccati and line-search kernels take the model's shapes
+        and costs (``solvers/base.py:fused_tier_applicable``), the
+        reference's gate. It holds for the plants under any weights and for
+        the dummy family, whose functors run on the card; it also holds for
+        a scalar-action linear model, which the reference's kernels cannot
+        trace and the card refuses before the first launch
+        (``check_fused_tier``), as the reference raises on the TPU."""
         return self.pallas_backward is not False and fused_tier_applicable(self.model)
+
+    def calls_model_kernels(self) -> bool:
+        """Whether a routed stage of ``solve_batch(use_fused=True)`` calls
+        the model: the derivative kernel (Gauss-Newton) or the line-search
+        kernel (no model noise). The Riccati kernel sees only matrices."""
+        routes = self.stage_routes(True)
+        return routes.derivs or routes.linesearch
 
     def alphas(self, device=None):
         """Line-search step sizes 1.1^(−i²), i < n_alphas, in float32."""
@@ -479,7 +491,8 @@ class ILQR(Solver):
         use_fused = use_fused and self.pallas_backward is not False
         routes = self.stage_routes(use_fused)
         if use_fused:
-            check_fused_tier("ILQR.solve_batch", self.model, g_z)
+            check_fused_tier("ILQR.solve_batch", self.model, g_z,
+                             calls_model=self.calls_model_kernels())
         noise = model_noise_draws(self, state.generator, B, xs.device, noise)
         us = state.planned_us
         mu = torch.ones((B,), dtype=torch.float32, device=xs.device)

@@ -162,6 +162,11 @@ class MPPI(Solver):
             planned = state.planned_us + (w[:, :, None, None] * delta).sum(dim=1)
         return state._replace(planned_us=planned), planned[:, 0], {"sample_costs": costs}
 
+    def calls_model_kernels(self) -> bool:
+        """A scalar action's ``solve_batch(use_fused=True)`` rolls out on
+        kernel 2."""
+        return self.model.action_size == 1
+
     def kernel_ok(self) -> bool:
         """True when the single-kernel step applies: scalar action, a
         quad_cost stage cost and no planning-model noise."""

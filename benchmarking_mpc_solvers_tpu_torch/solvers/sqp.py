@@ -105,9 +105,19 @@ class SQP(Solver):
 
     def has_kernel_stages(self) -> bool:
         """Whether ``pallas_backward`` allows the kernels and the
-        derivative, Riccati and line-search kernels take the model
-        (``solvers/base.py:fused_tier_applicable``)."""
+        derivative, Riccati and line-search kernels take the model's shapes
+        and costs (``solvers/base.py:fused_tier_applicable``), the
+        reference's gate. It holds for the plants under any weights and for
+        the dummy family, whose functors run on the card; it also holds for
+        a scalar-action linear model, which the reference's kernels cannot
+        trace and the card refuses before the first launch
+        (``check_fused_tier``), as the reference raises on the TPU."""
         return self.pallas_backward is not False and fused_tier_applicable(self.model)
+
+    def calls_model_kernels(self) -> bool:
+        """``solve_batch(use_fused=True)`` linearizes on the derivative
+        kernel, unless ``pallas_backward=False``."""
+        return self.pallas_backward is not False
 
     def alphas(self, device=None):
         """Line-search step sizes 0.5^i, i < n_alphas, in float32."""
@@ -175,6 +185,9 @@ class SQP(Solver):
         the noisy trajectory and takes the best noisy candidate, rolled out
         plain."""
         model = self.model
+        use_fused = use_fused and self.pallas_backward is not False
+        if use_fused:
+            check_fused_tier("SQP.solve_batch", model, g_z)
         x0s = xs
         B = x0s.shape[0]
         us = state.planned_us
@@ -182,9 +195,6 @@ class SQP(Solver):
         reg = torch.full((B,), self.reg_init, dtype=torch.float32, device=x0s.device)
         done = torch.zeros((B,), dtype=torch.bool, device=x0s.device)
         rows = torch.arange(B, device=x0s.device)
-        use_fused = use_fused and self.pallas_backward is not False
-        if use_fused:
-            check_fused_tier("SQP.solve_batch", model, g_z)
         draws = model_noise_draws(self, state.generator, B, x0s.device, noise)
         noisy = self.model_noise_std > 0.0
         if not noisy:  # afterwards the accepted candidate's trajectory

@@ -56,6 +56,18 @@ Phases (any failure exits non-zero before the result line):
      I2C (configuration 6) under ``pallas_backward=False`` /
      ``pallas_smoother=False`` with ``use_fused=True`` (no kernel launched,
      results against the kernel route), SWITCH_STEPS steps each;
+   - the models the functors take beyond the registered plants (phases (g)
+     to (j), their launches kept apart from the plants' paths): the dummy
+     (S=2) on the MPPI bench and CEM sweep widths, both tiers each, episode
+     medians with solves/s; make_dummy_model(8, 1) at iLQR configuration
+     3's widths (exact and Gauss-Newton) and the dummy at SQP configuration
+     4's, cut to FAMILY_WARM warm-start solves and FAMILY_STEPS steps, with
+     kernels 4, 5 and 6 held against their plain versions on one solve's
+     own inputs; cart-pole under configuration 2's weights through one call
+     each of kernels 1, 2 and 3 and one Gauss-Newton iLQR configuration-3
+     solve, the generic cost form's device time beside the registered
+     cart-pole's specialised one; the linear model refused by
+     run_episodes_fused (MPPI and iLQR) before any launch;
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
@@ -196,12 +208,35 @@ SHARDED_ROUNDS = 8
 # At most SWITCH_SPLIT of the scenarios may lie apart by more than SWITCH_TOL.
 SWITCH_TOL, SWITCH_STEPS, SWITCH_SPLIT = 2e-3, 2, 0.05
 
+# The model family the functors take beyond the registered plants, driven at
+# the widths above (phases (g) to (j)): the dummy (models/synthetic.py) on
+# the MPPI bench and CEM sweep tiers, make_dummy_model(8, 1) at iLQR
+# configuration 3's widths and DummyModel at SQP configuration 4's, cut to
+# FAMILY_WARM warm-start solves (iLQR; configuration 3 has 10) and
+# FAMILY_STEPS MPC steps (20 in both) for the time limit; cart-pole under
+# configuration 2's weights on its features (scripts/bench_suite.py:184-185)
+FAMILY_WARM, FAMILY_STEPS, FAMILY_REPS = 2, 5, 3
+CART2_W = (0.5, 0.1, 5.0, 0.5, 0.1)
+DUMMY_START = (0.5, -0.3)
+
 # FP32 operations per rollout step, counted by hand from csrc/models.cuh
 # (each add, mul, div, clamp compare and each libm call counted once, so
 # the bound is a lower bound): transform + nonzero-W cost with its clip +
 # dynamics + the running sum. Cart-pole: transform 8, cost 10, dynamics 40,
 # sum 1.
 STEP_OPS = {"pendulum": 34, "cartpole_swingup": 59, "acrobot": 252}
+
+
+def step_ops(model) -> int:
+    """``STEP_OPS`` of a model under its own weights: a plant's count with
+    its registered cost's terms replaced by the model's (4 a term, the clip
+    2); the dummy's copies cost nothing, so its step is the cost and the
+    sum."""
+    nz = len(model.state_cost.nz)
+    if model.name in STEP_OPS:
+        from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
+        return STEP_OPS[model.name] + 4 * (nz - len(REGISTRY[model.name].state_cost.nz))
+    return 4 * nz + 2 + 1
 # the noise draw (u01 x2, +1e-7, log, -2*, sqrt, 2pi*, cos, r*), counted once
 # per (b, k, t): the function needs one normal there. Where its cache does
 # not fit, the kernel draws it a second time in pass 2; that is a cost of the
@@ -505,7 +540,7 @@ def derivs_ops(model) -> int:
     Wsym = 0.5 * (W + W.T)
     nnz, rows = int((Wsym != 0).sum()), int((Wsym != 0).any(axis=1).sum())
     cost_ops = 4 * len(model.state_cost.nz) + 2
-    primal = STEP_OPS[model.name] - cost_ops - 1
+    primal = step_ops(model) - cost_ops - 1
     gn = (Z + 2 * nnz) + D * (2 * rows + 1) + D * (2 * nnz + D * (2 * rows + 1))
     return (1 + D) * primal + 2 * S * D + gn
 
@@ -542,17 +577,32 @@ def ilqr_path_calls(wrapper: str, env_name: str, agent_config: dict, noise_std: 
     st = solver.init_state_batch(B, torch.Generator(device=dev).manual_seed(0), dev)
     x0 = env.start_state(dev).expand(B, -1).contiguous()
     gz = torch.zeros((solver.T, env.model.goal_size), device=dev)
-    real, calls = getattr(ilqr_module, wrapper), []
+    return spy_calls([(ilqr_module, wrapper)], lambda: solver.solve_batch(st, x0, gz))[wrapper]
 
-    def spy(*args, **kwargs):
-        calls.append((args, kwargs))
-        return real(*args, **kwargs)
 
-    setattr(ilqr_module, wrapper, spy)
+def spy_calls(targets, run) -> dict:
+    """The arguments (args, kwargs) of every call that ``run()`` makes to
+    each kernel wrapper ``targets`` names as (module, name) (the name it is
+    called by there), by name; the wrappers still run, so the path's own
+    inputs can be held against the plain versions afterwards."""
+    calls = {name: [] for _, name in targets}
+    reals = [(module, name, getattr(module, name)) for module, name in targets]
+
+    def spy(name, real):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return real(*args, **kwargs)
+        call.launches = 0  # a wrapper spied in its own module counts its launches here
+        return call
+
+    for module, name, real in reals:
+        setattr(module, name, spy(name, real))
     try:
-        solver.solve_batch(st, x0, gz)
+        run()
     finally:
-        setattr(ilqr_module, wrapper, real)
+        for module, name, real in reals:
+            real.launches += getattr(module, name).launches
+            setattr(module, name, real)
     return calls
 
 
@@ -678,17 +728,22 @@ def fast_path_count(ins, head: int, tail: int) -> int:
 
 
 # The cart-pole rollout loop of kernels 3, 1 and 2 in their SASS, by source:
-# the function (the first of the names found: kernel 1's noise-cache form,
-# else an untemplated build from before it had one) and the least count of
+# the function (the first of the names found: the form compiled for
+# cart-pole's cost terms, kCostTerms = term(0, 0) | term(2, 2) = 131073, in
+# kernel 1 its noise-cache form; else a build from before the generic form,
+# or before kernel 1 had a cache form) and the least count of
 # each instruction that marks the loop. Kernels 3 and 1 draw noise in it
 # (the square root's MUFU.RSQ) beside the model's two divisions (MUFU.RCP);
 # kernel 2 draws none, and its loop is the one with the two divisions and
 # the load of us (LDG).
 SASS_LOOPS = {
-    "fused_cem.cu": (("fused_cem_kernelIN4bmpc8CartPoleE",), {"MUFU.RSQ": 1, "MUFU.RCP": 2}),
-    "fused_mppi.cu": (("fused_mppi_kernelIN4bmpc8CartPoleELb1E",
+    "fused_cem.cu": (("fused_cem_kernelIN4bmpc8CartPoleELm131073E",
+                      "fused_cem_kernelIN4bmpc8CartPoleE"), {"MUFU.RSQ": 1, "MUFU.RCP": 2}),
+    "fused_mppi.cu": (("fused_mppi_kernelIN4bmpc8CartPoleELb1ELm131073E",
+                       "fused_mppi_kernelIN4bmpc8CartPoleELb1E",
                        "fused_mppi_kernelIN4bmpc8CartPoleE"), {"MUFU.RSQ": 1, "MUFU.RCP": 2}),
-    "fused_rollout.cu": (("fused_rollout_kernelIN4bmpc8CartPoleE",), {"MUFU.RCP": 2, "LDG": 1}),
+    "fused_rollout.cu": (("fused_rollout_kernelIN4bmpc8CartPoleELm131073E",
+                          "fused_rollout_kernelIN4bmpc8CartPoleE"), {"MUFU.RCP": 2, "LDG": 1}),
 }
 
 
@@ -886,6 +941,50 @@ def bound(bytes_, ops, chain_ms=None):
     if chain_ms is not None:
         b["chain"] = chain_ms
     return max(b.values()), max(b, key=b.get)
+
+
+def mppi_bound_for(model, B, K, T):
+    """Kernel 1's bound at (B, K, T) on the model: the plans, states and
+    goals moved once; a normal, a rollout step and the MPPI extras per (b,
+    k, t), the softmax per (b, k)."""
+    S, Z = model.state_size, model.goal_size
+    return bound(4 * (2 * T * B + S * B + T * Z),
+                 B * K * T * (NOISE_OPS + step_ops(model) + PASS1_EXTRA + PASS2_EXTRA)
+                 + B * K * MPPI_WEIGHT_OPS)
+
+
+def rollout_bound_for(model, N, T):
+    """Kernel 2's bound for N rollouts of T steps on the model."""
+    S, Z = model.state_size, model.goal_size
+    return bound(4 * (S * N + T * N + T * Z + N), N * T * step_ops(model))
+
+
+def cem_bound_for(model, B, K, T, n_elite, iters):
+    """Kernel 3's bound: the plans, states and goals moved once; a normal,
+    a rollout step and the sample's clip per (b, k, t, it), the moments,
+    the update and the selection as the function needs them."""
+    S, Z = model.state_size, model.goal_size
+    return bound(4 * (2 * T * B + S * B + T * Z),
+                 B * K * T * iters * (NOISE_OPS + step_ops(model) + CEM_SAMPLE_OPS)
+                 + B * iters * (n_elite * T * CEM_MOMENT_OPS + T * CEM_UPDATE_OPS
+                                + K * n_elite * CEM_SELECT_OPS))
+
+
+def ls_bound_for(model, n_a, B, T, return_states=False):
+    """Kernel 6's bound (bytes and operations; its chain apart)."""
+    S, Z = model.state_size, model.goal_size
+    out = n_a * B * (T + 1) * (1 + (S if return_states else 0))
+    return bound(4 * (2 * B * T * (1 + S) + B * S + n_a + T * Z + out),
+                 n_a * B * T * (step_ops(model) + LS_EXTRA(S)))
+
+
+def derivs_bound_for(model, B, T):
+    """Kernel 4's bound: a point's state and action in, its eight outputs
+    out, ``derivs_ops`` a point."""
+    S = model.state_size
+    pts = B * T
+    return bound(4 * (pts * (S + 1) + T * (S + 1) + pts * (2 * S * S + 4 * S + 2)),
+                 pts * derivs_ops(model))
 
 
 def max_sm_clock_mhz() -> float:
@@ -1402,11 +1501,12 @@ def main():
         return run_episodes_fused(env, solver, cfg, x0s, generator=gen,
                                   use_kernel=use_kernel, device=dev)
 
-    def run_path(label, run, expect):
+    def run_path(label, run, expect, into=None):
         """Drive one path with the counts at 0; check each expected count
-        and that no other kernel launched. The run's host-clock time is kept
-        in ``path_s``: the long episodes take it as their first timed
-        sample."""
+        and that no other kernel launched; keep the counts in ``into``
+        (``launches``, the registered plants' paths, by default). The run's
+        host-clock time is kept in ``path_s``: the long episodes take it as
+        their first timed sample."""
         reset_counts()
         t0 = time.perf_counter()
         res = run()
@@ -1419,7 +1519,7 @@ def main():
             fail(f"{label}: launches {got}, expected {want}")
         if not torch.isfinite(res.costs).all():
             fail(f"{label}: episode costs not finite")
-        launches[label] = got
+        (launches if into is None else into)[label] = got
         print(f"main path ({label}): launches {expect}, mean episode cost "
               f"{float(res.costs.sum(1).mean()):.3f}", flush=True)
         return res
@@ -1772,6 +1872,341 @@ def main():
     port_layer = port_layer_paths()
     print(f"port layer phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    def model_family_paths():
+        """Phases (g) to (j): the dummy family and cart-pole under other
+        weights through kernels 1, 2, 3, 4 and 6 (each in its generic cost
+        form), every kernel call held against its plain version and each
+        path's launches counted (in ``family_launches``, apart from the
+        registered plants' paths); then the linear model refused with no
+        launch. Their names stay local to this function. Returns the
+        readings and the kernels line's entries of these instantiations."""
+        import dataclasses
+
+        from benchmarking_mpc_solvers_tpu_torch.models import (
+            DummyModel, make_dummy_model, make_linear_model)
+        from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
+        from benchmarking_mpc_solvers_tpu_torch.ops import riccati_backward as riccati_module
+        from benchmarking_mpc_solvers_tpu_torch.solvers import ilqr as ilqr_module
+        from benchmarking_mpc_solvers_tpu_torch.solvers import sqp as sqp_module
+        readings, entries = {}, []
+
+        def gen(seed=0):
+            return torch.Generator(device=dev).manual_seed(seed)
+
+        def env_of(model_, start):
+            return dataclasses.replace(PendulumEnv, name=model_.name, model=model_,
+                                       default_start=start)
+
+        def starts(env_, B, seed):
+            """B starts jittered by 0.3·N(0, 1) around the env's start."""
+            S_ = env_.model.state_size
+            return (env_.start_state(dev).expand(B, -1) + 0.3 * torch.randn(
+                (B, S_), generator=gen(seed), device=dev)).contiguous()
+
+        def new_entry(base, label, launches_, err, fn, plain_fn, bnd, cfg, specialised=None):
+            """A kernels-line entry of a new instantiation at one shape: times
+            around one call and on the device, the plain version's, the bound;
+            with ``specialised`` (the registered cart-pole's call at the same
+            shape) the specialised form's device time beside the generic's."""
+            around, device = cuda_time_ms(fn), device_time_ms(fn)
+            plain = cuda_time_ms(plain_fn, reps=3, warmup=1)
+            e = {"base": base, "name": f"{base}[{label}]", "route": "cuda",
+                 "launches": launches_, "max_abs_err": err[0], "max_rel_err": err[1],
+                 "ms": around, "device_ms": device, "plain_ms": plain, "bound_ms": bnd[0],
+                 "bound_by": bnd[1], "library_ms": None, "launch": cfg, "pass": True}
+            line = (f"[{smi}] {e['name']}: around one call {around:.4f} ms, device "
+                    f"{device:.4f} ms, plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); "
+                    f"launch {cfg}")
+            if specialised is not None:
+                e["specialised_device_ms"] = device_time_ms(specialised)
+                line += (f"; the registered cart-pole's specialised form at the same shape: "
+                         f"device {e['specialised_device_ms']:.4f} ms (generic "
+                         f"{device / e['specialised_device_ms']:.2f}x)")
+            print(line, flush=True)
+            entries.append(e)
+
+        def sampling_checks(label, model_, specialised_model=None):
+            """Kernels 1, 2 and 3 on ``model_`` at the MPPI bench, MPPI
+            two-stage and CEM sweep shapes, each in its generic form and held
+            against its plain version (2 and 3 bit for bit), plans beyond ±1."""
+            S_ = model_.state_size
+            out = {}
+            plan, x0, gz = mppi_inputs(model_, BATCH, HORIZON, 40, dev)
+            plan = 3.0 * plan  # uniform on ±1.5
+            lanes = pick_lanes(BATCH)
+            cfg_ = mppi_launch_config(model_, HORIZON, K_SAMPLES, BATCH)
+            if not cfg_["generic_cost"]:
+                fail(f"fused_mppi_step[{label}]: launch {cfg_}, expected the generic cost")
+            a1 = (K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7)
+            out["fused_mppi_step"] = (compare(
+                f"fused_mppi_step[{label}, B={BATCH}, K={K_SAMPLES}, T={HORIZON}, generic cost]",
+                fused_mppi_step(model_, *a1), fused_mppi_step_reference(model_, *a1)),
+                lambda: fused_mppi_step(model_, *a1),
+                lambda: fused_mppi_step_reference(model_, *a1),
+                mppi_bound_for(model_, BATCH, K_SAMPLES, HORIZON), cfg_,
+                None if specialised_model is None else
+                (lambda: fused_mppi_step(specialised_model, *a1)))
+            N = BATCH * K_SAMPLES
+            rng = np.random.default_rng(41)
+            x0n = torch.from_numpy(rng.uniform(-1, 1, (S_, N)).astype(np.float32)).to(dev)
+            usn = torch.from_numpy(rng.uniform(-1.5, 1.5, (HORIZON, N)).astype(np.float32)).to(dev)
+            cfg_ = rollout_launch_config(model_, N)
+            if not cfg_["generic_cost"]:
+                fail(f"fused_rollout_costs_tm[{label}]: launch {cfg_}, expected the generic cost")
+            a2 = (x0n, usn, gz)
+            got, want = (fused_rollout_costs_tm(model_, *a2),
+                         fused_rollout_costs_tm_reference(model_, *a2))
+            name = f"fused_rollout_costs_tm[{label}, N={N}, T={HORIZON}, generic cost]"
+            exact_nan(name, got, want)
+            out["fused_rollout_costs_tm"] = (
+                compare(name, got, want), lambda: fused_rollout_costs_tm(model_, *a2),
+                lambda: fused_rollout_costs_tm_reference(model_, *a2),
+                rollout_bound_for(model_, N, HORIZON), cfg_,
+                None if specialised_model is None else
+                (lambda: fused_rollout_costs_tm(specialised_model, *a2)))
+            plan, x0, gz = mppi_inputs(model_, CEM_B, CEM_T, 42, dev)
+            cfg_ = cem_launch_config(model_, CEM_T, CEM_K, CEM_B)
+            if not cfg_["generic_cost"]:
+                fail(f"fused_cem_step[{label}]: launch {cfg_}, expected the generic cost")
+            a3 = (CEM_K, CEM_ELITE, CEM_ITERS, 0.2, 1.0, pick_lanes(CEM_B), plan, x0, gz, 7)
+            got, got_masks = fused_cem_step(model_, *a3, return_masks=True)
+            want, want_masks = fused_cem_step_reference(model_, *a3, return_masks=True)
+            name = (f"fused_cem_step[{label}, B={CEM_B}, T={CEM_T}, K={CEM_K}, "
+                    f"n_elite={CEM_ELITE}, max_iter={CEM_ITERS}, generic cost]")
+            exact(f"{name} elite masks", got_masks, want_masks)
+            exact_nan(f"{name} plan", got, want)
+            out["fused_cem_step"] = (
+                compare(f"{name} plan", got, want), lambda: fused_cem_step(model_, *a3),
+                lambda: fused_cem_step_reference(model_, *a3),
+                cem_bound_for(model_, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS), cfg_,
+                None if specialised_model is None else
+                (lambda: fused_cem_step(specialised_model, *a3)))
+            return out
+
+        def held(label, calls, derivs_model=None):
+            """Each captured call of kernels 4, 5 and 6 against its plain
+            version on the path's own inputs: 5 and 6 bit for bit, 4 within
+            the tolerance. Returns each kernel's largest errors."""
+            errs_ = {}
+            for i, (args, kw) in enumerate(calls.get("fused_derivs", [])):
+                got, want = fused_derivs(*args, **kw), fused_derivs_reference(*args, **kw)
+                e = max(compare(f"fused_derivs[{label}, iteration {i}] {key}", g, w)
+                        for key, g, w in zip(("A", "Bd", "c", "Q", "R", "M", "q", "r"), got,
+                                             want))
+                errs_["fused_derivs"] = max(errs_.get("fused_derivs", e), e)
+            for i, (args, kw) in enumerate(calls.get("riccati_backward_batch", [])):
+                got = riccati_backward_batch(*args, **kw)
+                want = riccati_backward_batch_reference(*args, **kw)
+                for key, g, w in zip(("ks", "Ks", "ok"), got, want):
+                    exact_nan(f"riccati_backward_batch[{label}, iteration {i}] {key}",
+                              g.float(), w.float())
+            for i, (args, kw) in enumerate(calls.get("fused_linesearch", [])):
+                got = fused_linesearch(*args, **kw)
+                want = fused_linesearch_reference(*args, **kw)
+                for key, g, w in zip(("us", "xs", "costs") if len(got) == 3 else ("us", "costs"),
+                                     got, want):
+                    exact_nan(f"fused_linesearch[{label}, iteration {i}] {key}", g, w)
+                e = compare(f"fused_linesearch[{label}, iteration {i}] costs", got[-1], want[-1])
+                errs_["fused_linesearch"] = max(errs_.get("fused_linesearch", e), e)
+            return errs_
+
+        def episodes(label, run, B, steps):
+            """FAMILY_REPS host-clock episodes: the launch-count run (already
+            warm) and the others run now."""
+            times = [path_s[label]] + episode_seconds(run, FAMILY_REPS - 1, warmup=False)
+            readings[f"{label} median episode s"] = report_episodes(smi, label, times, B, steps)
+
+        # (g) the dummy on the sampling tiers: MPPI at the bench
+        # configuration's widths and CEM at the sweep's, each on the kernel
+        # tier and the two-stage tier
+        denv = env_of(DummyModel, DUMMY_START)
+        dm = MPPI(model=DummyModel, T=HORIZON, K=K_SAMPLES, std=1.0, lam=1.0)
+        dm_cfg = EpisodeConfig(n_steps=N_STEPS, warmstart=0, record_plans=False)
+        dm_x0s = starts(denv, BATCH, 31)
+        dc = CEM(model=DummyModel, T=CEM_T, K=CEM_K, n_elite=CEM_ELITE, max_iter=CEM_ITERS)
+        dc_cfg = EpisodeConfig(n_steps=CEM_STEPS, warmstart=0, record_plans=False)
+        dc_x0s = starts(denv, CEM_B, 32)
+        paths = (
+            ("dummy mppi kernel tier", dm, dm_cfg, dm_x0s, True,
+             {"fused_mppi_step": N_STEPS}),
+            ("dummy mppi two-stage tier", dm, dm_cfg, dm_x0s, False,
+             {"fused_rollout_costs_tm": N_STEPS}),
+            ("dummy cem kernel tier", dc, dc_cfg, dc_x0s, True, {"fused_cem_step": CEM_STEPS}),
+            ("dummy cem two-stage tier", dc, dc_cfg, dc_x0s, False,
+             {"fused_rollout_costs_tm": CEM_STEPS * CEM_ITERS}))
+        for label, sol, c, xs, use_kernel, expect in paths:
+            def run(sol=sol, c=c, xs=xs, use_kernel=use_kernel):
+                return run_episodes_fused(denv, sol, c, xs, generator=gen(0),
+                                          use_kernel=use_kernel, device=dev)
+
+            run_path(label, run, expect, into=family_launches)
+            episodes(label, run, xs.shape[0], c.n_steps)
+        dummy_calls = sampling_checks("dummy S=2", DummyModel)  # the paths' launches count
+        for base, path in (("fused_mppi_step", "dummy mppi kernel tier"),
+                           ("fused_rollout_costs_tm", "dummy mppi two-stage tier"),
+                           ("fused_cem_step", "dummy cem kernel tier")):
+            err, fn, plain_fn, bnd, cfg_, _ = dummy_calls[base]
+            n = family_launches[path][base] + (
+                family_launches["dummy cem two-stage tier"][base]
+                if base == "fused_rollout_costs_tm" else 0)
+            new_entry(base, "dummy S=2, generic cost", n, err, fn, plain_fn, bnd, cfg_)
+
+        # (h) the dummy on the trajectory tiers: make_dummy_model(8, 1) at iLQR
+        # configuration 3's widths (exact and Gauss-Newton Hessians) and
+        # DummyModel at SQP configuration 4's, cut to FAMILY_WARM warm-start
+        # solves and FAMILY_STEPS MPC steps
+        d8 = make_dummy_model(8, 1)
+        env8 = env_of(d8, (0.5,) * 8)
+        x8 = starts(env8, ILQR_B, 33)
+        traj = {}
+        for label, gn in (("dummy S=8 ilqr", False), ("dummy S=8 ilqr gauss-newton", True)):
+            sol = ILQR(model=d8, T=ILQR_T, max_iter=ILQR_ITERS, reference_accept=False,
+                       gauss_newton=gn)
+            c = EpisodeConfig(n_steps=FAMILY_STEPS, warmstart=FAMILY_WARM, record_plans=False)
+            n = (FAMILY_WARM + FAMILY_STEPS) * ILQR_ITERS
+            expect = {"riccati_backward_batch": n, "fused_linesearch": n}
+            if gn:
+                expect["fused_derivs"] = n
+
+            def run(sol=sol, c=c):
+                return run_episodes_fused(env8, sol, c, x8, generator=gen(0), device=dev)
+
+            run_path(label, run, expect, into=family_launches)
+            episodes(label, run, ILQR_B, FAMILY_STEPS)
+            st = sol.init_state_batch(ILQR_B, gen(0), dev)
+            gz8 = torch.zeros((ILQR_T, d8.goal_size), device=dev)
+            calls = spy_calls([(ilqr_module, "fused_derivs"),
+                               (ilqr_module, "riccati_backward_batch"),
+                               (ilqr_module, "fused_linesearch")],
+                              lambda: sol.solve_batch(st, x8, gz8))
+            traj[label] = (calls, held(label + " solve", calls))
+        print(f"[{smi}] fused_linesearch on the dummy S=8 at iLQR's shape: launch "
+              f"{ls_launch_config(d8, N_ALPHAS, ILQR_B)}", flush=True)
+        sq_env = env_of(DummyModel, DUMMY_START)
+        sq = SQP(model=DummyModel, T=SQP_T, max_iter=SQP_ITERS)
+        sq_x0s = starts(sq_env, SQP_B, 34)
+        n = FAMILY_STEPS * SQP_ITERS
+
+        def sq_run():
+            return run_episodes_fused(sq_env, sq, EpisodeConfig(
+                n_steps=FAMILY_STEPS, record_plans=False), sq_x0s, device=dev)
+
+        run_path("dummy sqp", sq_run, {"fused_derivs": n, "riccati_backward_batch": n,
+                                       "fused_linesearch": n}, into=family_launches)
+        episodes("dummy sqp", sq_run, SQP_B, FAMILY_STEPS)
+        sq_st = sq.init_state_batch(SQP_B, gen(0), dev)
+        sq_gz = torch.zeros((SQP_T, DummyModel.goal_size), device=dev)
+        calls = spy_calls([(sqp_module, "fused_derivs"),
+                           (riccati_module, "riccati_backward_batch"),
+                           (sqp_module, "fused_linesearch")],
+                          lambda: sq.solve_batch(sq_st, sq_x0s, sq_gz))
+        traj["dummy sqp"] = (calls, held("dummy sqp solve", calls))
+        # kernels 4 and 6 of the dummy at S = 8 (the iLQR paths) and S = 2 (the
+        # SQP path), timed on the first captured call of a solve
+        for label, path, ls_paths, model_, B_, T_, sqp_ls in (
+                ("dummy S=8", "dummy S=8 ilqr gauss-newton",
+                 ("dummy S=8 ilqr", "dummy S=8 ilqr gauss-newton"), d8, ILQR_B, ILQR_T, False),
+                ("dummy S=2", "dummy sqp", ("dummy sqp",), DummyModel, SQP_B, SQP_T, True)):
+            calls, errs_ = traj[path]
+            args, kw = calls["fused_derivs"][0]
+            new_entry("fused_derivs", label, family_launches[path]["fused_derivs"],
+                      errs_["fused_derivs"], lambda: fused_derivs(*args, **kw),
+                      lambda: fused_derivs_reference(*args, **kw),
+                      derivs_bound_for(model_, B_, T_), None)
+            calls, errs_ = traj[ls_paths[0]]
+            args, kw = calls["fused_linesearch"][0]
+            n_a = args[1].shape[0]
+            new_entry("fused_linesearch", f"{label}, generic cost",
+                      sum(family_launches[p]["fused_linesearch"] for p in ls_paths),
+                      errs_["fused_linesearch"], lambda: fused_linesearch(*args, **kw),
+                      lambda: fused_linesearch_reference(*args, **kw),
+                      ls_bound_for(model_, n_a, B_, T_, sqp_ls),
+                      ls_launch_config(model_, n_a, B_))
+
+        # (i) cart-pole under configuration 2's weights (dataclasses.replace):
+        # one call of kernels 1, 2 and 3 at the MPPI bench and CEM sweep
+        # shapes and one Gauss-Newton iLQR configuration-3 solve (kernels 4, 5
+        # and 6), each held against its plain version; for 1, 2, 3 and 6 the
+        # generic form's device time beside the registered cart-pole's
+        # specialised form at the same shape
+        cart = REGISTRY["cartpole_swingup"]
+        cart2 = dataclasses.replace(cart, state_cost=quad_cost(np.diag(np.array(
+            CART2_W, dtype=np.float32))))
+        reset_counts()
+        cart_calls = sampling_checks("cart-pole reweighted", cart2, cart)
+        torch.cuda.synchronize()
+        family_launches["cart-pole reweighted, one call each"] = {
+            fn_.__name__: fn_.launches for fn_ in counters}
+        for base, (err, fn, plain_fn, bnd, cfg_, spec) in cart_calls.items():
+            new_entry(base, "cart-pole reweighted, generic cost",
+                      family_launches["cart-pole reweighted, one call each"][base], err, fn,
+                      plain_fn, bnd, cfg_, spec)
+        ilqr2 = ILQR(model=cart2, T=ILQR_T, max_iter=ILQR_ITERS, reference_accept=False,
+                     gauss_newton=True)
+        st2 = ilqr2.init_state_batch(ILQR_B, gen(0), dev)
+        x2 = CartPoleSwingUpEnv.start_state(dev).expand(ILQR_B, -1).contiguous()
+        gz2 = torch.zeros((ILQR_T, cart2.goal_size), device=dev)
+        reset_counts()
+        calls = spy_calls([(ilqr_module, "fused_derivs"), (ilqr_module, "riccati_backward_batch"),
+                           (ilqr_module, "fused_linesearch")],
+                          lambda: ilqr2.solve_batch(st2, x2, gz2))
+        torch.cuda.synchronize()
+        got = {fn_.__name__: fn_.launches for fn_ in counters}
+        want = {fn_.__name__: 0 for fn_ in counters}
+        want.update({k: ILQR_ITERS for k in ("fused_derivs", "riccati_backward_batch",
+                                             "fused_linesearch")})
+        if got != want:
+            fail(f"cart-pole reweighted gauss-newton ilqr solve: launches {got}, expected {want}")
+        family_launches["cart-pole reweighted gauss-newton ilqr solve"] = got
+        errs_ = held("cart-pole reweighted gauss-newton ilqr solve", calls)
+        cfg_ = ls_launch_config(cart2, N_ALPHAS, ILQR_B)
+        if not cfg_["generic_cost"]:
+            fail(f"fused_linesearch[cart-pole reweighted]: launch {cfg_}, expected generic")
+        ls_in = ls_inputs_for(cart2, ILQR_B, ILQR_T, 8, dev)
+        ls_alphas = ilqr2.alphas(dev)
+        new_entry("fused_linesearch", "cart-pole reweighted, generic cost", ILQR_ITERS,
+                  errs_["fused_linesearch"],
+                  lambda: fused_linesearch(cart2, ls_alphas, *ls_in, with_terminal=True),
+                  lambda: fused_linesearch_reference(cart2, ls_alphas, *ls_in,
+                                                     with_terminal=True),
+                  ls_bound_for(cart2, N_ALPHAS, ILQR_B, ILQR_T), cfg_,
+                  lambda: fused_linesearch(cart, ls_alphas, *ls_in, with_terminal=True))
+        readings["cart-pole reweighted gauss-newton ilqr solve max abs err"] = {
+            k: v[0] for k, v in errs_.items()}
+
+        # (j) the linear model (the tests/test_ilqr.py problem, bounds 50) has
+        # no functor: run_episodes_fused refuses it for MPPI and iLQR on the
+        # card on its first line, before any kernel launches
+        lin = make_linear_model([[1.0, 0.1], [0.0, 1.0]], [[0.0], [0.1]], np.diag([1.0, 0.1]),
+                                [[0.1]], np.diag([5.0, 1.0]), bounds=50.0)
+        lenv = env_of(lin, (1.0, 0.5))
+        for sol in (MPPI(model=lin, T=HORIZON, K=K_SAMPLES),
+                    ILQR(model=lin, T=ILQR_T, max_iter=ILQR_ITERS, reference_accept=False)):
+            label = f"linear model, {type(sol).__name__}"
+            reset_counts()
+            try:
+                run_episodes_fused(lenv, sol, EpisodeConfig(n_steps=2, record_plans=False),
+                                   lenv.start_state(dev).expand(64, -1), device=dev)
+            except NotImplementedError as e:
+                msg = str(e)
+            else:
+                fail(f"{label}: run_episodes_fused did not refuse the linear model")
+            torch.cuda.synchronize()
+            got = {fn_.__name__: fn_.launches for fn_ in counters}
+            if any(got.values()) or "do not trace either" not in msg:
+                fail(f"{label}: launches {got} before the refusal, or another refusal: {msg}")
+            family_launches[label] = got
+            print(f"{label}: refused by run_episodes_fused with no kernel launched: {msg}",
+                  flush=True)
+        readings["traj max abs err"] = {k: {n_: e[0] for n_, e in v[1].items()}
+                                        for k, v in traj.items()}
+        return readings, entries
+
+    family_launches = {}
+    t0 = time.perf_counter()
+    family, family_entries = model_family_paths()
+    print(f"model family phases: {time.perf_counter() - t0:.1f} s", flush=True)
+
     def experiment_paths():
         """The Experiment phases; their names stay local to this function."""
         # the Experiment host layer's paths, each through Experiment.run (its
@@ -2034,21 +2469,13 @@ def main():
               f"launch {cfg}", flush=True)
         return floor
 
-    def mppi_bound(B, K, T):
-        return bound(4 * (2 * T * B + S * B + T * Z),
-                     B * K * T * (NOISE_OPS + STEP_OPS[model.name] + PASS1_EXTRA + PASS2_EXTRA)
-                     + B * K * MPPI_WEIGHT_OPS)
-
-    def rollout_bound(N, T):
-        return bound(4 * (S * N + T * N + T * Z + N), N * T * STEP_OPS[model.name])
-
     plan, x0, gz = mppi_inputs(model, BATCH, HORIZON, 1, dev)
     lanes = pick_lanes(BATCH)
     time_kernel("fused_mppi_step",
                 lambda: fused_mppi_step(model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7))
     plain_ms["fused_mppi_step"] = cuda_time_ms(lambda: fused_mppi_step_reference(
         model, K_SAMPLES, 1.0, 1.0, lanes, plan, x0, gz, 7), reps=3, warmup=1)
-    bounds["fused_mppi_step"] = mppi_bound(BATCH, K_SAMPLES, HORIZON)
+    bounds["fused_mppi_step"] = mppi_bound_for(model, BATCH, K_SAMPLES, HORIZON)
     issue["fused_mppi_step"] = issue_line(
         "fused_mppi_step", f"the bench shape (cart-pole, B={BATCH}, K={K_SAMPLES}, T={HORIZON})",
         "fused_mppi.cu", BATCH * -(-K_SAMPLES // 32) * HORIZON, ms["fused_mppi_step"],
@@ -2090,7 +2517,7 @@ def main():
     time_kernel("fused_rollout_costs_tm", lambda: fused_rollout_costs_tm(model, x0n, usn, gz))
     plain_ms["fused_rollout_costs_tm"] = cuda_time_ms(
         lambda: fused_rollout_costs_tm_reference(model, x0n, usn, gz), reps=3, warmup=1)
-    bounds["fused_rollout_costs_tm"] = rollout_bound(N, HORIZON)
+    bounds["fused_rollout_costs_tm"] = rollout_bound_for(model, N, HORIZON)
     issue["fused_rollout_costs_tm"] = issue_line(
         "fused_rollout_costs_tm", f"the MPPI two-stage shape (cart-pole, N={N}, T={HORIZON})",
         "fused_rollout.cu", -(-N // 32) * HORIZON, ms["fused_rollout_costs_tm"],
@@ -2110,7 +2537,7 @@ def main():
                 f"K={MPPI_SWEEP_K}, T={HORIZON})", "fused_mppi.cu",
                 MPPI_SWEEP_B * -(-MPPI_SWEEP_K // 32) * HORIZON,
                 lambda: fused_mppi_step(model, MPPI_SWEEP_K, 1.0, 1.0, lanes_s, plan, x0, gz, 7),
-                mppi_bound(MPPI_SWEEP_B, MPPI_SWEEP_K, HORIZON),
+                mppi_bound_for(model, MPPI_SWEEP_B, MPPI_SWEEP_K, HORIZON),
                 mppi_launch_config(model, HORIZON, MPPI_SWEEP_K, MPPI_SWEEP_B))
     Nc = CEM_B * CEM_K
     rng = np.random.default_rng(4)
@@ -2119,7 +2546,8 @@ def main():
     gzc = torch.zeros((CEM_T, Z), device=dev)
     other_shape("fused_rollout_costs_tm", f"the CEM two-stage shape (cart-pole, N={Nc}, "
                 f"T={CEM_T})", "fused_rollout.cu", -(-Nc // 32) * CEM_T,
-                lambda: fused_rollout_costs_tm(model, x0c, usc, gzc), rollout_bound(Nc, CEM_T),
+                lambda: fused_rollout_costs_tm(model, x0c, usc, gzc),
+                rollout_bound_for(model, Nc, CEM_T),
                 rollout_launch_config(model, Nc))
     del x0c, usc
 
@@ -2129,11 +2557,7 @@ def main():
     plain_ms["fused_cem_step"] = cuda_time_ms(lambda: fused_cem_step_reference(*cem_args),
                                               reps=3, warmup=1)
     cem_steps = CEM_B * CEM_K * CEM_T * CEM_ITERS
-    bounds["fused_cem_step"] = bound(
-        4 * (2 * CEM_T * CEM_B + S * CEM_B + CEM_T * Z),
-        cem_steps * (NOISE_OPS + STEP_OPS[model.name] + CEM_SAMPLE_OPS)
-        + CEM_B * CEM_ITERS * (CEM_ELITE * CEM_T * CEM_MOMENT_OPS + CEM_T * CEM_UPDATE_OPS
-                               + CEM_K * CEM_ELITE * CEM_SELECT_OPS))
+    bounds["fused_cem_step"] = cem_bound_for(model, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS)
     print(f"fused_cem_step: {cem_steps} rollout steps per launch", flush=True)
     issue["fused_cem_step"] = issue_line(
         "fused_cem_step", "the sweep's shape", "fused_cem.cu",
@@ -2176,10 +2600,7 @@ def main():
     plain_ms["fused_linesearch"] = cuda_time_ms(
         lambda: fused_linesearch_reference(model, alphas, *ls_in, with_terminal=True),
         reps=3, warmup=1)
-    ls_steps = N_ALPHAS * ILQR_B * ILQR_T
-    ls_bytes = 4 * (2 * ILQR_B * ILQR_T * (1 + S) + ILQR_B * S + N_ALPHAS + ILQR_T * Z
-                    + N_ALPHAS * ILQR_B * (ILQR_T + 1))
-    bounds["fused_linesearch"] = bound(ls_bytes, ls_steps * (STEP_OPS[model.name] + LS_EXTRA(S)))
+    bounds["fused_linesearch"] = ls_bound_for(model, N_ALPHAS, ILQR_B, ILQR_T)
     chains["fused_linesearch"] = chain_ms(ILQR_T, linesearch_chain(model.name), clock)
     cfg_ls = ls_launch_config(model, N_ALPHAS, ILQR_B)
     print(f"[{smi}] fused_linesearch at iLQR's shape (cart-pole, n_a={N_ALPHAS}, B={ILQR_B}, "
@@ -2202,13 +2623,9 @@ def main():
     time_kernel("fused_derivs", lambda: fused_derivs(acro, *dv_in))
     plain_ms["fused_derivs"] = cuda_time_ms(lambda: fused_derivs_reference(acro, *dv_in),
                                             reps=3, warmup=1)
-    Sa = acro.state_size
-    pts = SQP_B * SQP_T
-    bounds["fused_derivs"] = bound(
-        4 * (pts * (Sa + 1) + SQP_T * (Sa + 1) + pts * (2 * Sa * Sa + 4 * Sa + 2)),
-        pts * derivs_ops(acro))
-    print(f"fused_derivs: {derivs_ops(acro)} operations per acrobot point, {pts} points",
-          flush=True)
+    bounds["fused_derivs"] = derivs_bound_for(acro, SQP_B, SQP_T)
+    print(f"fused_derivs: {derivs_ops(acro)} operations per acrobot point, {SQP_B * SQP_T} "
+          f"points", flush=True)
     dv_cart = derivs_inputs(model, ILQR_B, ILQR_T, 9, True)
     fn = lambda: fused_derivs(model, *dv_cart)  # noqa: E731
     print(f"[{smi}] fused_derivs on cart-pole (the Gauss-Newton iLQR path), B={ILQR_B}, "
@@ -2403,9 +2820,15 @@ def main():
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "chain_bound_ms": chains.get(name), "issue_bound_ms": issue.get(name),
             "other_shapes": other_shapes.get(name, []), "library_ms": None, "pass": True})
+    for e in family_entries:  # the generic-cost and dummy instantiations, phases (g) to (i)
+        src, replaces = sources[e.pop("base")]
+        kernels.append({**e, "source": f"benchmarking_mpc_solvers_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches_by_path": {
+                            p: n[e["name"].split("[")[0]] for p, n in family_launches.items()
+                            if n[e["name"].split("[")[0]]}})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
                       "experiment_wall_s": exp_walls, "port_layer": port_layer,
-                      "utils_timers": timers, "card": smi}), flush=True)
+                      "model_family": family, "utils_timers": timers, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -166,31 +166,163 @@ def test_mppi_and_rollout_launch_shapes(dev, name):
 
 
 def test_mppi_and_rollout_kernels_refuse_other_weights(dev):
-    """Kernels 1 and 2 are compiled for the model's own nonzero cost terms:
-    a weight array with another term is refused before anything launches."""
-    import ctypes
+    """Kernels 1 and 2 refuse a model id without a functor before anything
+    launches. Weights other than the functor's compiled terms (cart-pole
+    with W_11 = 1) are no longer refused: they take the generic form, the
+    same kernel testing each weight as it runs, and match the plain
+    version of the reweighted model."""
+    import dataclasses
 
     from benchmarking_mpc_solvers_tpu_torch import _build
+    from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
 
     model = REGISTRY["cartpole_swingup"]
-    w = (ctypes.c_float * (_build.MAX_Z * _build.MAX_Z))()
-    ctypes.memmove(w, _build.quad_weights(model.state_cost), ctypes.sizeof(w))
-    w[1 * _build.MAX_Z + 1] = 1.0  # W_11, zero in cart-pole's cost
+    w = _build.quad_weights(model.state_cost)
     T, B, K = 4, 8, 32
     plan, out = torch.zeros((T, B), device=dev), torch.full((T, B), 7.0, device=dev)
     x0, gz = torch.zeros((4, B), device=dev), torch.zeros((T, 5), device=dev)
     stream = _build.stream_ptr(dev)
-    mid = _build.model_id(model)
+    no_functor = _build.dummy_id(_build.DUMMY_STATES[-1]) + 1
     rc = _build.kernel_fn("fused_mppi_step_launch")(
-        mid, _build.ptr(plan), _build.ptr(x0), _build.ptr(gz), _build.ptr(out), T, B, K, 1.0,
-        1.0, 1.0, 0, 128, 128, w, stream)
+        no_functor, _build.ptr(plan), _build.ptr(x0), _build.ptr(gz), _build.ptr(out), T, B, K,
+        1.0, 1.0, 1.0, 0, 128, 128, w, stream)
     assert rc != 0
     costs = torch.full((B,), 7.0, device=dev)
     rc = _build.kernel_fn("fused_rollout_costs_launch")(
-        mid, _build.ptr(x0), _build.ptr(plan), _build.ptr(gz), _build.ptr(costs), T, B, w, stream)
+        no_functor, _build.ptr(x0), _build.ptr(plan), _build.ptr(gz), _build.ptr(costs), T, B,
+        w, stream)
     assert rc != 0
     torch.cuda.synchronize()
     assert bool((out == 7.0).all()) and bool((costs == 7.0).all())
+
+    W = np.array(model.state_cost.W)
+    W[1, 1] = 1.0  # zero in cart-pole's registered cost
+    other = dataclasses.replace(model, state_cost=quad_cost(W))
+    assert list(_build.quad_weights(other.state_cost)) != list(w)
+    rng = np.random.default_rng(3)
+    plan = _t(rng.uniform(-1.5, 1.5, (T, B)), dev)
+    x0 = _t(rng.uniform(-1, 1, (4, B)), dev)
+    got = fused_mppi_step(other, K, 1.0, 1.0, 128, plan, x0, gz, 3)
+    torch.testing.assert_close(
+        got, fused_mppi_step_reference(other, K, 1.0, 1.0, 128, plan, x0, gz, 3),
+        rtol=1e-4, atol=1e-4)
+    _bits(fused_rollout_costs_tm(other, x0, plan, gz),
+          fused_rollout_costs_tm_reference(other, x0, plan, gz))
+    assert not torch.equal(fused_rollout_costs_tm(other, x0, plan, gz),
+                           fused_rollout_costs_tm(model, x0, plan, gz))
+
+
+def _functor_model(case):
+    """A model the plants' registered functors did not take before: the
+    dummy at S, or cart-pole with configuration 2's weights."""
+    import dataclasses
+
+    from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
+    from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
+
+    if case.startswith("dummy"):
+        return make_dummy_model(int(case[len("dummy"):]), 1)
+    W = np.diag(np.array([0.5, 0.1, 5.0, 0.5, 0.1], dtype=np.float32))
+    return dataclasses.replace(REGISTRY["cartpole_swingup"], state_cost=quad_cost(W))
+
+
+FUNCTOR_CASES = ["dummy1", "dummy2", "dummy5", "dummy6", "dummy8", "cartpole_reweighted"]
+
+
+@pytest.mark.parametrize("case", FUNCTOR_CASES)
+def test_model_kernels_take_the_dummy_family_and_reweighted_plants(dev, case):
+    """Kernels 1, 2, 3, 4 and 6 on the dummy family and a reweighted plant,
+    each in its generic cost form, against their plain versions with actions
+    beyond the dummy's ±1 (its transform sees u unclipped): 2, 3 and 6 bit
+    for bit, 1 and 4 within 1e-4."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_config
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_config
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import (
+        launch_config as ls_config)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config as mppi_config
+
+    model = _functor_model(case)
+    S, Z = model.state_size, model.goal_size
+    T, B, K = 17, 1001, 48
+    rng = np.random.default_rng(S)
+    plan = _t(rng.uniform(-1.5, 1.5, (T, B)), dev)
+    x0 = _t(rng.uniform(-1, 1, (S, B)), dev)
+    gz = _t(rng.uniform(-0.2, 0.2, (T, Z)), dev)
+    lanes = pick_lanes(B)
+    torch.testing.assert_close(
+        fused_mppi_step(model, K, 0.9, 0.7, lanes, plan, x0, gz, 5),
+        fused_mppi_step_reference(model, K, 0.9, 0.7, lanes, plan, x0, gz, 5),
+        rtol=1e-4, atol=1e-4)
+    us = _t(rng.uniform(-2.0, 2.0, (T, 4097)), dev)
+    xn = _t(rng.uniform(-1, 1, (S, 4097)), dev)
+    _bits(fused_rollout_costs_tm(model, xn, us, gz),
+          fused_rollout_costs_tm_reference(model, xn, us, gz))
+    args = (model, K, 5, 2, 0.2, 1.5, lanes, plan, x0, gz, 7)
+    got, got_masks = fused_cem_step(*args, return_masks=True)
+    want, want_masks = fused_cem_step_reference(*args, return_masks=True)
+    assert torch.equal(got_masks, want_masks)
+    _bits(got, want)
+    _derivs_both(model, 300, 17, dev, seed=S)
+    alphas = torch.pow(1.1, -(torch.arange(10, dtype=torch.float32, device=dev) ** 2))
+    la = [alphas] + [_t(a, dev) for a in (
+        0.3 * rng.standard_normal((B, S)), 1.5 * rng.standard_normal((B, T, 1)),
+        0.3 * rng.standard_normal((B, T, 1)), 0.2 * rng.standard_normal((B, T, 1, S)),
+        0.3 * rng.standard_normal((B, T + 1, S)), rng.uniform(-0.2, 0.2, (T, Z)))]
+    for g, w in zip(fused_linesearch(model, *la, with_terminal=True, return_states=True),
+                    fused_linesearch_reference(model, *la, with_terminal=True,
+                                               return_states=True)):
+        _bits(g, w)
+    for cfg in (mppi_config(model, T, K, B), rollout_config(model, 4097),
+                cem_config(model, T, K, B), ls_config(model, 10, B)):
+        assert cfg["generic_cost"] and 0 < cfg["registers"] <= 255 and cfg["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_registered_plants_take_the_specialised_cost(dev, name):
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_config
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_config
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import (
+        launch_config as ls_config)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config as mppi_config
+
+    model = REGISTRY[name]
+    for cfg in (mppi_config(model, 50, 32, 8192), rollout_config(model, 262144),
+                cem_config(model, 50, 64, 10240), ls_config(model, 10, 1024)):
+        assert not cfg["generic_cost"]
+
+
+@pytest.mark.parametrize("agent", ["MPPI", "CEM", "ILQR", "SQP"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_linear_model_is_refused_before_any_launch(dev, agent, use_kernel):
+    """The linear model has no functor (the reference's kernels cannot trace
+    it either): ``run_episodes_fused`` refuses it on the card on its first
+    line, with no launch of any kernel; ``run_episodes_batch`` runs it."""
+    import dataclasses
+
+    from benchmarking_mpc_solvers_tpu_torch import solvers
+    from benchmarking_mpc_solvers_tpu_torch.envs import PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.experiment import (
+        EpisodeConfig, run_episodes_batch, run_episodes_fused)
+    from benchmarking_mpc_solvers_tpu_torch.models import make_linear_model
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+
+    model = make_linear_model([[1.0, 0.1], [0.0, 1.0]], [[0.0], [0.1]], np.eye(2),
+                              0.1 * np.eye(1), bounds=50.0)
+    env = dataclasses.replace(PendulumEnv, name="linear", model=model, default_start=(1.0, 0.0))
+    solver = getattr(solvers, agent)(model=model, T=10)
+    counters = (fused_mppi_step, fused_rollout_costs_tm, fused_cem_step, riccati_backward_batch,
+                fused_linesearch, fused_derivs, admm_iterate, ts.i2c_filter, ts.i2c_rts_smooth)
+    before = [f.launches for f in counters]
+    x0s = env.start_state(dev).expand(8, -1).contiguous()
+    cfg = EpisodeConfig(n_steps=2, record_plans=False)
+    with pytest.raises(NotImplementedError, match="'linear'.*do not trace either"):
+        run_episodes_fused(env, solver, cfg, x0s, use_kernel=use_kernel, device=dev)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == before
+    if use_kernel:
+        res = run_episodes_batch(env, solver, cfg, x0s, device=dev)
+        assert bool(torch.isfinite(res.costs).all())
+        assert [f.launches for f in counters] == before
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -85,12 +85,15 @@ def test_rollout_broadcasts_one_start_over_samples():
 
 
 def test_registry_and_device_functors():
-    """The dummy is registered as in the reference; the kernels that call a
-    model's dynamics have no device functor for the synthetic models and
-    refuse them."""
+    """The dummy is registered as in the reference. The dummy family has a
+    device functor (``Dummy<S>``, S = 1 to 8, a scalar action), which the
+    kernels that call a model's dynamics take; the linear model has none,
+    as the reference's kernels cannot trace it, and is refused."""
     assert tmodels.REGISTRY["dummy"] is tmodels.DummyModel
     assert set(tmodels.REGISTRY) == set(jmodels.REGISTRY)
-    assert "dummy" not in _build.DEVICE_MODELS
-    for model in (tmodels.DummyModel, _linear(3, 2, 1)[1]):
+    assert _build.model_id(tmodels.DummyModel) == _build.dummy_id(2)
+    assert _build.model_id(tmodels.make_dummy_model(3, 1)) != _build.model_id(
+        tmodels.DummyModel)
+    for model in (_linear(3, 2, 1)[1], _linear(2, 1, 1)[1]):
         with pytest.raises(NotImplementedError, match="no CUDA device function"):
             _build.model_id(model)
