@@ -5,18 +5,22 @@ cost statistics (mean, min, median and quartiles of the per-episode total
 cost, each step's cost clipped to [-20, 20]) and the summed solve time per
 (env, solver, T) and per (env, solver, K) group, pivoted with pandas, each
 column scaled by its power of ten, written as standalone LaTeX documents.
-Needs pandas, which this package imports only here.
+The pivots need pandas, which ``format_table`` and ``generate_tables``
+import when they run: ``aggregate`` is numpy only, so that the quality
+check runs where pandas is not installed.
 """
 
 from __future__ import annotations
 
 import pathlib
-from typing import Dict, Iterable, List
+from typing import TYPE_CHECKING, Dict, Iterable, List
 
 import numpy as np
-import pandas as pd
 
 from .store import ResultStore
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 STAT_NAMES = {
     "avg": "Average",
@@ -91,6 +95,8 @@ def generate_tables(
     sample_counts: Iterable[int] = (10, 20, 50, 200, 500),
 ) -> List[str]:
     """Write <env>_T_table.tex and <env>_K_table.tex; returns their paths."""
+    import pandas as pd
+
     written = []
     for env in envs:
         rows_T, rows_K = [], []

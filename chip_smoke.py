@@ -68,6 +68,13 @@ Phases (any failure exits non-zero before the result line):
      solve, the generic cost form's device time beside the registered
      cart-pole's specialised one; the linear model refused by
      run_episodes_fused (MPPI and iLQR) before any launch;
+   - the study entry points (phase (k)): the first configuration of each
+     sweep script's grid (benchmarking_mpc_solvers_tpu_torch/scripts/) at
+     its full widths through the script's own run_and_store, cut to
+     STUDY_STEPS steps and STUDY_WARM warm-start solves, with the launches
+     its route predicts and its record read back from the store, and the
+     kernels of an iLQR route held against their plain versions on one
+     solve's own inputs at that configuration;
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
@@ -159,6 +166,113 @@ def experiment_keys(sensor: bool, actuation: bool, per_step: bool) -> list:
     if actuation:
         keys += ["env_true_actions", "actuation_noise_std"]
     return sorted(keys)
+
+
+# Phase (k), the study entry points: the first configuration of each sweep
+# script's full-mode grid (benchmarking_mpc_solvers_tpu_torch/scripts/), at
+# its full widths (K, T, repetitions, solver settings), through the
+# script's own run_and_store; its 100 steps (200 in experiment_test) and
+# warm start 50 cut to STUDY_STEPS and STUDY_WARM for the time limit. Each
+# names the kernels its route launches once a solver iteration (two calls
+# of STUDY_WARM + STUDY_STEPS solves of max_iter iterations): iLQR with
+# diag_hessian the line search alone (its backward pass is the variant's
+# own recursion), exact-Hessian iLQR the Riccati pass and the line search,
+# each held bit for bit on one solve's calls at the configuration; CEM,
+# MPPI and QP-MPC take the plain batched tier, as the reference's vmapped
+# solves reach no kernel
+STUDY_STEPS, STUDY_WARM = 20, 10
+STUDY_ROUTES = {
+    "experiment_test": (), "sample_test": (), "mppi_temperature": (),
+    "ilqr_tuning": ("fused_linesearch",), "noise_tests": (), "new_solver_sweep": (),
+    "ilqr_modern_cells": ("riccati_backward_batch", "fused_linesearch"),
+}
+
+
+def study_paths(counters, reset_counts, smi: str, launches: dict) -> dict:
+    """Phase (k): each sweep's first configuration on the card into a
+    temporary results directory, with the launch counts at 0 just before
+    and read just after; its record read back from the store bit for bit,
+    with the reference's keys; each kernel of its route against the plain
+    version on every call of one solve at the configuration (iLQR's widths,
+    repetitions and start state). Fails on any other launch count, any
+    difference, and if the phase imported pandas or matplotlib."""
+    import importlib
+    import tempfile
+
+    from benchmarking_mpc_solvers_tpu_torch.experiment import ResultStore
+    from benchmarking_mpc_solvers_tpu_torch.scripts import _common
+
+    dev = torch.device("cuda", 0)
+    host_only = ("pandas", "matplotlib")
+    loaded = {m for m in host_only if sys.modules.get(m) is not None}
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, route in STUDY_ROUTES.items():
+            mod = importlib.import_module(f"benchmarking_mpc_solvers_tpu_torch.scripts.{name}")
+            args = _common.std_parser("").parse_args(["--results-dir", tmp, "--no-plots"])
+            collection, params, warm = next(iter(mod.grid(args)))
+            full = (params["experiment_length"], warm)
+            params = dict(params, experiment_length=STUDY_STEPS)
+            store = ResultStore(tmp, collection)
+            t0 = time.perf_counter()
+            reset_counts()
+            res = _common.run_and_store(store, params, STUDY_WARM, device=args.device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {fn.__name__: fn.launches for fn in counters}
+            n = 2 * (STUDY_WARM + STUDY_STEPS) * params["agent_config"].get("max_iter", 0)
+            want = {fn.__name__: n if fn.__name__ in route else 0 for fn in counters}
+            if res is None or got != want:
+                fail(f"study {name}: launches {got}, expected {want}")
+            keys = experiment_keys(res["sensor_noise"], res["actuation_noise"], False)
+            if sorted(res) != keys:
+                fail(f"study {name}: results keys {sorted(res)}, expected the reference's {keys}")
+            (back,) = store.find()
+            if sorted(set(back) - {"_id", "date"}) != keys:
+                fail(f"study {name}: the stored record's keys {sorted(back)}")
+            for key, val in res.items():
+                same = (back[key].dtype == val.dtype and back[key].tobytes() == val.tobytes()
+                        if isinstance(val, np.ndarray) else back[key] == val)
+                if not same:
+                    fail(f"study {name}: {key} did not come back from the store as written")
+            # each kernel of the route on this configuration's own inputs:
+            # every call of one solve at its agent_config and repetitions,
+            # from its start state, against the plain version
+            calls = {}
+            for wrapper in route:
+                if params["agent"] != "ILQR":
+                    fail(f"study {name}: a route for {params['agent']}, spied as iLQR's")
+                calls[wrapper] = ilqr_path_calls(
+                    wrapper, params["env"], params["agent_config"],
+                    params.get("sensor_noise", 0.0) if params.get("model_noise") else 0.0,
+                    res["repetitions"], dev, x0=params["start_state"])
+                if len(calls[wrapper]) != params["agent_config"]["max_iter"]:
+                    fail(f"study {name}: one solve made {len(calls[wrapper])} calls of "
+                         f"{wrapper}, expected max_iter")
+            held = held_calls(f"study {name} ({params['env']}, B={res['repetitions']}, "
+                              f"T={params['agent_config']['T']})", calls)
+            launches[f"study {name}"] = got
+            readings[name] = {
+                "collection": collection, "agent": params["agent"], "env": params["env"],
+                "agent_config": params["agent_config"], "repetitions": res["repetitions"],
+                "steps": STUDY_STEPS, "warmstart": STUDY_WARM,
+                "passed_time": res["passed_time"], "compile_time": res["compile_time"],
+                "wall_s": wall, "launches": {k: v for k, v in got.items() if v},
+                "held_calls": {k: len(v) for k, v in calls.items()},
+                "held_max_abs_err": held,
+                "non_finite_runs": _common.episode_counts([res])[1]}
+            print(f"[{smi}] study {name} ({params['agent']} on {params['env']}, "
+                  f"{params['agent_config']}, {res['repetitions']} repetitions, {STUDY_STEPS} "
+                  f"steps and warm start {STUDY_WARM} of {full[0]} and {full[1]}): passed_time "
+                  f"{res['passed_time']} s, compile_time {res['compile_time']} s, wall "
+                  f"{wall:.1f} s, launches {readings[name]['launches']}, "
+                  f"{readings[name]['non_finite_runs']} non-finite runs; the record back from "
+                  f"the store bit for bit; one solve's calls held against the plain versions: "
+                  f"{readings[name]['held_calls']}", flush=True)
+    now = {m for m in host_only if sys.modules.get(m) is not None}
+    if now != loaded:
+        fail(f"study phase imported {sorted(now - loaded)}")
+    return readings
 
 # Kernel-vs-plain tolerance. Both sides run float32 one IEEE operation at a
 # time (the kernels are built with --fmad=false and accurate libm calls), so
@@ -563,19 +677,22 @@ def ilqr_derivs_for(name, B, T, dev):
 
 
 def ilqr_path_calls(wrapper: str, env_name: str, agent_config: dict, noise_std: float, B: int,
-                    dev) -> list:
+                    dev, x0=None) -> list:
     """The arguments (args, kwargs) of every call that one iLQR solve of an
     Experiment path makes to a kernel wrapper of ``solvers/ilqr.py``
     (``riccati_backward_batch`` or ``fused_linesearch``, by name), from the
-    path's start state and the solver's initial plans, so that the kernel
-    can be held against its plain version on exactly those inputs."""
+    path's start state ``x0`` (default the environment's) and the solver's
+    initial plans, so that the kernel can be held against its plain version
+    on exactly those inputs."""
     from benchmarking_mpc_solvers_tpu_torch.envs.env import REGISTRY as ENVS
     from benchmarking_mpc_solvers_tpu_torch.experiment import make_solver
     from benchmarking_mpc_solvers_tpu_torch.solvers import ilqr as ilqr_module
     env = ENVS[env_name]
     solver = make_solver("ILQR", env.model, agent_config, model_noise_std=noise_std)
     st = solver.init_state_batch(B, torch.Generator(device=dev).manual_seed(0), dev)
-    x0 = env.start_state(dev).expand(B, -1).contiguous()
+    x0 = env.start_state(dev) if x0 is None else torch.as_tensor(x0, dtype=torch.float32,
+                                                                  device=dev)
+    x0 = x0.expand(B, -1).contiguous()
     gz = torch.zeros((solver.T, env.model.goal_size), device=dev)
     return spy_calls([(ilqr_module, wrapper)], lambda: solver.solve_batch(st, x0, gz))[wrapper]
 
@@ -604,6 +721,39 @@ def spy_calls(targets, run) -> dict:
             real.launches += getattr(module, name).launches
             setattr(module, name, real)
     return calls
+
+
+def held_calls(label, calls) -> dict:
+    """Each call of kernels 4, 5 and 6 that ``spy_calls`` captured, against
+    its plain version on the path's own inputs: 5 and 6 bit for bit, 4
+    within the tolerance. Returns each kernel's largest errors."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_derivs import (
+        fused_derivs, fused_derivs_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import (
+        fused_linesearch, fused_linesearch_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.riccati_backward import (
+        riccati_backward_batch, riccati_backward_batch_reference)
+    errs_ = {}
+    for i, (args, kw) in enumerate(calls.get("fused_derivs", [])):
+        got, want = fused_derivs(*args, **kw), fused_derivs_reference(*args, **kw)
+        e = max(compare(f"fused_derivs[{label}, iteration {i}] {key}", g, w)
+                for key, g, w in zip(("A", "Bd", "c", "Q", "R", "M", "q", "r"), got, want))
+        errs_["fused_derivs"] = max(errs_.get("fused_derivs", e), e)
+    for i, (args, kw) in enumerate(calls.get("riccati_backward_batch", [])):
+        got = riccati_backward_batch(*args, **kw)
+        want = riccati_backward_batch_reference(*args, **kw)
+        for key, g, w in zip(("ks", "Ks", "ok"), got, want):
+            exact_nan(f"riccati_backward_batch[{label}, iteration {i}] {key}", g.float(),
+                      w.float())
+    for i, (args, kw) in enumerate(calls.get("fused_linesearch", [])):
+        got = fused_linesearch(*args, **kw)
+        want = fused_linesearch_reference(*args, **kw)
+        for key, g, w in zip(("us", "xs", "costs") if len(got) == 3 else ("us", "costs"),
+                             got, want):
+            exact_nan(f"fused_linesearch[{label}, iteration {i}] {key}", g, w)
+        e = compare(f"fused_linesearch[{label}, iteration {i}] costs", got[-1], want[-1])
+        errs_["fused_linesearch"] = max(errs_.get("fused_linesearch", e), e)
+    return errs_
 
 
 def derivs_inputs_for(model, B, T, seed, rolled, dev):
@@ -1983,33 +2133,6 @@ def main():
                 (lambda: fused_cem_step(specialised_model, *a3)))
             return out
 
-        def held(label, calls, derivs_model=None):
-            """Each captured call of kernels 4, 5 and 6 against its plain
-            version on the path's own inputs: 5 and 6 bit for bit, 4 within
-            the tolerance. Returns each kernel's largest errors."""
-            errs_ = {}
-            for i, (args, kw) in enumerate(calls.get("fused_derivs", [])):
-                got, want = fused_derivs(*args, **kw), fused_derivs_reference(*args, **kw)
-                e = max(compare(f"fused_derivs[{label}, iteration {i}] {key}", g, w)
-                        for key, g, w in zip(("A", "Bd", "c", "Q", "R", "M", "q", "r"), got,
-                                             want))
-                errs_["fused_derivs"] = max(errs_.get("fused_derivs", e), e)
-            for i, (args, kw) in enumerate(calls.get("riccati_backward_batch", [])):
-                got = riccati_backward_batch(*args, **kw)
-                want = riccati_backward_batch_reference(*args, **kw)
-                for key, g, w in zip(("ks", "Ks", "ok"), got, want):
-                    exact_nan(f"riccati_backward_batch[{label}, iteration {i}] {key}",
-                              g.float(), w.float())
-            for i, (args, kw) in enumerate(calls.get("fused_linesearch", [])):
-                got = fused_linesearch(*args, **kw)
-                want = fused_linesearch_reference(*args, **kw)
-                for key, g, w in zip(("us", "xs", "costs") if len(got) == 3 else ("us", "costs"),
-                                     got, want):
-                    exact_nan(f"fused_linesearch[{label}, iteration {i}] {key}", g, w)
-                e = compare(f"fused_linesearch[{label}, iteration {i}] costs", got[-1], want[-1])
-                errs_["fused_linesearch"] = max(errs_.get("fused_linesearch", e), e)
-            return errs_
-
         def episodes(label, run, B, steps):
             """FAMILY_REPS host-clock episodes: the launch-count run (already
             warm) and the others run now."""
@@ -2079,7 +2202,7 @@ def main():
                                (ilqr_module, "riccati_backward_batch"),
                                (ilqr_module, "fused_linesearch")],
                               lambda: sol.solve_batch(st, x8, gz8))
-            traj[label] = (calls, held(label + " solve", calls))
+            traj[label] = (calls, held_calls(label + " solve", calls))
         print(f"[{smi}] fused_linesearch on the dummy S=8 at iLQR's shape: launch "
               f"{ls_launch_config(d8, N_ALPHAS, ILQR_B)}", flush=True)
         sq_env = env_of(DummyModel, DUMMY_START)
@@ -2100,7 +2223,7 @@ def main():
                            (riccati_module, "riccati_backward_batch"),
                            (sqp_module, "fused_linesearch")],
                           lambda: sq.solve_batch(sq_st, sq_x0s, sq_gz))
-        traj["dummy sqp"] = (calls, held("dummy sqp solve", calls))
+        traj["dummy sqp"] = (calls, held_calls("dummy sqp solve", calls))
         # kernels 4 and 6 of the dummy at S = 8 (the iLQR paths) and S = 2 (the
         # SQP path), timed on the first captured call of a solve
         for label, path, ls_paths, model_, B_, T_, sqp_ls in (
@@ -2158,7 +2281,7 @@ def main():
         if got != want:
             fail(f"cart-pole reweighted gauss-newton ilqr solve: launches {got}, expected {want}")
         family_launches["cart-pole reweighted gauss-newton ilqr solve"] = got
-        errs_ = held("cart-pole reweighted gauss-newton ilqr solve", calls)
+        errs_ = held_calls("cart-pole reweighted gauss-newton ilqr solve", calls)
         cfg_ = ls_launch_config(cart2, N_ALPHAS, ILQR_B)
         if not cfg_["generic_cost"]:
             fail(f"fused_linesearch[cart-pole reweighted]: launch {cfg_}, expected generic")
@@ -2375,6 +2498,11 @@ def main():
         return exp_walls, exp_results
 
     exp_walls, exp_results = experiment_paths()
+
+    # (k) the study entry points: each sweep script's first configuration
+    t0 = time.perf_counter()
+    study = study_paths(counters, reset_counts, smi, launches)
+    print(f"[{smi}] study phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # small episodes on the card against the plain versions on the CPU
     def small_match(label, tol, run):
@@ -2828,7 +2956,8 @@ def main():
                             if n[e["name"].split("[")[0]]}})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
                       "experiment_wall_s": exp_walls, "port_layer": port_layer,
-                      "model_family": family, "utils_timers": timers, "card": smi}), flush=True)
+                      "model_family": family, "utils_timers": timers, "study_entry_points": study,
+                      "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 
