@@ -31,7 +31,8 @@ from .models import acrobot, cartpole, pendulum, synthetic
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_mppi.cu", "fused_rollout.cu", "fused_cem.cu", "riccati_backward.cu",
-           "fused_linesearch.cu", "fused_derivs.cu", "admm_iterate.cu", "i2c_smooth.cu")
+           "fused_linesearch.cu", "fused_derivs.cu", "admm_iterate.cu", "i2c_smooth.cu",
+           "roofline.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -126,6 +127,7 @@ def load(source: str) -> ctypes.CDLL:
 # --- launch helpers ------------------------------------------------------------
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_L = ctypes.c_longlong
 _W = ctypes.POINTER(ctypes.c_float)  # host array of cost weights
 # C entry point -> (source, argument types); pointers and the stream as void*
 SIGNATURES = {
@@ -154,6 +156,9 @@ SIGNATURES = {
     "i2c_filter_launch": ("i2c_smooth.cu", [_P] * 13 + [_I] * 5 + [_P]),
     "i2c_rts_launch": ("i2c_smooth.cu", [_P] * 6 + [_I] * 3 + [_P]),
     "i2c_launch_config": ("i2c_smooth.cu", [_I, _I, _I, _P]),
+    "roofline_op_launch": ("roofline.cu", [_I, _P, _P, _L, _I, _P]),
+    "roofline_noise_launch": ("roofline.cu", [_I, _P, _P, _I, _I, _P]),
+    "roofline_launch_config": ("roofline.cu", [_I, _I, _L, _P]),
 }
 
 

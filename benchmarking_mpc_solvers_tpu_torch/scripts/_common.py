@@ -1,5 +1,6 @@
 """Shared pieces of the study scripts: start states, environment names, the
-argument parser, and ``run_and_store`` with its sweep checkpoint.
+argument parser, and ``run_and_store`` with its sweep checkpoint; and the
+measurement scripts' timer and output file.
 
 Counterpart of ``scripts/_common.py``. Each sweep script yields its
 configurations from ``grid(args)`` as ``(collection, params, warmstart)``,
@@ -15,9 +16,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
+import time
 from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..experiment import Experiment, ResultStore
@@ -120,3 +124,111 @@ def episode_counts(results: Iterable[dict]) -> Tuple[int, int]:
     have a non-finite total: reported beside a median, never dropped."""
     totals = np.concatenate([np.asarray(r["batch_costs"]).sum(axis=1) for r in results])
     return int(totals.size), int((~np.isfinite(totals)).sum())
+
+
+# --- the measurement scripts (roofline, profile_*, bench_riccati, scaling_bench) ---
+
+def wall_seconds(fn: Callable, device, reps: int = 5) -> float:
+    """The least seconds of one ``fn()`` over ``reps`` calls after a warm-up
+    call: CUDA events around the call on the card (the host's launches
+    inside the interval), the host clock on the CPU, each ending in a
+    synchronise."""
+    device = torch.device(device)
+    fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+def device_record(device) -> dict:
+    """What a measurement ran on: the card's name and count, or the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+                "count": torch.cuda.device_count()}
+    return {"platform": "cpu", "kind": "cpu", "count": 1}
+
+
+def write_measure(args: argparse.Namespace, name: str, out: dict) -> pathlib.Path:
+    """Writes a measurement script's record to
+    ``<results-dir>/measure/<name>.json`` and returns the path."""
+    path = pathlib.Path(args.results_dir) / "measure" / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    print("wrote", path, flush=True)
+    return path
+
+
+def measure_parser(description: str) -> argparse.ArgumentParser:
+    """``std_parser`` with ``--samples``: the paired timing samples a
+    measurement takes (default: the script's own)."""
+    p = std_parser(description)
+    p.add_argument("--samples", type=int, default=None,
+                   help="timing samples per stage (default: the script's)")
+    p.add_argument("--min-chains", action="store_true",
+                   help="chains of 1 step and of at least 2, sized to the target time: for "
+                        "stages long beside a chain's constant")
+    return p
+
+
+def chain_options(args: argparse.Namespace) -> dict:
+    """``utils.device_step_latency``'s chain settings for a measurement
+    script's arguments: with ``--quick`` the shortest chains (1 and 2 steps;
+    a smoke run, no measurement), with ``--min-chains`` a short chain of one
+    step and a long one sized to the target time but at least one step
+    longer (for stages long beside a chain's constant), else the timer's
+    own."""
+    if args.quick:
+        return dict(n_lo=1, min_hi=1, target_s=0.0)
+    if args.min_chains:
+        return dict(n_lo=1, min_hi=1)
+    return {}
+
+
+def stage_timer(stages: dict, device, samples: int, chains: dict, n_inputs: int = 8):
+    """``timed(name, fn, inputs, max_hi=160)``: the per-step latency of the
+    stage ``fn(input) -> scalar tensor`` over chains of its inputs
+    (``utils.device_step_latency`` with ``chains``, a chain's constant cost
+    cancelled in the paired difference), into ``stages[name]`` as p50, p90
+    and the resolution in ms; a p50 at or below the resolution is flagged.
+    A step's chain is host-issued PyTorch, so a stage whose host work
+    outlasts its device work reads its host time."""
+    from ..utils import device_step_latency
+
+    def timed(name, fn, inputs, max_hi=160):
+        def step(c, inp):
+            v = fn(inp)
+            return c + v, v
+
+        p50, p90, res = device_step_latency(
+            step, torch.zeros((), device=device), list(inputs)[:n_inputs], samples=samples,
+            max_hi=max_hi, return_stats=True, device=device, **chains)
+        stages[name] = {"p50_ms": round(p50, 4), "p90_ms": round(p90, 4),
+                        "resolution_ms": round(res, 4)}
+        if p50 <= res:
+            stages[name]["below_resolution"] = True
+        print(f"{name}: p50 {p50:.4f} ms  p90 {p90:.4f} ms  (resolution {res:.4f} ms)",
+              flush=True)
+
+    return timed
+
+
+def perturbations(shape, device, scale: float = 1e-6, n: int = 8, seed: int = 3) -> list:
+    """n tensors of ``scale``·N(0, 1) of ``shape`` (numpy, fixed seed): the
+    per-step inputs that keep a stage's chained evaluations apart."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(device)
+            for _ in range(n)]

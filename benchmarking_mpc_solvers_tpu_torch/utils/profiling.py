@@ -90,6 +90,7 @@ def device_step_latency(
     max_hi: int = 160,
     return_stats: bool = False,
     device="cuda",
+    min_hi: int = 8,
 ):
     """Per-step device latency percentiles, in ms, free of each chain's
     constant cost.
@@ -107,7 +108,9 @@ def device_step_latency(
     steps; the percentiles are clamped at 0. With ``return_stats=True``
     returns ``(p50_ms, p90_ms, resolution_ms)``, ``resolution_ms`` the
     sample standard deviation of the per-step estimates: a latency at or
-    below it reads as "< resolution", not as a measurement.
+    below it reads as "< resolution", not as a measurement. The long chain
+    has at least ``min_hi`` steps more than the short one (the reference's
+    8); a step long beside a chain's constant needs fewer.
     """
     device = resolve_device(device)
     n_inputs = len(inputs)
@@ -126,7 +129,7 @@ def device_step_latency(
     # n_lo chain's time gives a first guess, one paired difference at that
     # guess a constant-free estimate that sizes the final chain
     def size_hi(est):
-        return n_lo + int(max(8, min(max_hi, round(target_s / max(est, 1e-5)))))
+        return n_lo + int(max(min_hi, min(max_hi, round(target_s / max(est, 1e-5)))))
 
     run(n_lo)  # warm-up
     est = run(n_lo) / n_lo

@@ -21,21 +21,21 @@ Phases (any failure exits non-zero before the result line):
    - CEM, the sweep configuration (cart-pole swing-up, K=64, n_elite=8,
      max_iter=3, T=50, B=10240, 10 MPC steps) on both tiers;
    - iLQR, the batched configuration (cart-pole swing-up, T=100,
-     max_iter=5, reference_accept=False, B=1024, warm start 10, 20 MPC
-     steps) through the Riccati and line-search kernels, with exact
+     max_iter=5, reference_accept=False, B=1024, warm start 10; its 20 MPC
+     steps cut to 5) through the Riccati and line-search kernels, with exact
      Hessians and again with gauss_newton=True (then also the derivative
      kernel);
    - SQP, the suite's configuration 4 (acrobot, T=100, max_iter=4, B=1024,
-     20 MPC steps from [0.1, 0, 0.2, 0]) through the derivative, Riccati
-     and line-search kernels;
+     from [0.1, 0, 0.2, 0]; its 20 MPC steps cut to 5) through the
+     derivative, Riccati and line-search kernels;
    - QP-MPC, the suite's configuration 1 (pendulum, T=20, condensed ADMM,
      100 iterations, B=512, 50 MPC steps) through the ADMM kernel, and
      configuration 2 (cart-pole stabilisation, T=50, Riccati-ADMM, 60
-     iterations, B=256, 40 MPC steps), which is plain PyTorch;
+     iterations, B=256; its 40 MPC steps cut to 20), which is plain PyTorch;
    - I2C, the suite's configuration 6 (pendulum, T=25, max_iter=10, B=256,
-     50 MPC steps) and its row of the six-family sweep (cart-pole
-     swing-up, T=50, max_iter=3, B=10240, 10 MPC steps), each iteration
-     through the Kalman-filter and RTS-smoother kernels;
+     its 50 MPC steps cut to 25) and its row of the six-family sweep
+     (cart-pole swing-up, T=50, max_iter=3, B=10240, 10 MPC steps), each
+     iteration through the Kalman-filter and RTS-smoother kernels;
    - through ``Experiment.run`` (its untimed first call and its timed
      call): MPPI at the bench configuration on the kernel tier (its result
      through a ``ResultStore`` and back bit for bit); iLQR under model
@@ -75,6 +75,15 @@ Phases (any failure exits non-zero before the result line):
      its route predicts and its record read back from the store, and the
      kernels of an iLQR route held against their plain versions on one
      solve's own inputs at that configuration;
+   - the measurement scripts (phase (l)): kernels 9 and 10
+     (csrc/roofline.cu) against their plain versions bit for bit at the
+     roofline rows' grids, then roofline, profile_cem, profile_ilqr,
+     profile_sqp, profile_i2c, bench_riccati and scaling_bench
+     (benchmarking_mpc_solvers_tpu_torch/scripts/) at their full shapes
+     through their own main(), MEASURE_SAMPLES timing samples a stage, each
+     with the launches of its route and no other; the Riccati crossover;
+     kernels 9 and 10 timed at the kernel rows' shapes beside their bound
+     and the SASS issue floor of their loops;
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
@@ -114,17 +123,20 @@ HORIZON, K_SAMPLES, BATCH, N_STEPS = 50, 32, 8192, 20
 # T = 50), at which kernel 1 is also checked and timed
 MPPI_SWEEP_K, MPPI_SWEEP_B = 64, 10240
 # CEM sweep (scripts/bench_suite.py:256-266) and iLQR configuration 3
-# (scripts/bench_suite.py:216-223) of the reference's suite
+# (scripts/bench_suite.py:216-223) of the reference's suite, iLQR's 20 MPC
+# steps cut to ILQR_STEPS for the time limit (both Hessians)
 CEM_T, CEM_K, CEM_ELITE, CEM_ITERS, CEM_B, CEM_STEPS = 50, 64, 8, 3, 10240, 10
-ILQR_T, ILQR_ITERS, ILQR_B, ILQR_WARM, ILQR_STEPS, N_ALPHAS = 100, 5, 1024, 10, 20, 10
-# SQP configuration 4 and the QP-MPC configurations 1 and 2
-# (scripts/bench_suite.py:225-238, :168-177, :179-214)
-SQP_T, SQP_ITERS, SQP_B, SQP_STEPS, SQP_START = 100, 4, 1024, 20, (0.1, 0.0, 0.2, 0.0)
+ILQR_T, ILQR_ITERS, ILQR_B, ILQR_WARM, ILQR_STEPS, N_ALPHAS = 100, 5, 1024, 10, 5, 10
+# SQP configuration 4 (its 20 steps cut to SQP_STEPS) and the QP-MPC
+# configurations 1 and 2 (scripts/bench_suite.py:225-238, :168-177, :179-214;
+# configuration 2's 40 steps cut to QP2_STEPS)
+SQP_T, SQP_ITERS, SQP_B, SQP_STEPS, SQP_START = 100, 4, 1024, 5, (0.1, 0.0, 0.2, 0.0)
 QP1_T, QP1_ITERS, QP1_B, QP1_STEPS = 20, 100, 512, 50
-QP2_T, QP2_ITERS, QP2_B, QP2_STEPS, QP2_START = 50, 60, 256, 40, (0.3, 0.0, 0.4, 0.0)
-# I2C configuration 6 and the I2C row of the six-family sweep
-# (scripts/bench_suite.py:341-347, :251-264), starts jittered by 1e-3 as there
-I2C6_T, I2C6_ITERS, I2C6_B, I2C6_STEPS = 25, 10, 256, 50
+QP2_T, QP2_ITERS, QP2_B, QP2_STEPS, QP2_START = 50, 60, 256, 20, (0.3, 0.0, 0.4, 0.0)
+# I2C configuration 6 (its 50 steps cut to I2C6_STEPS) and the I2C row of
+# the six-family sweep (scripts/bench_suite.py:341-347, :251-264), starts
+# jittered by 1e-3 as there
+I2C6_T, I2C6_ITERS, I2C6_B, I2C6_STEPS = 25, 10, 256, 25
 I2CS_T, I2CS_ITERS, I2CS_B, I2CS_STEPS = 50, 3, 10240, 10
 QP2_WEIGHTS = dict(goal_x=(0.0, 0.0, 0.0, 0.0), R=((0.1,),),
                    Q=((0.5, 0, 0, 0), (0, 0.1, 0, 0), (0, 0, 5.0, 0), (0, 0, 0, 0.5)))
@@ -139,9 +151,9 @@ QP2_WEIGHTS = dict(goal_x=(0.0, 0.0, 0.0, 0.0), R=((0.1,),),
 # under model noise at configuration 4's widths (acrobot, T=100,
 # max_iter=4, 1024 repetitions) for EXP_SQP_STEPS steps. The per-step
 # timed run: MPPI at the bench widths.
-EXP_NOISE_STEPS, EXP_NOISE_WARM = 20, 10
-EXP_VARIANT_STEPS, EXP_VARIANT_WARM = 10, 2
-EXP_SQP_STEPS, EXP_PER_STEP_STEPS = 5, 10
+EXP_NOISE_STEPS, EXP_NOISE_WARM = 5, 5
+EXP_VARIANT_STEPS, EXP_VARIANT_WARM = 5, 2
+EXP_SQP_STEPS, EXP_PER_STEP_STEPS = 3, 10
 EXP_REPS = 5
 ILQR_NOISE_CONFIG = {"T": 25, "max_iter": 5, "threshold": 1e-7, "closed_loop": False}
 # the reference's results dict (benchmarking_mpc_solvers_tpu/experiment/
@@ -180,7 +192,7 @@ def experiment_keys(sensor: bool, actuation: bool, per_step: bool) -> list:
 # each held bit for bit on one solve's calls at the configuration; CEM,
 # MPPI and QP-MPC take the plain batched tier, as the reference's vmapped
 # solves reach no kernel
-STUDY_STEPS, STUDY_WARM = 20, 10
+STUDY_STEPS, STUDY_WARM = 10, 10
 STUDY_ROUTES = {
     "experiment_test": (), "sample_test": (), "mppi_temperature": (),
     "ilqr_tuning": ("fused_linesearch",), "noise_tests": (), "new_solver_sweep": (),
@@ -274,6 +286,198 @@ def study_paths(counters, reset_counts, smi: str, launches: dict) -> dict:
         fail(f"study phase imported {sorted(now - loaded)}")
     return readings
 
+
+# Phase (l), the measurement scripts (benchmarking_mpc_solvers_tpu_torch/
+# scripts/): each at its configuration's full shapes through its own main(),
+# with the kernels its route launches. The profiles take MEASURE_SAMPLES
+# timing samples a stage (the scripts' default is 10), those of iLQR, SQP and
+# I2C chains of one step and of at least two (--min-chains: their solves
+# take 0.2-0.5 s), bench_riccati RICCATI_REPS-call chains once (its
+# default: 50 and 15, three times), for the time limit; no shape is cut.
+MEASURE_SAMPLES, RICCATI_REPS = 2, 2
+MEASURE_ROUTES = {
+    "roofline": ((), ("roofline_op", "roofline_noise")),
+    "profile_cem": (("--samples", str(MEASURE_SAMPLES)),
+                    ("fused_rollout_costs_tm", "fused_cem_step")),
+    "profile_ilqr": (("--samples", str(MEASURE_SAMPLES), "--min-chains"),
+                     ("riccati_backward_batch", "fused_linesearch")),
+    "profile_sqp": (("--samples", str(MEASURE_SAMPLES), "--min-chains"),
+                    ("fused_derivs", "riccati_backward_batch", "fused_linesearch")),
+    "profile_i2c": (("--samples", str(MEASURE_SAMPLES), "--min-chains"),
+                    ("i2c_filter", "i2c_rts_smooth")),
+    "bench_riccati": (("--reps", str(RICCATI_REPS), "--outer", "1"), ()),
+    "scaling_bench": ((), ("fused_mppi_step",)),
+}
+# kernels 9 and 10 against their plain versions before the timings: at the
+# roofline rows' full grids with a reduced chain
+ROOFLINE_CHECK_INNER = 64
+# FP32 operations of one application of each op of kernel 9, each libm call
+# counted once (a lower bound): fma mul + add; log abs, add, log; div add,
+# div; exp abs, neg, exp. A normal of kernel 10: NOISE_OPS and the sum's add
+# (NOISE_DRAW_EXTRA); a paired draw also the sine, its product and a second
+# add.
+ROOFLINE_OP_OPS = {"fma": 2, "cos": 1, "sin": 1, "log": 3, "div": 2, "exp": 3}
+NOISE_DRAW_EXTRA = {"single": 1, "paired": 4}
+# the kernel rows' shapes (scripts/roofline.py:measure_pallas_op and
+# measure_pallas_noise), at which each instantiation is timed
+ROOFLINE_GRID, ROOFLINE_INNER, NOISE_PROGRAMS, NOISE_INNER = 256, 2048, 1024, 256
+# kernels 9 and 10 unroll the chain by this many applications a trip
+ROOFLINE_UNROLL = 8
+
+
+def roofline_loop_counts(library: Path) -> dict:
+    """Per instantiation of csrc/roofline.cu ({op} of kernel 9, "single" and
+    "paired" of kernel 10), the fast-path SASS instructions of one trip of
+    its chain's loop (the longest loop of the function: kernel 9's trip
+    applies the op ROOFLINE_UNROLL times, kernel 10's draws one normal, or
+    one pair) and the loop's static instructions; {} where cuobjdump is
+    missing."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import OPS
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        return {}
+    dump = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True)
+    if dump.returncode != 0:
+        return {}
+    funcs = sass_functions(dump.stdout)
+    marks = {op: ("roofline_op", f"Op{op.capitalize()}") for op in OPS}
+    marks.update(single=("roofline_noise", "ILb0E"), paired=("roofline_noise", "ILb1E"))
+    counts = {}
+    for key, frags in marks.items():
+        ins = next((v for k, v in funcs.items() if all(f in k for f in frags)), None)
+        if ins is None:
+            continue
+        loops = [(next(j for j, (x, _) in enumerate(ins) if x == tgt), i)
+                 for i, (a, text) in enumerate(ins)
+                 if (tgt := _branch_target(text)) is not None and tgt <= a]
+        if loops:
+            head, tail = max(loops, key=lambda hl: hl[1] - hl[0])
+            counts[key] = (fast_path_count(ins, head, tail), tail - head + 1)
+    return counts
+
+
+def measurement_paths(counters, reset_counts, smi: str, launches: dict, errs: dict) -> tuple:
+    """Phase (l): kernels 9 and 10 against their plain versions on the
+    card; then each measurement script on the card with the launch counts
+    at 0 just before and read just after, each kernel of its route launched
+    and no other; then kernels 9 and 10 timed at the roofline rows' shapes
+    beside their bound and the issue floor of their loops' SASS. Returns the
+    scripts' records and the kernels-line entries of kernels 9 and 10."""
+    import importlib
+
+    from benchmarking_mpc_solvers_tpu_torch import _build
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import (
+        OPS, launch_config, roofline_noise, roofline_noise_reference, roofline_op,
+        roofline_op_reference)
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(9)
+    grid_x = torch.from_numpy(rng.uniform(-2.0, 2.0, (ROOFLINE_GRID, 8, 512)).astype(
+        np.float32)).to(dev)
+    row_x = torch.from_numpy(rng.uniform(-2.0, 2.0, (8, 512 * 1024)).astype(np.float32)).to(dev)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    for op in OPS:  # every op at both rows' shapes, identical bits
+        for x in (grid_x, row_x):
+            got = roofline_op(op, x, ROOFLINE_CHECK_INNER)
+            want = roofline_op_reference(op, x, ROOFLINE_CHECK_INNER)
+            errs.setdefault(f"roofline_op[{op}]", (0.0, 0.0))
+            if not torch.equal(got, want):
+                fail(f"roofline_op[{op}] at {tuple(x.shape)}: kernel vs plain max err "
+                     f"{float((got - want).abs().max()):.3e}, expected identical bits")
+    for form in ("single", "paired"):
+        got = roofline_noise(seed, NOISE_PROGRAMS, ROOFLINE_CHECK_INNER, form == "paired")
+        want = roofline_noise_reference(seed, NOISE_PROGRAMS, ROOFLINE_CHECK_INNER,
+                                        form == "paired")
+        if not torch.equal(got, want):
+            fail(f"roofline_noise[{form}]: kernel vs plain max err "
+                 f"{float((got - want).abs().max()):.3e}, expected identical bits")
+        errs[f"roofline_noise[{form}]"] = (0.0, 0.0)
+    print(f"roofline kernels: every op of kernel 9 at ({ROOFLINE_GRID}, 8, 512) and (8, 524288) "
+          f"and both forms of kernel 10 at ({NOISE_PROGRAMS}, 8, 512), inner "
+          f"{ROOFLINE_CHECK_INNER}: identical bits with the plain versions", flush=True)
+
+    readings, by_op, by_form = {}, {}, {}
+    for name, (argv, route) in MEASURE_ROUTES.items():  # records to results_torch/measure/
+        mod = importlib.import_module(f"benchmarking_mpc_solvers_tpu_torch.scripts.{name}")
+        t0 = time.perf_counter()
+        reset_counts()
+        rec = mod.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {fn.__name__: fn.launches for fn in counters}
+        bad = {k: v for k, v in got.items() if (v > 0) != (k in route)}
+        if bad:
+            fail(f"measure {name}: launches {got}, expected the route {route} and no other")
+        if name == "roofline":
+            by_op, by_form = dict(roofline_op.by_op), dict(roofline_noise.by_form)
+        launches[f"measure {name}"] = got
+        readings[name] = {"wall_s": wall, "launches": {k: v for k, v in got.items() if v},
+                          "record": rec}
+        print(f"[{smi}] measure {name}: {wall:.1f} s, launches "
+              f"{readings[name]['launches']}", flush=True)
+
+    # the Riccati crossover: per bench and B, the horizons where the scan wins
+    cross = {}
+    for r in readings["bench_riccati"]["record"]["lines"]:
+        cross.setdefault(f"{r['bench']} B={r.get('B', '-')}", []).append(
+            (r["T"], r["parallel_speedup"]))
+    print(f"[{smi}] riccati crossover (T, sequential/scan time; >1: the scan wins): "
+          f"{json.dumps(cross)}", flush=True)
+    readings["bench_riccati"]["crossover"] = cross
+
+    # kernels 9 and 10 at the kernel rows' shapes, beside bound and issue floor
+    clock = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    counts = roofline_loop_counts(_build._target("roofline.cu"))
+    src = "benchmarking_mpc_solvers_tpu_torch/csrc/roofline.cu"
+    entries = []
+
+    def entry(name, replaces, n_launch, fn, plain_fn, bnd, trips, key, cfg, per_s):
+        around, device = cuda_time_ms(fn), device_time_ms(fn)
+        plain = cuda_time_ms(plain_fn, reps=3, warmup=1)
+        counted = counts.get(key)
+        floor = None if counted is None else counted[0] * trips / (sms * 4 * clock * 1e3)
+        if floor is not None and device < floor / 1.05:
+            fail(f"{name}: device {device:.4f} ms beats its issue floor {floor:.4f} ms by more "
+                 f"than 5 %: the SASS count ({counted}) is wrong")
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": n_launch, "launches_by_path": {"measure roofline": n_launch},
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": around,
+            "device_ms": device, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "chain_bound_ms": None, "issue_bound_ms": floor, "sass_per_trip": counted,
+            "rate_per_s": per_s / (device * 1e-3), "other_shapes": [], "library_ms": None,
+            "launch": cfg, "pass": True})
+        print(f"[{smi}] {name}: around one call {around:.4f} ms, device {device:.4f} ms, plain "
+              f"{plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), issue floor "
+              + ("not measured" if floor is None else
+                 f"{floor:.4f} ms ({counted[0]} SASS instructions a trip, {trips} warp trips)")
+              + f"; {per_s / (device * 1e-3):.4g} a second; launch {cfg}", flush=True)
+
+    n = grid_x.numel()
+    for op in OPS:
+        evals = n * ROOFLINE_INNER
+        entry(f"roofline_op[{op}]", "scripts/roofline.py:88", by_op.get(op, 0),
+              lambda op=op: roofline_op(op, grid_x, ROOFLINE_INNER),
+              lambda op=op: roofline_op_reference(op, grid_x, ROOFLINE_INNER),
+              bound(8 * n, evals * ROOFLINE_OP_OPS[op]),
+              -(-n // 32) * (ROOFLINE_INNER // ROOFLINE_UNROLL), op, launch_config(op, n), evals)
+    n = NOISE_PROGRAMS * 8 * 512
+    for form in ("single", "paired"):
+        draws = n * NOISE_INNER
+        entry(f"roofline_noise[{form}]", "scripts/roofline.py:133", by_form.get(form, 0),
+              lambda form=form: roofline_noise(seed, NOISE_PROGRAMS, NOISE_INNER,
+                                               form == "paired"),
+              lambda form=form: roofline_noise_reference(seed, NOISE_PROGRAMS, NOISE_INNER,
+                                                         form == "paired"),
+              bound(4 * n + 4, draws * (NOISE_OPS + NOISE_DRAW_EXTRA[form])),
+              -(-n // 32) * NOISE_INNER, form,
+              launch_config("noise_paired" if form == "paired" else "noise", n),
+              draws * (2 if form == "paired" else 1))
+    return readings, entries
+
+
 # Kernel-vs-plain tolerance. Both sides run float32 one IEEE operation at a
 # time (the kernels are built with --fmad=false and accurate libm calls), so
 # the rollouts agree to rounding; what differs is summation order (warp
@@ -329,7 +533,7 @@ SWITCH_TOL, SWITCH_STEPS, SWITCH_SPLIT = 2e-3, 2, 0.05
 # FAMILY_WARM warm-start solves (iLQR; configuration 3 has 10) and
 # FAMILY_STEPS MPC steps (20 in both) for the time limit; cart-pole under
 # configuration 2's weights on its features (scripts/bench_suite.py:184-185)
-FAMILY_WARM, FAMILY_STEPS, FAMILY_REPS = 2, 5, 3
+FAMILY_WARM, FAMILY_STEPS, FAMILY_REPS = 2, 3, 3
 CART2_W = (0.5, 0.1, 5.0, 0.5, 0.1)
 DUMMY_START = (0.5, -0.3)
 
@@ -1210,14 +1414,17 @@ def main():
     from benchmarking_mpc_solvers_tpu_torch.ops.rollout import simulate_trajectory
     from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, I2C, ILQR, MPPI, QPMPC, SQP
 
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import roofline_noise, roofline_op
     counters = (fused_mppi_step, fused_rollout_costs_tm, fused_cem_step,
                 riccati_backward_batch, fused_linesearch, fused_derivs, admm_iterate,
-                i2c_filter, i2c_rts_smooth)
+                i2c_filter, i2c_rts_smooth, roofline_op, roofline_noise)
 
     def reset_counts():
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
+        roofline_op.by_op = dict.fromkeys(roofline_op.by_op, 0)
+        roofline_noise.by_form = dict.fromkeys(roofline_noise.by_form, 0)
 
     # 2. build
     t0 = time.perf_counter()
@@ -2504,6 +2711,11 @@ def main():
     study = study_paths(counters, reset_counts, smi, launches)
     print(f"[{smi}] study phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # (l) the measurement scripts, kernels 9 and 10 among them
+    t0 = time.perf_counter()
+    measure, roofline_entries = measurement_paths(counters, reset_counts, smi, launches, errs)
+    print(f"[{smi}] measurement phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # small episodes on the card against the plain versions on the CPU
     def small_match(label, tol, run):
         on_card, on_cpu = run(dev), run("cpu")
@@ -2948,6 +3160,7 @@ def main():
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "chain_bound_ms": chains.get(name), "issue_bound_ms": issue.get(name),
             "other_shapes": other_shapes.get(name, []), "library_ms": None, "pass": True})
+    kernels += roofline_entries  # kernels 9 and 10, phase (l)
     for e in family_entries:  # the generic-cost and dummy instantiations, phases (g) to (i)
         src, replaces = sources[e.pop("base")]
         kernels.append({**e, "source": f"benchmarking_mpc_solvers_tpu_torch/csrc/{src}",
@@ -2957,6 +3170,8 @@ def main():
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
                       "experiment_wall_s": exp_walls, "port_layer": port_layer,
                       "model_family": family, "utils_timers": timers, "study_entry_points": study,
+                      "measurement_scripts": {k: {"wall_s": v["wall_s"], "launches": v["launches"]}
+                                              for k, v in measure.items()},
                       "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

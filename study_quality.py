@@ -3,6 +3,7 @@ the JAX package's study runs in ``results/``.
 
     python3 study_quality.py run      # on the card; resumes where a cut call stopped
     python3 study_quality.py compare  # host only: the table from the two stores
+    python3 study_quality.py perturbed  # on the card: the iLQR miss cells from perturbed starts
 
 ``run`` takes the T=10 column's configurations from the port's own sweep
 grids and runs them through each script's ``run_and_store`` on the card,
@@ -24,6 +25,17 @@ and whether the port's median lies within the JAX runs' [Q25, Q75]. Then
 each configuration's ``passed_time`` and ``compile_time`` on the card, and
 an estimate of the three sweeps' full wall time from them. It writes the
 whole as JSON to ``--json`` (default ``<results-dir>/study_quality.json``).
+
+``perturbed`` runs the two iLQR cells whose port median lay outside the JAX
+runs' [Q25, Q75] in that check (pendulum and acrobot, ``diag_hessian``,
+T=10) at the study's full depth (100 steps, warm start 50, max_iter 5, 10
+and 25) from 16 starts perturbed by 1e-6·N(0, 1) (numpy, seed 0), through
+the study's route (``Experiment``'s: the solver from ``make_solver``,
+``run_episodes_fused(use_kernel=False)`` with the plans recorded and shifted
+each step; kernel 6 on the card). It reports per cell the range of the
+port's clipped episode totals beside the JAX runs' [Q25, Q75] in
+``results/``, and whether that lies inside it.
+
 Imports only the port and numpy.
 """
 
@@ -38,7 +50,12 @@ import time
 
 import numpy as np
 
-from benchmarking_mpc_solvers_tpu_torch.experiment import ResultStore
+import torch
+
+from benchmarking_mpc_solvers_tpu_torch.device import resolve_device
+from benchmarking_mpc_solvers_tpu_torch.envs import REGISTRY as ENVS
+from benchmarking_mpc_solvers_tpu_torch.experiment import (
+    EpisodeConfig, ResultStore, make_solver, run_episodes_fused)
 from benchmarking_mpc_solvers_tpu_torch.experiment.tables import aggregate
 from benchmarking_mpc_solvers_tpu_torch.scripts import (
     _common, ilqr_tuning, mppi_temperature, sample_test)
@@ -152,17 +169,90 @@ def compare(args) -> dict:
     return out
 
 
+# the T=10 iLQR cells whose port median lay outside the JAX runs' [Q25, Q75]
+# in the quality check on the card; the starts and the perturbation of each
+MISS_CELLS = ("pendulum", "acrobot")
+PERTURBED_STARTS, PERTURB_SCALE = 16, 1e-6
+
+
+def perturbed_totals(params: dict, warm: int, starts: int, scale: float, device) -> np.ndarray:
+    """The clipped episode totals of one configuration's closed loop from
+    ``starts`` starts perturbed by ``scale``·N(0, 1) (numpy, seed 0), on the
+    study's route (``Experiment``'s solver, generator and tier)."""
+    env = ENVS[params["env"]]
+    start = np.asarray(params["start_state"], np.float32)
+    x0s = (start + scale * np.random.default_rng(0).standard_normal((starts, start.size))
+           ).astype(np.float32)
+    solver = make_solver(params["agent"], env.model, params["agent_config"])
+    gen = torch.Generator(device=device).manual_seed(int(params.get("seed", 0)))
+    res = run_episodes_fused(env, solver, EpisodeConfig(n_steps=params["experiment_length"],
+                                                        warmstart=warm),
+                             torch.from_numpy(x0s).to(device), generator=gen,
+                             use_kernel=False, device=device)
+    return np.clip(res.costs.cpu().numpy(), -20, 20).sum(axis=1)
+
+
+def perturbed(args) -> dict:
+    """The miss cells from perturbed starts: per configuration the clipped
+    episode totals, per cell their range against the JAX runs' quartiles."""
+    dev = resolve_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    runs, cells = [], {}
+    for _mod, collection, params, warm in configs(args):
+        if params["agent"] != "ILQR" or params["env"] not in MISS_CELLS:
+            continue
+        t0 = time.perf_counter()
+        totals = perturbed_totals(params, warm, PERTURBED_STARTS, PERTURB_SCALE, dev)
+        wall = time.perf_counter() - t0
+        runs.append({"env": params["env"], "agent_config": params["agent_config"],
+                     "totals": totals.tolist(), "wall_s": wall})
+        print(f"[{smi}] {params['env']} {params['agent_config']}: {PERTURBED_STARTS} perturbed "
+              f"starts, totals [{totals.min():.5f}, {totals.max():.5f}], {wall:.1f} s",
+              flush=True)
+        cell = cells.setdefault(params["env"], {"port": [], "jax": []})
+        cell["port"] += totals.tolist()
+        cell["jax"] += _matching(ResultStore(REFERENCE_DIR, collection), params)
+    rows = []
+    for env, cell in cells.items():
+        port = np.asarray(cell["port"])
+        agg = aggregate(cell["jax"])
+        row = {"env": env, "port_min": float(port.min()), "port_max": float(port.max()),
+               "port_median": float(np.median(port)), "port_episodes": int(port.size),
+               "non_finite": int((~np.isfinite(port)).sum()), "jax_q25": agg["Q 25"],
+               "jax_q75": agg["Q 75"], "jax_median": agg["Median"],
+               "jax_episodes": _common.episode_counts(cell["jax"])[0]}
+        row["inside"] = bool(row["port_min"] <= row["jax_q25"]
+                             and row["jax_q75"] <= row["port_max"])
+        print(f"[{smi}] {env}: port's perturbed range [{row['port_min']:.5f}, "
+              f"{row['port_max']:.5f}] ({row['port_episodes']} episodes), JAX [Q25, Q75] "
+              f"[{row['jax_q25']:.5f}, {row['jax_q75']:.5f}] ({row['jax_episodes']}): "
+              f"{'inside' if row['inside'] else 'NOT inside'}", flush=True)
+        rows.append(row)
+    out = {"card": smi, "starts": PERTURBED_STARTS, "scale": PERTURB_SCALE, "cells": rows,
+           "runs": runs}
+    path = pathlib.Path(args.json)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    print(f"wrote {path}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("command", choices=["run", "compare"])
+    ap.add_argument("command", choices=["run", "compare", "perturbed"])
     ap.add_argument("--results-dir", default="results_torch")
     ap.add_argument("--json", default=None)
     opts = ap.parse_args(argv)
     # the sweeps' own options at their defaults (full grids, on the card)
     args = _common.std_parser("").parse_args(["--results-dir", opts.results_dir])
     args.command = opts.command
-    args.json = opts.json or str(pathlib.Path(opts.results_dir) / "study_quality.json")
+    name = "perturbed_starts.json" if opts.command == "perturbed" else "study_quality.json"
+    args.json = opts.json or str(pathlib.Path(opts.results_dir) / name)
+    if args.command == "perturbed":
+        return perturbed(args)
     if args.command == "run":
         run(args)
     return compare(args)

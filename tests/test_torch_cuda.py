@@ -1040,3 +1040,33 @@ def test_new_entry_points_raise_without_cuda(monkeypatch):
                  lambda: slope_timer(lambda g: x.sum())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# The roofline kernels (9, 10): the plain versions run the same float32
+# operations in the same order, one IEEE operation at a time (the kernels are
+# built with --fmad=false, no fast math), so every output matches bit for bit
+@pytest.mark.parametrize("op", ["fma", "cos", "sin", "log", "div", "exp"])
+def test_roofline_op_kernel_matches_plain_bit_for_bit(dev, op):
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import (
+        roofline_op, roofline_op_reference)
+
+    x = _t(np.random.default_rng(0).uniform(-2.0, 2.0, (3, 8, 512 + 7)), dev)
+    for inner in (0, 1, 13, 64):  # a remainder trip, and whole unrolled trips
+        before = roofline_op.launches
+        got = roofline_op(op, x, inner)
+        assert roofline_op.launches == before + 1
+        assert torch.equal(got, roofline_op_reference(op, x, inner)), (op, inner)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_roofline_noise_kernel_matches_plain_bit_for_bit(dev, paired):
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import (
+        roofline_noise, roofline_noise_reference)
+
+    for seed in (7, 2**31 - 1, -5):
+        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+        before = roofline_noise.launches
+        got = roofline_noise(s, 37, 9, paired)
+        assert roofline_noise.launches == before + 1
+        assert got.shape == (37, 8, 512)
+        assert torch.equal(got, roofline_noise_reference(s, 37, 9, paired)), (seed, paired)

@@ -375,6 +375,57 @@ def test_ilqr_quality_miss_cells_against_jax(name):
     assert not agg["Q 25"] <= total <= agg["Q 75"], (total, agg)
 
 
+# Rounding-level perturbations of the start: the yardstick the two miss cells
+# are held to (ROADMAP.md §3)
+PERTURBED, PERTURB_SCALE = 8, 1e-6
+
+
+@pytest.mark.parametrize("name", ["pendulum", "acrobot"])
+def test_ilqr_miss_cells_within_the_jax_rounding_spread(name):
+    """At the miss cells' configuration (diag_hessian, T=10, the study's
+    start state), the JAX package's closed loop on the CPU from the start
+    and from 8 starts perturbed by 1e-6·N(0, 1), and the port's plain closed
+    loop from the same 9 starts and the same initial plans (warm start 10,
+    20 steps): the JAX package's own spread over the perturbed starts is at
+    least the gap between the two packages from any start. Rounding moves
+    the closed loop further than the port moves it from the reference."""
+    jenv, tenv = JENVS[name], TENVS[name]
+    js = JILQR(model=jenv.model, **ILQR_T10)
+    start = np.asarray(_common.START_STATES[name], np.float32)
+    pert = PERTURB_SCALE * np.random.default_rng(0).standard_normal((PERTURBED, start.size))
+    x0s = np.concatenate([start[None], start + pert]).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(2), len(x0s))
+    cfg = dict(n_steps=20, warmstart=10)
+    want = j_batch(jenv, js, JConfig(**cfg), keys, jnp.asarray(x0s))
+    # run_episode's initial plan: init_state(split(key)[0])
+    plans = np.array(jax.vmap(lambda k: js.init_state(jax.random.split(k)[0]).planned_us)(keys))
+    got = run_episodes_fused(tenv, TILQR(model=tenv.model, **ILQR_T10), EpisodeConfig(**cfg),
+                             torch.tensor(x0s), init_plans=plans, use_kernel=False, device="cpu")
+    jax_totals = np.clip(np.asarray(want.costs), -20, 20).sum(axis=1)
+    port_totals = np.clip(got.costs.numpy(), -20, 20).sum(axis=1)
+    spread = float(jax_totals[1:].max() - jax_totals[1:].min())
+    gap = float(np.abs(port_totals - jax_totals).max())
+    assert np.isfinite(jax_totals).all() and np.isfinite(port_totals).all()
+    assert spread >= gap, (f"{name}: the JAX package's spread over perturbed starts {spread:.3e} "
+                           f"is below the port-JAX gap {gap:.3e}", jax_totals, port_totals)
+
+
+@pytest.mark.parametrize("name", ["pendulum", "acrobot"])
+def test_perturbed_starts_run_the_study_closed_loop(name):
+    """``study_quality.py perturbed``'s closed loop, at a perturbation of 0,
+    is the study's ``Experiment``'s: the same episode totals, bit for bit
+    (the miss cell's first configuration, its depth cut, on the CPU)."""
+    import study_quality
+
+    args = _common.std_parser("").parse_args([])
+    (params,) = [p for _c, p, _w in ilqr_tuning.grid(args) if p["env"] == name
+                 and p["agent_config"]["T"] == 10 and p["agent_config"]["max_iter"] == 5]
+    params = dict(params, experiment_length=3, repetitions=2)
+    got = study_quality.perturbed_totals(params, 2, 2, 0.0, "cpu")
+    res = texp.Experiment(params, device="cpu")(warmstart=2)
+    assert got.tolist() == np.clip(res["batch_costs"], -20, 20).sum(axis=1).tolist()
+
+
 def test_episode_counts_keep_non_finite_runs():
     results = [{"batch_costs": np.array([[1.0, 2.0], [np.nan, 1.0]])},
                {"batch_costs": np.array([[np.inf, 0.0]])}]
