@@ -159,6 +159,7 @@ SIGNATURES = {
     "roofline_op_launch": ("roofline.cu", [_I, _P, _P, _L, _I, _P]),
     "roofline_noise_launch": ("roofline.cu", [_I, _P, _P, _I, _I, _P]),
     "roofline_launch_config": ("roofline.cu", [_I, _I, _L, _P]),
+    "roofline_draw_domain_launch": ("roofline.cu", [_P, _P]),
 }
 
 

@@ -25,13 +25,25 @@
 // SMs issue instructions; the bytes (one read and one write of each element,
 // or one write) are nothing beside `inner` operations an element.
 // chip_smoke.py counts the SASS instructions of the chain's loop and prints
-// that floor beside each measured rate.
-// Design: one thread per element, the running value in a register, the
-// chain unrolled by kUnroll so that the loop's own counter and branch are a
-// small share of what a trip issues (a runtime loop, never the whole chain:
-// `inner` reaches 131,072). The flags are the other kernels' (_build.py:
-// --fmad=false, no fast math), so the rates are those of the cosf, logf,
-// sincosf and divisions the rollout kernels compile to.
+// that floor, and the floor of the busiest pipe (FP32, MUFU, conversions,
+// IMAD, the rest), beside each measured rate.
+// Design: the running values in registers, the chain a runtime loop (never
+// the whole chain: `inner` reaches 131,072) whose body is unrolled so that
+// the loop's own counter and branch are a small share of what a trip
+// issues. Kernel 9 gives a thread kElems independent elements (a block
+// kThreads * kElems, neighbouring threads on neighbouring elements for each
+// load and store) and applies the op to each in turn, kUnroll times a trip:
+// a scheduler always has an independent instruction behind a libm body's
+// dependent chain or a MUFU result. Kernel 10 draws kNoiseUnroll normals (or
+// pairs) a trip, its counter's (seed, element) term hoisted and its step term
+// stepped by one add a draw, through the reduced libm forms of models.cuh
+// that kernels 1 and 3 draw through. The flags are the
+// other kernels' (_build.py: --fmad=false, no fast math), so kernel 9's
+// rates are those of the cosf, logf, sincosf and divisions the rollout
+// kernels compile to.
+// roofline_draw_domain (a check, no TPU counterpart) writes the draw's
+// radius, cosine and sine through libm and through the reduced forms for all
+// 2^24 inputs, for chip_smoke.py to compare bit for bit.
 #include <cuda_runtime.h>
 
 #include "models.cuh"
@@ -39,10 +51,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 8;
+constexpr int kUnroll = 16;      // kernel 9: applications to each element a trip
+constexpr int kElems = 2;        // kernel 9: elements a thread
+constexpr int kNoiseUnroll = 4;  // kernel 10: draws (or pairs) a trip
 constexpr int kSublanes = 8;
 constexpr int kLanes = 512;
 constexpr int kTile = kSublanes * kLanes;
+constexpr uint32_t kDomain = 1u << 24;
 
 struct OpFma {
   __device__ static float apply(float x) { return x * 1.000001f + 1e-7f; }
@@ -66,18 +81,45 @@ struct OpExp {
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
 roofline_op(const float* __restrict__ x, float* __restrict__ out, long long n, int inner) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  float v = x[e];
+  const long long e0 = (long long)blockIdx.x * (kThreads * kElems) + threadIdx.x;
+  if (e0 >= n) return;
+  float v[kElems];  // past n: zeros, applied to and not written
+#pragma unroll
+  for (int j = 0; j < kElems; ++j) {
+    const long long e = e0 + (long long)j * kThreads;
+    v[j] = e < n ? x[e] : 0.0f;
+  }
   const int whole = inner - inner % kUnroll;
 #pragma unroll 1
   for (int k = 0; k < whole; k += kUnroll) {
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) v = Op::apply(v);
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int j = 0; j < kElems; ++j) v[j] = Op::apply(v[j]);
+    }
   }
 #pragma unroll 1
-  for (int k = whole; k < inner; ++k) v = Op::apply(v);
-  out[e] = v;
+  for (int k = whole; k < inner; ++k) {
+#pragma unroll
+    for (int j = 0; j < kElems; ++j) v[j] = Op::apply(v[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kElems; ++j) {
+    const long long e = e0 + (long long)j * kThreads;
+    if (e < n) out[e] = v[j];
+  }
+}
+
+// One draw of counter c (its second uniform at c + kTile) added to acc:
+// interp_normal's normal, or both halves, r * cos and then r * sin.
+template <bool Paired>
+__device__ __forceinline__ float add_draw(uint32_t c, float acc) {
+  if (!Paired) return acc + bmpc::normal_at(c, c + kTile);
+  const float r = bmpc::draw_radius(bmpc::fmix32(c) >> 8);
+  float s, co;
+  bmpc::sincos_turn(bmpc::draw_angle(bmpc::fmix32(c + kTile) >> 8), &s, &co);
+  acc = acc + r * co;
+  return acc + r * s;
 }
 
 template <bool Paired>
@@ -88,22 +130,47 @@ roofline_noise(const int* __restrict__ seed, float* __restrict__ out, int progra
   const uint32_t g = (uint32_t)(gid / kTile);
   const uint32_t e = (uint32_t)(gid % kTile);  // s * 512 + l
   const uint32_t seed_c = (uint32_t)seed[0] + g;
+  // the counter of draw i, element e: seed_c * kSeedMul + e, then kStepMul more each draw
+  uint32_t c = seed_c * bmpc::kSeedMul + e;
   float acc = 0.0f;
+  const int whole = inner - inner % kNoiseUnroll;
 #pragma unroll 1
-  for (int i = 0; i < inner; ++i) {
-    if (Paired) {  // interp_normal's draw, both halves
-      const float u1 = bmpc::u01(bmpc::mix32(seed_c, (uint32_t)i, e)) + 1e-7f;
-      const float u2 = bmpc::u01(bmpc::mix32(seed_c, (uint32_t)i, e + kTile));
-      const float r = sqrtf(-2.0f * logf(u1));
-      float s, c;
-      sincosf((2.0f * (float)bmpc::kPi) * u2, &s, &c);
-      acc = acc + r * c;
-      acc = acc + r * s;
-    } else {
-      acc = acc + bmpc::interp_normal(seed_c, (uint32_t)i, e, e + kTile);
+  for (int i = 0; i < whole; i += kNoiseUnroll) {
+#pragma unroll
+    for (int u = 0; u < kNoiseUnroll; ++u) {
+      acc = add_draw<Paired>(c, acc);
+      c += bmpc::kStepMul;
     }
   }
+#pragma unroll 1
+  for (int i = whole; i < inner; ++i) {
+    acc = add_draw<Paired>(c, acc);
+    c += bmpc::kStepMul;
+  }
   out[gid] = acc;
+}
+
+// out (8, 2^24): for each k < 2^24, the radius sqrt(-2 log(k 2^-24 + 1e-7)),
+// cos(2 pi k 2^-24), and sin and cos of the same angle by sincos, each first
+// through libm as the draw computed it before the reduced forms (rows 0, 2,
+// 4, 6) and then through models.cuh's reduced forms (rows 1, 3, 5, 7).
+__global__ void __launch_bounds__(kThreads) roofline_draw_domain(float* __restrict__ out) {
+  const uint32_t k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= kDomain) return;
+  const float u1 = (float)k * (1.0f / 16777216.0f) + 1e-7f;
+  const float a = (2.0f * (float)bmpc::kPi) * ((float)k * (1.0f / 16777216.0f));
+  const float b = bmpc::draw_angle(k);
+  float s, c;
+  out[k] = sqrtf(-2.0f * logf(u1));
+  out[kDomain + k] = bmpc::draw_radius(k);
+  out[2 * kDomain + k] = cosf(a);
+  out[3 * kDomain + k] = bmpc::cos_turn(b);
+  sincosf(a, &s, &c);
+  out[4 * kDomain + k] = s;
+  out[6 * kDomain + k] = c;
+  bmpc::sincos_turn(b, &s, &c);
+  out[5 * kDomain + k] = s;
+  out[7 * kDomain + k] = c;
 }
 
 }  // namespace
@@ -125,7 +192,7 @@ roofline_noise(const int* __restrict__ seed, float* __restrict__ out, int progra
 extern "C" int roofline_op_launch(int op, const float* x, float* out, long long n, int inner,
                                   cudaStream_t stream) {
   if (n <= 0) return 0;
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
+  const dim3 grid((unsigned)((n + kThreads * kElems - 1) / (kThreads * kElems)));
   ROOFLINE_DISPATCH_OP(op,
     roofline_op<Op><<<grid, kThreads, 0, stream>>>(x, out, n, inner);
     return (int)cudaGetLastError();)
@@ -146,25 +213,35 @@ extern "C" int roofline_noise_launch(int paired, const int* seed, float* out, in
   return (int)cudaGetLastError();
 }
 
+// out (8, 2^24) float32, contiguous, on the device: roofline_draw_domain's
+// rows. Returns the launch's cudaGetLastError().
+extern "C" int roofline_draw_domain_launch(float* out, cudaStream_t stream) {
+  roofline_draw_domain<<<kDomain / kThreads, kThreads, 0, stream>>>(out);
+  return (int)cudaGetLastError();
+}
+
 // The launch shape of kernel 9 at op (an index of OPS; paired >= 0 asks for
 // kernel 10 instead, in that form) over n elements, on the current card,
-// into out[4]: threads per block, blocks, registers per thread, resident
-// blocks per SM. Returns a cudaError.
+// into out[6]: threads per block, blocks, registers per thread, resident
+// blocks per SM, elements a thread, applications (kernel 9) or draws
+// (kernel 10) a loop trip. Returns a cudaError.
 template <class K>
-int shape_of(K kernel, long long n, int* out) {
+int shape_of(K kernel, long long n, int elems, int unroll, int* out) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (e != cudaSuccess) return (int)e;
-  const int vals[4] = {kThreads, (int)((n + kThreads - 1) / kThreads), attr.numRegs, per_sm};
-  for (int i = 0; i < 4; ++i) out[i] = vals[i];
+  const long long per_block = (long long)kThreads * elems;
+  const int vals[6] = {kThreads, (int)((n + per_block - 1) / per_block), attr.numRegs, per_sm,
+                       elems, unroll};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
   return 0;
 }
 
 extern "C" int roofline_launch_config(int op, int paired, long long n, int* out) {
-  if (paired == 1) return shape_of(roofline_noise<true>, n, out);
-  if (paired == 0) return shape_of(roofline_noise<false>, n, out);
-  ROOFLINE_DISPATCH_OP(op, return shape_of(roofline_op<Op>, n, out);)
+  if (paired == 1) return shape_of(roofline_noise<true>, n, 1, kNoiseUnroll, out);
+  if (paired == 0) return shape_of(roofline_noise<false>, n, 1, kNoiseUnroll, out);
+  ROOFLINE_DISPATCH_OP(op, return shape_of(roofline_op<Op>, n, kElems, kUnroll, out);)
 }

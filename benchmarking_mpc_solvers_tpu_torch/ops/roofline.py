@@ -24,6 +24,11 @@ reports a kernel's launch shape. ``roofline_op.launches`` and
 ``roofline_noise.launches`` count kernel launches, and
 ``roofline_op.by_op`` / ``roofline_noise.by_form`` the same launches by
 instantiation.
+
+``draw_domain`` (a check; no TPU counterpart) gives the noise draw's radius,
+cosine and sine at every one of the 2^24 values a 24-bit uniform takes,
+through libm and through the reduced forms that kernels 1, 3 and 10 draw
+through (``csrc/models.cuh``), so that the two can be compared bit for bit.
 """
 
 from __future__ import annotations
@@ -154,15 +159,56 @@ roofline_noise.launches = 0
 roofline_noise.by_form = {"single": 0, "paired": 0}
 
 
+# the rows of draw_domain, in csrc/roofline.cu:roofline_draw_domain's order
+DOMAIN_ROWS = ("radius_libm", "radius", "cos_libm", "cos", "sincos_sin_libm", "sincos_sin",
+               "sincos_cos_libm", "sincos_cos")
+DOMAIN = 1 << 24
+
+
+def draw_domain_reference(device=None):
+    """Plain version: (8, 2^24) float32, the radius sqrt(-2 log(u1)) of
+    u1 = k·2^-24 + 1e-7, cos(2π·k·2^-24) and sin and cos of that angle, for
+    every k < 2^24, in ``DOMAIN_ROWS``' order; PyTorch has one form of each,
+    so a row and its libm row are the same tensor's values."""
+    k = torch.arange(DOMAIN, dtype=torch.int64, device=device)
+    u = k.to(torch.float32) * (1.0 / DOMAIN)
+    r = torch.sqrt(-2.0 * torch.log(u + 1e-7))
+    a = _TWO_PI_F32 * u
+    c, s = torch.cos(a), torch.sin(a)
+    return torch.stack([r, r, c, c, s, s, c, c])
+
+
+def draw_domain(device):
+    """``draw_domain_reference``'s rows on ``device``: on the card the check
+    kernel, each libm row beside its reduced row; on the CPU the plain
+    version."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return draw_domain_reference(device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = torch.empty((len(DOMAIN_ROWS), DOMAIN), dtype=torch.float32, device=device)
+    _build.check_rc("draw_domain", _build.kernel_fn("roofline_draw_domain_launch")(
+        _build.ptr(out), _build.stream_ptr(device)))
+    draw_domain.launches += 1
+    return out
+
+
+draw_domain.launches = 0
+
+
 def launch_config(what: str, n: int) -> dict:
-    """A kernel's launch shape over n elements (threads) on the current
-    card: threads per block, blocks, registers per thread, resident blocks
-    per SM. ``what`` is an op of ``OPS`` (kernel 9), ``"noise"`` or
+    """A kernel's launch shape over n elements on the current card: threads
+    per block, blocks, registers per thread, resident blocks per SM,
+    elements a thread, and what one trip of its loop does: applications of
+    the op to each of a thread's elements (kernel 9) or normals drawn
+    (kernel 10). ``what`` is an op of ``OPS`` (kernel 9), ``"noise"`` or
     ``"noise_paired"`` (kernel 10)."""
     paired = {"noise": 0, "noise_paired": 1}.get(what, -1)
     if paired < 0 and what not in OPS:
         raise ValueError(f"unknown kernel {what!r}")
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     _build.check_rc("launch_config", _build.kernel_fn("roofline_launch_config")(
         OPS.index(what) if paired < 0 else 0, paired, n, ctypes.cast(out, ctypes.c_void_p)))
-    return dict(zip(("threads", "blocks", "registers", "blocks_per_sm"), out))
+    return dict(zip(("threads", "blocks", "registers", "blocks_per_sm", "elements", "unroll"),
+                    out))

@@ -77,13 +77,17 @@ Phases (any failure exits non-zero before the result line):
      solve's own inputs at that configuration;
    - the measurement scripts (phase (l)): kernels 9 and 10
      (csrc/roofline.cu) against their plain versions bit for bit at the
-     roofline rows' grids, then roofline, profile_cem, profile_ilqr,
+     roofline rows' grids (kernel 9 also at a chain off its unroll), the
+     noise draw's reduced libm forms (csrc/models.cuh, which kernels 1, 3
+     and 10 draw through) against libm on all 2^24 inputs of each uniform,
+     bit for bit (``draw_domain_check``), then roofline, profile_cem,
+     profile_ilqr,
      profile_sqp, profile_i2c, bench_riccati and scaling_bench
      (benchmarking_mpc_solvers_tpu_torch/scripts/) at their full shapes
      through their own main(), MEASURE_SAMPLES timing samples a stage, each
      with the launches of its route and no other; the Riccati crossover;
      kernels 9 and 10 timed at the kernel rows' shapes beside their bound
-     and the SASS issue floor of their loops;
+     and the SASS issue and pipe floors of their loops;
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
@@ -92,7 +96,9 @@ Phases (any failure exits non-zero before the result line):
    plain version and its bound (for kernels 5, 6, 7, 8a and 8b also with the
    dependent chain of the horizon or of the iterations; for kernels 1, 2
    and 3 also the instruction-issue floor of the rollout loop, counted in
-   its SASS; the launch shape of 1, 2, 3, 6 and 7; kernels 1, 2 and 7 at
+   its SASS, and its pipe floor, the busiest pipe's time for the same
+   instructions (``pipe_counts``); the launch shape of 1, 2, 3, 6 and 7;
+   kernels 1, 2 and 7 at
    further shapes too); host-clock
    episode solves/s of every path; device time by kernel under the
    profiler (one episode of each MPPI and CEM tier, one solve of iLQR, SQP,
@@ -309,8 +315,9 @@ MEASURE_ROUTES = {
     "scaling_bench": ((), ("fused_mppi_step",)),
 }
 # kernels 9 and 10 against their plain versions before the timings: at the
-# roofline rows' full grids with a reduced chain
-ROOFLINE_CHECK_INNER = 64
+# roofline rows' full grids with a reduced chain, of whole trips and (the
+# second) with a remainder
+ROOFLINE_CHECK_INNER, ROOFLINE_RAGGED_INNER = 64, 77
 # FP32 operations of one application of each op of kernel 9, each libm call
 # counted once (a lower bound): fma mul + add; log abs, add, log; div add,
 # div; exp abs, neg, exp. A normal of kernel 10: NOISE_OPS and the sum's add
@@ -321,16 +328,14 @@ NOISE_DRAW_EXTRA = {"single": 1, "paired": 4}
 # the kernel rows' shapes (scripts/roofline.py:measure_pallas_op and
 # measure_pallas_noise), at which each instantiation is timed
 ROOFLINE_GRID, ROOFLINE_INNER, NOISE_PROGRAMS, NOISE_INNER = 256, 2048, 1024, 256
-# kernels 9 and 10 unroll the chain by this many applications a trip
-ROOFLINE_UNROLL = 8
 
 
 def roofline_loop_counts(library: Path) -> dict:
     """Per instantiation of csrc/roofline.cu ({op} of kernel 9, "single" and
     "paired" of kernel 10), the fast-path SASS instructions of one trip of
-    its chain's loop (the longest loop of the function: kernel 9's trip
-    applies the op ROOFLINE_UNROLL times, kernel 10's draws one normal, or
-    one pair) and the loop's static instructions; {} where cuobjdump is
+    its chain's loop (the longest loop of the function; what one trip does,
+    ops/roofline.py:launch_config reports), the loop's static
+    instructions and the trip's count by pipe; {} where cuobjdump is
     missing."""
     from benchmarking_mpc_solvers_tpu_torch.ops.roofline import OPS
 
@@ -353,8 +358,38 @@ def roofline_loop_counts(library: Path) -> dict:
                  if (tgt := _branch_target(text)) is not None and tgt <= a]
         if loops:
             head, tail = max(loops, key=lambda hl: hl[1] - hl[0])
-            counts[key] = (fast_path_count(ins, head, tail), tail - head + 1)
+            path = fast_path(ins, head, tail)
+            counts[key] = (len(path), tail - head + 1, pipe_counts(path))
     return counts
+
+
+def draw_domain_check(dev) -> dict:
+    """The noise draw's reduced libm forms (csrc/models.cuh: the radius, the
+    cosine of the single draw, sincos of the paired one) against libm on all
+    2^24 inputs of each uniform, bit for bit, the two radii of -0.0 (u1
+    rounds to 1) included; fails on any difference. Returns the summary."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import DOMAIN_ROWS, draw_domain
+
+    rows = draw_domain(dev).view(torch.int32)
+    torch.cuda.synchronize()
+    out = {"inputs": rows.shape[1]}
+    for i in range(0, len(DOMAIN_ROWS), 2):
+        differ = int((rows[i] != rows[i + 1]).sum())
+        out[DOMAIN_ROWS[i + 1]] = {"differ": differ}
+        if differ:
+            k = int(torch.nonzero(rows[i] != rows[i + 1])[0])
+            fail(f"draw domain: {DOMAIN_ROWS[i + 1]} differs from libm at {differ} of "
+                 f"{rows.shape[1]} inputs (first k={k}: {int(rows[i + 1, k]):#010x} against "
+                 f"{int(rows[i, k]):#010x})")
+    neg_zero = int((rows[0] == -2**31).sum())
+    out["radius"]["negative_zeros"] = neg_zero
+    if neg_zero != 2:
+        fail(f"draw domain: {neg_zero} radii of -0.0 through libm, expected 2")
+    print(f"draw domain: the reduced radius, cosine and sincos equal libm bit for bit on all "
+          f"{rows.shape[1]} inputs of each uniform ({neg_zero} radii of -0.0 among them)",
+          flush=True)
+    del rows
+    return out
 
 
 def measurement_paths(counters, reset_counts, smi: str, launches: dict, errs: dict) -> tuple:
@@ -378,24 +413,28 @@ def measurement_paths(counters, reset_counts, smi: str, launches: dict, errs: di
     row_x = torch.from_numpy(rng.uniform(-2.0, 2.0, (8, 512 * 1024)).astype(np.float32)).to(dev)
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
     for op in OPS:  # every op at both rows' shapes, identical bits
-        for x in (grid_x, row_x):
-            got = roofline_op(op, x, ROOFLINE_CHECK_INNER)
-            want = roofline_op_reference(op, x, ROOFLINE_CHECK_INNER)
+        for x, inner in ((grid_x, ROOFLINE_CHECK_INNER), (row_x, ROOFLINE_CHECK_INNER),
+                         (grid_x, ROOFLINE_RAGGED_INNER)):
+            got = roofline_op(op, x, inner)
+            want = roofline_op_reference(op, x, inner)
             errs.setdefault(f"roofline_op[{op}]", (0.0, 0.0))
             if not torch.equal(got, want):
-                fail(f"roofline_op[{op}] at {tuple(x.shape)}: kernel vs plain max err "
-                     f"{float((got - want).abs().max()):.3e}, expected identical bits")
+                fail(f"roofline_op[{op}] at {tuple(x.shape)}, inner {inner}: kernel vs plain max "
+                     f"err {float((got - want).abs().max()):.3e}, expected identical bits")
     for form in ("single", "paired"):
-        got = roofline_noise(seed, NOISE_PROGRAMS, ROOFLINE_CHECK_INNER, form == "paired")
-        want = roofline_noise_reference(seed, NOISE_PROGRAMS, ROOFLINE_CHECK_INNER,
-                                        form == "paired")
-        if not torch.equal(got, want):
-            fail(f"roofline_noise[{form}]: kernel vs plain max err "
-                 f"{float((got - want).abs().max()):.3e}, expected identical bits")
+        for inner in (ROOFLINE_CHECK_INNER, ROOFLINE_RAGGED_INNER):
+            got = roofline_noise(seed, NOISE_PROGRAMS, inner, form == "paired")
+            want = roofline_noise_reference(seed, NOISE_PROGRAMS, inner, form == "paired")
+            if not torch.equal(got, want):
+                fail(f"roofline_noise[{form}], inner {inner}: kernel vs plain max err "
+                     f"{float((got - want).abs().max()):.3e}, expected identical bits")
         errs[f"roofline_noise[{form}]"] = (0.0, 0.0)
-    print(f"roofline kernels: every op of kernel 9 at ({ROOFLINE_GRID}, 8, 512) and (8, 524288) "
-          f"and both forms of kernel 10 at ({NOISE_PROGRAMS}, 8, 512), inner "
-          f"{ROOFLINE_CHECK_INNER}: identical bits with the plain versions", flush=True)
+    print(f"roofline kernels: every op of kernel 9 at ({ROOFLINE_GRID}, 8, 512) and (8, 524288), "
+          f"inner {ROOFLINE_CHECK_INNER}, and at ({ROOFLINE_GRID}, 8, 512), inner "
+          f"{ROOFLINE_RAGGED_INNER}; both forms of kernel 10 at ({NOISE_PROGRAMS}, 8, 512), inner "
+          f"{ROOFLINE_CHECK_INNER} and {ROOFLINE_RAGGED_INNER}: identical bits with the plain "
+          f"versions", flush=True)
+    domain = draw_domain_check(dev)
 
     readings, by_op, by_form = {}, {}, {}
     for name, (argv, route) in MEASURE_ROUTES.items():  # records to results_torch/measure/
@@ -433,11 +472,14 @@ def measurement_paths(counters, reset_counts, smi: str, launches: dict, errs: di
     src = "benchmarking_mpc_solvers_tpu_torch/csrc/roofline.cu"
     entries = []
 
-    def entry(name, replaces, n_launch, fn, plain_fn, bnd, trips, key, cfg, per_s):
+    def entry(name, replaces, n_launch, fn, plain_fn, bnd, trips, key, cfg, per_s, per_trip):
         around, device = cuda_time_ms(fn), device_time_ms(fn)
         plain = cuda_time_ms(plain_fn, reps=3, warmup=1)
         counted = counts.get(key)
-        floor = None if counted is None else counted[0] * trips / (sms * 4 * clock * 1e3)
+        floor = pipe = None
+        if counted is not None:
+            floor = counted[0] * trips / (sms * 4 * clock * 1e3)
+            pipe = pipe_floor_ms(counted[2], trips, sms, clock)
         if floor is not None and device < floor / 1.05:
             fail(f"{name}: device {device:.4f} ms beats its issue floor {floor:.4f} ms by more "
                  f"than 5 %: the SASS count ({counted}) is wrong")
@@ -447,34 +489,42 @@ def measurement_paths(counters, reset_counts, smi: str, launches: dict, errs: di
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": around,
             "device_ms": device, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
             "chain_bound_ms": None, "issue_bound_ms": floor, "sass_per_trip": counted,
+            "pipe_bound_ms": None if pipe is None else pipe[0],
+            "pipe_bound_by": None if pipe is None else pipe[1], "trip": per_trip,
             "rate_per_s": per_s / (device * 1e-3), "other_shapes": [], "library_ms": None,
             "launch": cfg, "pass": True})
         print(f"[{smi}] {name}: around one call {around:.4f} ms, device {device:.4f} ms, plain "
-              f"{plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), issue floor "
-              + ("not measured" if floor is None else
-                 f"{floor:.4f} ms ({counted[0]} SASS instructions a trip, {trips} warp trips)")
+              f"{plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+              + ("issue floor not measured" if floor is None else
+                 f"issue floor {floor:.4f} ms ({counted[0]} SASS instructions a trip of "
+                 f"{per_trip}, {trips} warp trips), pipe floor {pipe[0]:.4f} ms ({pipe[1]}; by "
+                 f"pipe {counted[2]})")
               + f"; {per_s / (device * 1e-3):.4g} a second; launch {cfg}", flush=True)
 
     n = grid_x.numel()
     for op in OPS:
         evals = n * ROOFLINE_INNER
+        cfg = launch_config(op, n)
         entry(f"roofline_op[{op}]", "scripts/roofline.py:88", by_op.get(op, 0),
               lambda op=op: roofline_op(op, grid_x, ROOFLINE_INNER),
               lambda op=op: roofline_op_reference(op, grid_x, ROOFLINE_INNER),
               bound(8 * n, evals * ROOFLINE_OP_OPS[op]),
-              -(-n // 32) * (ROOFLINE_INNER // ROOFLINE_UNROLL), op, launch_config(op, n), evals)
+              -(-n // (32 * cfg["elements"])) * (ROOFLINE_INNER // cfg["unroll"]), op, cfg, evals,
+              f"{cfg['unroll']} applications to each of {cfg['elements']} elements")
     n = NOISE_PROGRAMS * 8 * 512
     for form in ("single", "paired"):
         draws = n * NOISE_INNER
+        cfg = launch_config("noise_paired" if form == "paired" else "noise", n)
         entry(f"roofline_noise[{form}]", "scripts/roofline.py:133", by_form.get(form, 0),
               lambda form=form: roofline_noise(seed, NOISE_PROGRAMS, NOISE_INNER,
                                                form == "paired"),
               lambda form=form: roofline_noise_reference(seed, NOISE_PROGRAMS, NOISE_INNER,
                                                          form == "paired"),
               bound(4 * n + 4, draws * (NOISE_OPS + NOISE_DRAW_EXTRA[form])),
-              -(-n // 32) * NOISE_INNER, form,
-              launch_config("noise_paired" if form == "paired" else "noise", n),
-              draws * (2 if form == "paired" else 1))
+              -(-n // 32) * (NOISE_INNER // cfg["unroll"]), form, cfg,
+              draws * (2 if form == "paired" else 1),
+              f"{cfg['unroll']} {'pairs' if form == 'paired' else 'draws'}")
+    entries[-1]["draw_domain"] = domain
     return readings, entries
 
 
@@ -1058,17 +1108,18 @@ def _branch_target(ins: str):
     return int(m.group(1), 16) if m else None
 
 
-def fast_path_count(ins, head: int, tail: int) -> int:
-    """Instructions one trip of the loop ins[head..tail] (indices; tail its
-    back-edge) issues on its fast path: a forward branch that jumps over a
-    call (a division's or a square root's slow path) or over a loop (a sine's
-    or cosine's argument reduction for huge arguments) is taken, any other
-    unconditional one is followed, any other conditional one falls through."""
+def fast_path(ins, head: int, tail: int) -> list:
+    """The instructions one trip of the loop ins[head..tail] (indices; tail
+    its back-edge) issues on its fast path: a forward branch that jumps over
+    a call (a division's or a square root's slow path) or over a loop (a
+    sine's or cosine's argument reduction for huge arguments) is taken, any
+    other unconditional one is followed, any other conditional one falls
+    through."""
     at = {a: i for i, (a, _) in enumerate(ins)}
-    n, i = 0, head
+    path, i = [], head
     while i <= tail:
         a, text = ins[i]
-        n += 1
+        path.append(text)
         tgt = _branch_target(text)
         if i == tail or tgt is None or tgt <= a or tgt not in at:
             i += 1
@@ -1078,7 +1129,51 @@ def fast_path_count(ins, head: int, tail: int) -> int:
         jumps_slow = any("CALL" in t or ((b := _branch_target(t)) is not None and b <= x)
                          for x, t in skipped)
         i = j if (not text.startswith("@") or jumps_slow) else i + 1
-    return n
+    return path
+
+
+# The pipes an SM issues a trip's instructions to, with their results a
+# clock per SM on compute capability 9.0 (the CUDA C++ programming guide's
+# table of arithmetic instruction throughput): FP32 add, multiply and fma
+# 128; MUFU (reciprocal, reciprocal square root, log2, exp2, sine, cosine)
+# 16; type conversions 16; 32-bit integer multiply-add (IMAD in all its
+# forms: the compiler also moves and adds with it) 64; everything else
+# (integer add, shift and logic, compares, selects, min/max, moves,
+# branches) at the table's 64 of integer add, shift, logic and compare.
+PIPE_RATES = {"fp32": 128, "mufu": 16, "conversion": 16, "imad": 64, "other": 64}
+_FP32_OPS = ("FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "HFMA2", "HADD2", "HMUL2")
+_CONVERSIONS = ("I2F", "F2I", "I2FP", "F2IP", "F2F", "FRND")
+
+
+def pipe_of(text: str) -> str:
+    """The pipe of one SASS instruction (``PIPE_RATES``' keys)."""
+    op = (text.split()[1] if text.startswith("@") else text.split()[0]).split(".")[0]
+    if op in _FP32_OPS:
+        return "fp32"
+    if op == "MUFU":
+        return "mufu"
+    if op in _CONVERSIONS:
+        return "conversion"
+    if op == "IMAD":
+        return "imad"
+    return "other"
+
+
+def pipe_counts(path) -> dict:
+    """A trip's instructions by pipe."""
+    counts = dict.fromkeys(PIPE_RATES, 0)
+    for text in path:
+        counts[pipe_of(text)] += 1
+    return counts
+
+
+def pipe_floor_ms(pipes: dict, warp_trips: int, sms: int, clock_mhz: float) -> tuple:
+    """The least time the busiest pipe takes for ``warp_trips`` warp trips of
+    a loop whose trip issues ``pipes`` (by pipe), spread over every SM at the
+    card's maximum clock, and that pipe."""
+    cycles = {p: n * 32 / PIPE_RATES[p] for p, n in pipes.items()}
+    busiest = max(cycles, key=cycles.get)
+    return cycles[busiest] * warp_trips / (sms * clock_mhz * 1e3), busiest
 
 
 # The cart-pole rollout loop of kernels 3, 1 and 2 in their SASS, by source:
@@ -1105,7 +1200,8 @@ def rollout_loop_count(sass: str, source: str):
     """The fast-path instructions per trip of the rollout's time loop in a
     build of ``source`` (``SASS_LOOPS``): the innermost loop that holds the
     instructions that mark it. Returns (count, static instructions of the
-    loop), or None where no such function or loop is found."""
+    loop, the count by pipe), or None where no such function or loop is
+    found."""
     names, marks = SASS_LOOPS[source]
     funcs = sass_functions(sass)
     ins = next((v for name in names for k, v in funcs.items() if name in k), None)
@@ -1123,7 +1219,8 @@ def rollout_loop_count(sass: str, source: str):
             best = (head, i)
     if best is None:
         return None
-    return fast_path_count(ins, *best), best[1] - best[0] + 1
+    path = fast_path(ins, *best)
+    return len(path), best[1] - best[0] + 1, pipe_counts(path)
 
 
 def sass_loop(library: Path, source: str):
@@ -2795,19 +2892,22 @@ def main():
     issue, other_shapes = {}, {}
 
     def issue_line(name, label, src, trips, around_ms, device_ms, bnd, cfg):
-        """Prints a kernel's times beside its bound and issue floor; returns
-        the floor in ms (None where the loop was not counted)."""
+        """Prints a kernel's times beside its bound, issue floor and pipe
+        floor; returns the two floors in ms (None where the loop was not
+        counted)."""
         counted = loops[src]
         floor = None if counted is None else counted[0] * trips / (sms * 4 * clock * 1e3)
+        pipe = None if counted is None else pipe_floor_ms(counted[2], trips, sms, clock)
         what = ("instruction-issue floor not measured (no cuobjdump, or no rollout loop found "
                 "in its output)" if counted is None else
                 f"the rollout loop issues {counted[0]} SASS instructions a trip on its fast path "
                 f"({counted[1]} in its body; cuobjdump), {trips} warp trips: instruction-issue "
-                f"floor {floor:.4f} ms at {sms} SMs x 4 schedulers x {clock:.0f} MHz")
+                f"floor {floor:.4f} ms at {sms} SMs x 4 schedulers x {clock:.0f} MHz, pipe floor "
+                f"{pipe[0]:.4f} ms ({pipe[1]}; by pipe {counted[2]})")
         print(f"[{smi}] {name} at {label}: around one call {around_ms:.4f} ms, device "
               f"{device_ms:.4f} ms; {what}, beside the bound {bnd[0]:.4f} ms ({bnd[1]}); "
               f"launch {cfg}", flush=True)
-        return floor
+        return floor, None if pipe is None else pipe[0]
 
     plan, x0, gz = mppi_inputs(model, BATCH, HORIZON, 1, dev)
     lanes = pick_lanes(BATCH)
@@ -2866,10 +2966,10 @@ def main():
 
     def other_shape(name, label, src, trips, fn, bnd, cfg):
         around, device = cuda_time_ms(fn), device_time_ms(fn)
-        floor = issue_line(name, label, src, trips, around, device, bnd, cfg)
+        floor, pipe = issue_line(name, label, src, trips, around, device, bnd, cfg)
         other_shapes.setdefault(name, []).append({
             "shape": label, "ms": around, "device_ms": device, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "issue_bound_ms": floor, "launch": cfg})
+            "bound_by": bnd[1], "issue_bound_ms": floor, "pipe_bound_ms": pipe, "launch": cfg})
 
     plan, x0, gz = mppi_inputs(model, MPPI_SWEEP_B, HORIZON, 1, dev)
     lanes_s = pick_lanes(MPPI_SWEEP_B)
@@ -3158,7 +3258,9 @@ def main():
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
             "ms": ms[name], "device_ms": dev_ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "chain_bound_ms": chains.get(name), "issue_bound_ms": issue.get(name),
+            "chain_bound_ms": chains.get(name),
+            "issue_bound_ms": issue.get(name, (None, None))[0],
+            "pipe_bound_ms": issue.get(name, (None, None))[1],
             "other_shapes": other_shapes.get(name, []), "library_ms": None, "pass": True})
     kernels += roofline_entries  # kernels 9 and 10, phase (l)
     for e in family_entries:  # the generic-cost and dummy instantiations, phases (g) to (i)

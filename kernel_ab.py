@@ -12,7 +12,8 @@
     python3 kernel_ab.py fused_mppi.cu --against DIR
     python3 kernel_ab.py fused_rollout.cu --against DIR
     python3 kernel_ab.py admm_iterate.cu --against DIR
-        kernels 5, 4, 6, 3, 1, 2 and 7 against DIR's
+    python3 kernel_ab.py roofline.cu --against DIR
+        kernels 5, 4, 6, 3, 1, 2, 7, and 9 and 10 against DIR's
     python3 kernel_ab.py fused_mppi.cu --against DIR -D BMPC_GENERIC_COST=1
         also this checkout's kernel 1 with every stage cost in its generic
         form (the same for fused_rollout.cu, fused_cem.cu, fused_linesearch.cu)
@@ -29,7 +30,8 @@ case (a, b, ..., b, a), and each call is timed two ways:
 Every variant's outputs must equal the first variant's bit for bit. The cases
 are the main paths' shapes from chip_smoke.py (``CASES``: the sources of
 kernels 8a and 8b, 5, 4, 6, 3, 1, 2 and 7; kernels 1, 2, 3, 4 and 6 on the
-three plants); a source with no cases here is refused. A variant whose
+three plants; kernels 9 and 10 at the roofline rows' shapes); a source with
+no cases here is refused. A variant whose
 ``models.cuh`` has another kMaxZ (a build from before the dummy family's
 functors: 5) is handed its weights in that layout. For
 fused_mppi.cu, fused_rollout.cu and admm_iterate.cu the variants also take
@@ -37,7 +39,8 @@ turns on whole episodes of the paths that launch them (``EPISODES``: the
 MPPI kernel tier; the MPPI and CEM two-stage tiers; QP-MPC configuration
 1), timed on the host clock as chip_smoke.py times them, their costs bit
 for bit. For fused_cem.cu, fused_mppi.cu and fused_rollout.cu each variant's
-cart-pole rollout loop is counted in its SASS as chip_smoke.py counts it. A
+cart-pole rollout loop is counted in its SASS as chip_smoke.py counts it (by
+pipe too), and for roofline.cu each instantiation's chain loop. A
 build of riccati_backward.cu from before its ok flags were written as bools
 is called through the entry point and wrapper steps of that time. The last
 line is a JSON object of every reading.
@@ -239,6 +242,28 @@ def rollout_cases(dev):
     return cases
 
 
+def roofline_cases(dev):
+    """Kernel 9, every op, at the roofline kernel rows' shape (grid 256 x
+    (8, 512), inner 2,048), and kernel 10, both forms, at the noise rows'
+    (1,024 x (8, 512), inner 256), as chip_smoke.py times them."""
+    import numpy as np
+
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import OPS, roofline_noise, roofline_op
+
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        -2.0, 2.0, (cs.ROOFLINE_GRID, 8, 512)).astype(np.float32)).to(dev)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    cases = [(f"the kernel row (grid {cs.ROOFLINE_GRID} x (8, 512), inner {cs.ROOFLINE_INNER})",
+              [(f"roofline_op[{op}]", lambda op=op: roofline_op(op, x, cs.ROOFLINE_INNER))
+               for op in OPS])]
+    cases.append((f"the noise row ({cs.NOISE_PROGRAMS} x (8, 512), inner {cs.NOISE_INNER})",
+                  [(f"roofline_noise[{form}]",
+                    lambda p=form == "paired": roofline_noise(seed, cs.NOISE_PROGRAMS,
+                                                              cs.NOISE_INNER, p))
+                   for form in ("single", "paired")]))
+    return cases
+
+
 def admm_run(Minv, g, lo, hi, rho=1.0, alpha=1.6, iters=100):
     """Kernel 7 through the loaded build of admm_iterate.cu."""
     from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import admm_iterate
@@ -345,7 +370,8 @@ def rollout_episodes(dev):
 CASES = {"i2c_smooth.cu": i2c_cases, "riccati_backward.cu": riccati_cases,
          "fused_derivs.cu": derivs_cases, "fused_linesearch.cu": linesearch_cases,
          "fused_cem.cu": cem_cases, "fused_mppi.cu": mppi_cases,
-         "fused_rollout.cu": rollout_cases, "admm_iterate.cu": admm_cases}
+         "fused_rollout.cu": rollout_cases, "admm_iterate.cu": admm_cases,
+         "roofline.cu": roofline_cases}
 # whole episodes of the paths that launch a source's kernel: (label, episodes
 # per turn, a run returning the episode's costs)
 EPISODES = {"fused_mppi.cu": mppi_episodes, "fused_rollout.cu": rollout_episodes,
@@ -353,12 +379,19 @@ EPISODES = {"fused_mppi.cu": mppi_episodes, "fused_rollout.cu": rollout_episodes
 
 
 def loop_count(path: Path, source: str) -> str:
-    """A build's cart-pole rollout loop, as chip_smoke.py counts it."""
+    """A build's cart-pole rollout loop (kernels 1, 2, 3), or each roofline
+    instantiation's chain loop (kernels 9, 10), as chip_smoke.py counts it."""
+    if source == "roofline.cu":
+        counts = cs.roofline_loop_counts(path)
+        if not counts:
+            return "chain loops not counted"
+        return "chain loops' SASS a trip (static; by pipe): " + "; ".join(
+            f"{k} {c[0]} ({c[1]}; {c[2]})" for k, c in counts.items())
     counted = cs.sass_loop(path, source)
     if counted is None:
         return "rollout loop not counted"
     return (f"the cart-pole rollout loop issues {counted[0]} SASS instructions a trip on its "
-            f"fast path ({counted[1]} in its body)")
+            f"fast path ({counted[1]} in its body; by pipe {counted[2]})")
 
 
 def max_z_of(csrc: Path) -> int:
@@ -418,7 +451,7 @@ def main() -> int:
             print(f"FAIL: nvcc for {label}:\n{log}")
             return 1
         libs.append(_build.typed(ctypes.CDLL(str(path)), args.source))
-        if args.source in cs.SASS_LOOPS:
+        if args.source in cs.SASS_LOOPS or args.source == "roofline.cu":
             print(f"{label} source: {loop_count(path, args.source)}", flush=True)
 
     max_z = [max_z_of(src.parent) for _, src, _ in variants]

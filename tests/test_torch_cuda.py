@@ -1070,3 +1070,39 @@ def test_roofline_noise_kernel_matches_plain_bit_for_bit(dev, paired):
         assert roofline_noise.launches == before + 1
         assert got.shape == (37, 8, 512)
         assert torch.equal(got, roofline_noise_reference(s, 37, 9, paired)), (seed, paired)
+
+
+# The reduced libm forms of the noise draw (csrc/models.cuh) against libm on
+# every input the draw gives them: 2^24 values of each uniform, bit for bit,
+# the two radii of -0.0 included
+def test_draw_domain_reduced_forms_match_libm_bit_for_bit(dev):
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import DOMAIN, DOMAIN_ROWS, draw_domain
+
+    rows = draw_domain(dev).view(torch.int32)
+    assert rows.shape == (len(DOMAIN_ROWS), DOMAIN)
+    for i in range(0, len(DOMAIN_ROWS), 2):
+        assert torch.equal(rows[i], rows[i + 1]), DOMAIN_ROWS[i + 1]
+    assert int((rows[0] == -2**31).sum()) == 2  # -0.0 where u1 rounds to 1
+    # the libm rows are the functions they name: CUDA's logf, sqrtf, cosf and
+    # sincosf and PyTorch's CPU functions each stay within 2 ulps (CUDA C++
+    # programming guide, single-precision functions), so within 1e-6 here
+    ref = draw_domain("cpu")
+    assert torch.allclose(rows[::2].view(torch.float32).cpu(), ref[::2], rtol=1e-6, atol=1e-6)
+
+
+# Kernel 9 in its trip shape (launch_config's unroll applications to each of
+# a thread's elements): chains with a remainder and a ragged last block
+@pytest.mark.parametrize("op", ["fma", "cos", "sin", "log", "div", "exp"])
+def test_roofline_op_kernel_at_chains_off_the_unroll(dev, op):
+    from benchmarking_mpc_solvers_tpu_torch.ops.roofline import (
+        launch_config, roofline_op, roofline_op_reference)
+
+    cfg = launch_config(op, 8 * 512)
+    assert cfg["elements"] >= 1 and cfg["unroll"] >= 1
+    assert cfg["blocks"] == -(-8 * 512 // (cfg["threads"] * cfg["elements"]))
+    rng = np.random.default_rng(1)
+    for n in (1, 255, 257, 8 * 512 + 300):
+        x = _t(rng.uniform(-2.0, 2.0, (n,)), dev)
+        for inner in (cfg["unroll"] - 1, cfg["unroll"] + 1, 2 * cfg["unroll"] + 13, 100):
+            got = roofline_op(op, x, inner)
+            assert torch.equal(got, roofline_op_reference(op, x, inner)), (op, n, inner)
