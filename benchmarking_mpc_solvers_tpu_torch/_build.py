@@ -24,6 +24,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .models import acrobot, cartpole, pendulum, synthetic
@@ -44,7 +45,9 @@ NVCC_FLAGS = (
 # family (make_dummy_model(S, 1)) at S in DUMMY_STATES (id dummy_id(S)).
 # MAX_Z is its kMaxZ, the largest feature size a functor has: the dummy's
 # S + 1 at S = 8, the Riccati kernel's largest state. Edit the two files
-# together.
+# together. Kernels 1, 2 and 3 also take the dummy at any larger S, in a
+# form of their own whose S and weights are arguments (dummy_size,
+# dummy_terms).
 DEVICE_MODELS = ("pendulum", "cartpole_swingup", "acrobot")
 DUMMY_STATES = tuple(range(1, 9))
 MAX_Z = 9
@@ -153,9 +156,19 @@ SIGNATURES = {
     "admm_launch": (
         "admm_iterate.cu", [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _F, _F] + [_I] * 4 + [_P]),
     "admm_launch_config": ("admm_iterate.cu", [_I, _I, _I, _I, _P]),
+    "fused_mppi_dummy_launch": (
+        "fused_mppi.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _U, _I, _I, _P, _I, _P]),
+    "fused_rollout_dummy_launch": (
+        "fused_rollout.cu", [_I, _P, _P, _P, _P, _I, _I, _P, _I, _P]),
+    "fused_cem_dummy_launch": (
+        "fused_cem.cu",
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _P, _I, _P]),
     "i2c_filter_launch": ("i2c_smooth.cu", [_P] * 13 + [_I] * 5 + [_P]),
     "i2c_rts_launch": ("i2c_smooth.cu", [_P] * 6 + [_I] * 3 + [_P]),
     "i2c_launch_config": ("i2c_smooth.cu", [_I, _I, _I, _P]),
+    "i2c_filter_general_launch": ("i2c_smooth.cu", [_P] * 13 + [_I] * 5 + [_P, _P]),
+    "i2c_rts_general_launch": ("i2c_smooth.cu", [_P] * 6 + [_I] * 3 + [_P, _P]),
+    "i2c_general_launch_config": ("i2c_smooth.cu", [_I, _I, _I, _P]),
     "roofline_op_launch": ("roofline.cu", [_I, _P, _P, _L, _I, _P]),
     "roofline_noise_launch": ("roofline.cu", [_I, _P, _P, _I, _I, _P]),
     "roofline_launch_config": ("roofline.cu", [_I, _I, _L, _P]),
@@ -184,16 +197,46 @@ WAY_ROUND = ("run it on the plain stages: use_fused=False (solve_batch, and "
              "the rollout kernel) or pallas_backward=False (iLQR, SQP)")
 
 
+def dummy_size(model) -> int | None:
+    """S of a ``make_dummy_model(S, 1)`` past ``DUMMY_STATES``, which kernels
+    1, 2 and 3 take in their dummy form (S and the weights as arguments;
+    ``csrc/models.cuh``: dummy_cost); None for every other model."""
+    if ((model.dynamics, model.transform) == (synthetic.dummy_dynamics, synthetic.features)
+            and model.action_size == 1 and model.state_size > DUMMY_STATES[-1]):
+        return model.state_size
+    return None
+
+
+def dummy_terms(cost, device) -> torch.Tensor:
+    """A ``quad_cost``'s nonzero (i, j, w) terms, in its order, as the
+    (n, 4) int32 device array of the kernels' dummy form: i, j, the bits of
+    the float32 w, 0. Built once per cost and device and kept on the cost."""
+    cache = getattr(cost, "terms_dev", None)
+    if cache is None:
+        nz = getattr(cost, "nz", None)
+        if nz is None:
+            raise NotImplementedError("the kernels need a quad_cost cost")
+        cache = cost.terms_dev = {"host": torch.tensor(
+            [(i, j, int(np.float32(w).view(np.int32)), 0) for i, j, w in nz],
+            dtype=torch.int32).reshape(-1, 4)}
+    key = str(torch.device(device))
+    if key not in cache:
+        cache[key] = cache["host"].to(device)
+    return cache[key]
+
+
 def model_id(model) -> int:
     """Index of the model's CUDA device functor, found by its physics: the
     pair (``model.dynamics``, ``model.transform``). A plant's module-level
     functions map to its functor whatever its costs and bounds (the kernels
     take the weights and bounds as arguments); the dummy family's shared
-    functions map to ``Dummy<S>`` for a scalar action and 1 ≤ S ≤ 8. Any
-    other model raises ``NotImplementedError`` naming it and why: the
-    linear model (its dynamics contract the state axis, which the
-    reference's kernels cannot trace either), a model that reuses a plant's
-    name with other functions, a dummy with S > 8 or a larger action."""
+    functions map to ``Dummy<S>`` for a scalar action and 1 ≤ S ≤ 8 (kernels
+    1, 2 and 3 take larger S in their dummy form: ``dummy_size``). Any other
+    model raises ``NotImplementedError`` naming it and why: the linear model
+    (its dynamics contract the state axis, which the reference's kernels
+    cannot trace either), a model that reuses a plant's name with other
+    functions, a dummy with a larger action, and (for the kernels that need
+    a functor, 4 and 6) a dummy with S > 8."""
     key = (model.dynamics, model.transform)
     if key in _PLANTS:
         index, S = _PLANTS[key]
@@ -206,7 +249,8 @@ def model_id(model) -> int:
         if model.action_size == 1 and S in DUMMY_STATES:
             return dummy_id(S)
         why = (f"the dummy's functor takes state sizes {DUMMY_STATES[0]} to {DUMMY_STATES[-1]} "
-               f"and a scalar action, got S={S}, A={model.action_size}")
+               f"and a scalar action (kernels 1, 2 and 3 take any S with a scalar action), "
+               f"got S={S}, A={model.action_size}")
     elif model.transform is synthetic.features:
         why = ("its dynamics are not the dummy's identity (a make_linear_model contracts the "
                "state axis, which the reference's kernels do not trace either: they call "

@@ -173,6 +173,100 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
   for (int t = lane; t < T; t += 32) out[t * B + b] = mean[t];
 }
 
+// The dummy family at any S (models.cuh: dummy_cost): the kernel above with
+// the state left at x0 (identity dynamics) and the stage cost over the
+// weights' term list, S and the terms as arguments. The noise, the selection
+// and pass 2 are the kernel above's, operation for operation.
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+fused_cem_dummy_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
+                       const float* __restrict__ gz, float* __restrict__ out,
+                       float* __restrict__ masks, int T, int B, int K, int n_elite,
+                       int max_iter, float alpha, float one_minus_alpha, float std0,
+                       float lo, float hi, uint32_t seed, int lanes, int C, int S,
+                       const int4* __restrict__ terms, int n_terms) {
+  const int Z = S + 1;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;  // uniform per warp: shuffles below see full warps
+  float* mean = smem + warp * (2 * T + 3 * K);
+  float* stdv = mean + T;
+  float* cost = stdv + T;
+  float* sel = cost + K;
+  int* elite = reinterpret_cast<int*>(sel + K);
+
+  const int s = b / C, col = b % C;
+  const int pid = col / lanes, l = col % lanes;
+  const uint32_t i1 = (uint32_t)(s * lanes + l);
+  const uint32_t i2 = (uint32_t)((8 + s) * lanes + l);
+  const uint32_t seed_p = seed + (uint32_t)pid * kPidStride;
+  const float excl = (float)(4.0 * (double)T * 1e30);
+  const float* xb = x0 + b;  // x_i at xb[i * B], the whole horizon
+
+  for (int t = lane; t < T; t += 32) {
+    mean[t] = plan[t * B + b];
+    stdv[t] = std0;
+  }
+  __syncwarp();
+
+  for (int it = 0; it < max_iter; ++it) {
+    const uint32_t seed_it = seed_p + (uint32_t)it * kItStride;
+    for (int k = lane; k < K; k += 32) {
+      const uint32_t seed_c = seed_it + (uint32_t)k * kKStride;
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) {
+        const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
+        const float u = bmpc::clampf(mean[t] + stdv[t] * d, lo, hi);
+        acc = acc + bmpc::dummy_cost(xb, B, S, u, gz + t * Z, terms, n_terms);
+      }
+      cost[k] = isfinite(acc) ? acc : 1e30f;  // failure guard
+      sel[k] = 0.0f;
+    }
+    __syncwarp();
+
+    for (int j = 0; j < n_elite; ++j) {
+      float m = INFINITY;
+      for (int k = lane; k < K; k += 32) m = fminf(m, cost[k] + sel[k] * excl);
+      m = warp_min(m);
+      for (int k = lane; k < K; k += 32)
+        if (cost[k] + sel[k] * excl == m && sel[k] < 0.5f) sel[k] = 1.0f;
+      __syncwarp();
+    }
+    float cnt = 0.0f;
+    for (int k = lane; k < K; k += 32) cnt += sel[k];
+    const float wsum = fmaxf(warp_sum(cnt), 1.0f);
+    if (masks != nullptr)
+      for (int k = lane; k < K; k += 32) masks[((size_t)it * K + k) * B + b] = sel[k];
+    int n_sel = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const bool on = k0 + lane < K && sel[k0 + lane] != 0.0f;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (on) elite[n_sel + __popc(m & ((1u << lane) - 1u))] = k0 + lane;
+      n_sel += __popc(m);
+    }
+    __syncwarp();
+
+    for (int t = lane; t < T; t += 32) {
+      float m1 = 0.0f, m2 = 0.0f;
+      for (int e = 0; e < n_sel; ++e) {
+        const int k = elite[e];
+        const float w = sel[k] / wsum;
+        const uint32_t seed_c = seed_it + (uint32_t)k * kKStride;
+        const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
+        const float u = bmpc::clampf(mean[t] + stdv[t] * d, lo, hi);
+        m1 = m1 + w * u;
+        m2 = m2 + w * (u * u);
+      }
+      const float e_std = sqrtf(fmaxf(m2 - m1 * m1, 0.0f));
+      mean[t] = alpha * mean[t] + one_minus_alpha * m1;
+      stdv[t] = alpha * stdv[t] + one_minus_alpha * e_std;
+    }
+    __syncwarp();
+  }
+  for (int t = lane; t < T; t += 32) out[t * B + b] = mean[t];
+}
+
 template <class M>
 auto kernel_for(bool generic) {
   constexpr uint64_t kTerms = bmpc::compiled_terms<M>();
@@ -239,4 +333,26 @@ extern "C" int fused_cem_launch_config(int model_id, int T, int K, int B, const 
     for (int i = 0; i < 7; ++i) out[i] = vals[i];
     return 0;
   });
+}
+
+// The dummy family at any S: the arguments of fused_cem_step_launch with S
+// and the device array of n_terms weight terms (_build.dummy_terms) in place
+// of the model id and the host weights.
+extern "C" int fused_cem_dummy_launch(int S, const float* plan, const float* x0,
+                                      const float* gz, float* out, float* masks, int T, int B,
+                                      int K, int n_elite, int max_iter, float alpha,
+                                      float one_minus_alpha, float std0, float lo, float hi,
+                                      uint32_t seed, int lanes, int C, const int4* terms,
+                                      int n_terms, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * T + 3 * K) * kWarpsPerBlock;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_cem_dummy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_cem_dummy_kernel<<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock,
+                           smem, stream>>>(plan, x0, gz, out, masks, T, B, K, n_elite,
+                                           max_iter, alpha, one_minus_alpha, std0, lo, hi,
+                                           seed, lanes, C, S, terms, n_terms);
+  return (int)cudaGetLastError();
 }

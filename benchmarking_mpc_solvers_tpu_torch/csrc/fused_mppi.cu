@@ -152,6 +152,71 @@ fused_mppi_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
   }
 }
 
+// The dummy family at any S (models.cuh: dummy_cost): the kernel above with
+// the state left at x0 (identity dynamics) and the stage cost over the
+// weights' term list, S and the terms as arguments. The noise, the softmax
+// and pass 2 are the kernel above's, operation for operation.
+template <bool kCache>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+fused_mppi_dummy_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
+                        const float* __restrict__ gz, float* __restrict__ out, int T, int B,
+                        int K, float stdv, float ctrl_scale, float lam, uint32_t seed,
+                        int lanes, int C, int S, const int4* __restrict__ terms, int n_terms) {
+  const int Z = S + 1;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;  // uniform per warp: shuffles below see full warps
+  float* wk = smem + warp * (K + (kCache ? K * T : 0));
+  float* sdk = wk + K;
+
+  const int s = b / C, col = b % C;
+  const int pid = col / lanes, l = col % lanes;
+  const uint32_t i1 = (uint32_t)(s * lanes + l);
+  const uint32_t i2 = (uint32_t)((8 + s) * lanes + l);
+  const uint32_t seed_p = seed + (uint32_t)pid * kPidStride;
+  const float* xb = x0 + b;  // x_i at xb[i * B], the whole horizon
+
+  float cmin = 1e30f;
+  for (int k = lane; k < K; k += 32) {
+    const uint32_t seed_c = seed_p + (uint32_t)k * kKStride;
+    float acc = 0.0f;
+    for (int t = 0; t < T; ++t) {
+      const float sd = stdv * bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
+      if (kCache) sdk[t * K + k] = sd;
+      const float u = plan[t * B + b] + sd;
+      float c = bmpc::dummy_cost(xb, B, S, u, gz + t * Z, terms, n_terms);
+      c = c + ctrl_scale * (u * sd);
+      acc = acc + c;
+    }
+    if (!isfinite(acc)) acc = 1e30f;  // failure guard
+    wk[k] = acc;
+    cmin = fminf(cmin, acc);
+  }
+  const float beta = warp_min(cmin);
+  float wsum = 0.0f;
+  for (int k = lane; k < K; k += 32) {
+    const float w = expf(-(wk[k] - beta) / lam);
+    wk[k] = w;
+    wsum += w;
+  }
+  const float total = warp_sum(wsum);
+  for (int k = lane; k < K; k += 32) wk[k] = wk[k] / total;
+
+  for (int t = 0; t < T; ++t) {
+    float upd = 0.0f;
+    for (int k = lane; k < K; k += 32) {
+      const float sd = kCache ? sdk[t * K + k]
+                              : stdv * bmpc::interp_normal(seed_p + (uint32_t)k * kKStride,
+                                                           (uint32_t)t, i1, i2);
+      upd += wk[k] * sd;
+    }
+    upd = warp_sum(upd);
+    if (lane == 0) out[t * B + b] = plan[t * B + b] + upd;
+  }
+}
+
 // How a launch at (T, K) is cut: the noise cache or the redraw, and the
 // dynamic shared bytes of a block (K weights and, with the cache, K*T noise
 // values per warp).
@@ -235,4 +300,21 @@ extern "C" int fused_mppi_launch_config(int model_id, int T, int K, int B, const
     for (int i = 0; i < 8; ++i) out[i] = vals[i];
     return 0;
   });
+}
+
+// The dummy family at any S (the dummy form above): the arguments of
+// fused_mppi_step_launch with S and the device array of n_terms weight terms
+// (_build.dummy_terms) in place of the model id and the host weights.
+extern "C" int fused_mppi_dummy_launch(int S, const float* plan, const float* x0,
+                                       const float* gz, float* out, int T, int B, int K,
+                                       float stdv, float ctrl_scale, float lam, uint32_t seed,
+                                       int lanes, int C, const int4* terms, int n_terms,
+                                       cudaStream_t stream) {
+  const Shape sh = shape_for(T, K);
+  const auto kernel = sh.cache ? fused_mppi_dummy_kernel<true> : fused_mppi_dummy_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, sh.smem, stream>>>(
+      plan, x0, gz, out, T, B, K, stdv, ctrl_scale, lam, seed, lanes, C, S, terms, n_terms);
+  return (int)cudaGetLastError();
 }

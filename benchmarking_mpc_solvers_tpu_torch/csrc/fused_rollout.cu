@@ -62,6 +62,25 @@ fused_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ us,
   out[n] = acc;
 }
 
+// The dummy family at any S (models.cuh: dummy_cost): the state stays x0,
+// x_i of rollout n at x0[i * N + n].
+__global__ void __launch_bounds__(kThreads)
+fused_rollout_dummy_kernel(const float* __restrict__ x0, const float* __restrict__ us,
+                           const float* __restrict__ gz, float* __restrict__ out, int T,
+                           int N, int S, const int4* __restrict__ terms, int n_terms) {
+  const int Z = S + 1;
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  if (n >= N) return;
+  const float* xn = x0 + n;
+  float acc = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    const float c = bmpc::dummy_cost(xn, N, S, us[(size_t)t * N + n], gz + t * Z, terms,
+                                     n_terms);
+    acc = acc + c;
+  }
+  out[n] = acc;
+}
+
 template <class M>
 auto kernel_for(bool generic) {
   constexpr uint64_t kTerms = bmpc::compiled_terms<M>();
@@ -107,4 +126,16 @@ extern "C" int fused_rollout_launch_config(int model_id, int N, const float* w, 
     for (int i = 0; i < 5; ++i) out[i] = vals[i];
     return 0;
   });
+}
+
+// The dummy family at any S: the arguments of fused_rollout_costs_launch
+// with S and the device array of n_terms weight terms (_build.dummy_terms)
+// in place of the model id and the host weights.
+extern "C" int fused_rollout_dummy_launch(int S, const float* x0, const float* us,
+                                          const float* gz, float* out, int T, int N,
+                                          const int4* terms, int n_terms,
+                                          cudaStream_t stream) {
+  fused_rollout_dummy_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      x0, us, gz, out, T, N, S, terms, n_terms);
+  return (int)cudaGetLastError();
 }

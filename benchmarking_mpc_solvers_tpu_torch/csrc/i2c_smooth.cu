@@ -522,6 +522,275 @@ i2c_rts_kernel(const float* __restrict__ mu_f, const float* __restrict__ sig_f,
   }
 }
 
+// --- the general form: any D and Z --------------------------------------------
+//
+// Sizes past the register instances (D or Z above 6, ops/i2c_smooth.py:
+// REG_DIM) take one kernel pair whose D and Z are runtime arguments. A warp
+// per scenario; every matrix of a step lives in a per-warp workspace, in
+// shared memory or, where a block's kGeneralWarps workspaces pass
+// kMaxSharedBytes, in device memory; the inputs are read from device memory
+// where a step needs them. Each entry of each product is one lane's sum in
+// the reference order, the lanes taking the entries in turn; the Cholesky
+// factorisation runs in place column by column, row i on lane i % 32, which
+// also forms the next diagonal from its own row (so one __syncwarp per
+// column); each lane solves its own rows. Every value is formed once, by one
+// lane, with the operations of the plain version in its order, so the
+// general form keeps the plain version's bits at every size. Warps past B
+// return at once: no barrier spans warps.
+constexpr int kGeneralWarps = 4;             // warps (scenarios) per block
+constexpr int kMaxSharedBytes = 227 * 1024;  // a block's shared memory on sm_90
+
+// Floats of one scenario's workspace: the filter's sig_p, mu_p, P J^T, sig_y
+// (factored in place), the gain rows, the innovation, mu_f, sf (then
+// F sig_f) and sig_f; the smoother's sig_next, mu_next, M, the factor of
+// sig_pred, G, G Dlt and the smoothed mean.
+__host__ __device__ inline int general_filter_floats(int D, int Z) {
+  return 3 * D * D + 2 * D * Z + Z * Z + 2 * D + Z;
+}
+__host__ __device__ inline int general_rts_floats(int D) { return 5 * D * D + 2 * D; }
+
+// Lower Cholesky factor of the n x n matrix at A (row stride n), in place:
+// only the lower triangle is read and written. Ends with a __syncwarp.
+__device__ __forceinline__ void chol_warp(float* A, int n, int lane) {
+  if (lane == 0) A[0] = sqrtf(floor_keep_nan(A[0]));
+  __syncwarp();
+  for (int j = 0; j + 1 < n; ++j) {
+    const float* Aj = A + j * n;
+    for (int i = j + 1 + ((lane - j - 1) & 31); i < n; i += 32) {
+      float* Ai = A + i * n;
+      float s = Ai[j];
+      for (int k = 0; k < j; ++k) s = s - Ai[k] * Aj[k];
+      Ai[j] = div_rn(s, Aj[j]);
+      if (i == j + 1) {  // this row's diagonal: every entry left of it is this lane's
+        float d = Ai[i];
+        for (int k = 0; k <= j; ++k) d = d - Ai[k] * Ai[k];
+        Ai[i] = sqrtf(floor_keep_nan(d));
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// x = (L L^T)^-1 b for one right-hand side, L the factor at Lc (row stride
+// n), b[k] at b[k * bs]; x (contiguous) may not alias b.
+__device__ __forceinline__ void chol_solve_lane(const float* Lc, int n, const float* b, int bs,
+                                                float* x) {
+  for (int i = 0; i < n; ++i) {
+    float s = b[i * bs];
+    for (int k = 0; k < i; ++k) s = s - Lc[i * n + k] * x[k];
+    x[i] = div_rn(s, Lc[i * n + i]);
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    float s = x[i];
+    for (int k = i + 1; k < n; ++k) s = s - Lc[k * n + i] * x[k];
+    x[i] = div_rn(s, Lc[i * n + i]);
+  }
+}
+
+// The warp's workspace: its slot of the block's shared memory, or of ws.
+__device__ __forceinline__ float* general_workspace(float* ws, int per, int b) {
+  extern __shared__ float smem[];
+  return ws != nullptr ? ws + (size_t)b * per : smem + (threadIdx.x >> 5) * per;
+}
+
+__global__ void __launch_bounds__(32 * kGeneralWarps)
+i2c_filter_general(const float* __restrict__ F, const float* __restrict__ m,
+                   const float* __restrict__ J, const float* __restrict__ z0,
+                   const float* __restrict__ R, int r_stride,
+                   const float* __restrict__ mu0, const float* __restrict__ sig0,
+                   const float* __restrict__ Qproc, const float* __restrict__ g_z,
+                   float* __restrict__ mu_f_out, float* __restrict__ sig_f_out,
+                   float* __restrict__ mu_pred_out, float* __restrict__ sig_pred_out,
+                   int B, int T, int D, int Z, float* ws) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kGeneralWarps + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const int DD = D * D, DZ = D * Z;
+  float* P = general_workspace(ws, general_filter_floats(D, Z), b);
+  float* MU = P + DD;
+  float* PJ = MU + D;
+  float* LY = PJ + DZ;
+  float* SOL = LY + Z * Z;
+  float* INN = SOL + DZ;
+  float* MF = INN + Z;
+  float* SF = MF + D;
+  float* SG = SF + DD;
+  const float* Rb = R + (size_t)b * r_stride;
+  for (int e = lane; e < DD; e += 32) P[e] = sig0[e];
+  for (int i = lane; i < D; i += 32) MU[i] = mu0[(size_t)b * D + i];
+  __syncwarp();
+  for (int t = 0; t < T; ++t) {
+    const size_t bt = (size_t)b * T + t;
+    const float* Ft = F + bt * DD;
+    const float* Jt = J + bt * DZ;
+    const float* gt = g_z + (size_t)t * Z;
+    // P J^T, and the innovation g - (J mu_p + z0)
+    for (int e = lane; e < DZ; e += 32) {
+      const int i = e / Z, a = e - i * Z;
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + P[i * D + k] * Jt[a * D + k];
+      PJ[e] = s;
+    }
+    for (int a = lane; a < Z; a += 32) {
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + Jt[a * D + k] * MU[k];
+      INN[a] = gt[a] - (s + z0[bt * Z + a]);
+    }
+    __syncwarp();
+    // sig_y = R + J P J^T, lower triangle, then its factor in place
+    for (int e = lane; e < Z * Z; e += 32) {
+      const int a = e / Z, c = e - a * Z;
+      if (c > a) continue;
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + Jt[a * D + k] * PJ[k * Z + c];
+      LY[e] = Rb[e] + s;
+    }
+    __syncwarp();
+    chol_warp(LY, Z, lane);
+    // gain rows: sig_y x = (P J^T)[i]
+    for (int i = lane; i < D; i += 32) chol_solve_lane(LY, Z, PJ + i * Z, 1, SOL + i * Z);
+    __syncwarp();
+    // mu_f = mu_p + L innov; sf = sig_p - L (P J^T)^T
+    for (int i = lane; i < D; i += 32) {
+      float s = 0.0f;
+      for (int a = 0; a < Z; ++a) s = s + SOL[i * Z + a] * INN[a];
+      MF[i] = MU[i] + s;
+    }
+    for (int e = lane; e < DD; e += 32) {
+      const int i = e / D, j = e - i * D;
+      float s = 0.0f;
+      for (int a = 0; a < Z; ++a) s = s + SOL[i * Z + a] * PJ[j * Z + a];
+      SF[e] = P[e] - s;
+    }
+    __syncwarp();
+    // sig_f = sym(sf)
+    for (int e = lane; e < DD; e += 32) {
+      const int i = e / D, j = e - i * D;
+      const float v = 0.5f * (SF[e] + SF[j * D + i]);
+      SG[e] = v;
+      sig_f_out[bt * DD + e] = v;
+    }
+    for (int i = lane; i < D; i += 32) mu_f_out[bt * D + i] = MF[i];
+    __syncwarp();
+    // predict: mu_p = m + F mu_f, F sig_f into sf's place
+    for (int i = lane; i < D; i += 32) {
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + Ft[i * D + k] * MF[k];
+      const float v = m[bt * D + i] + s;
+      MU[i] = v;
+      mu_pred_out[bt * D + i] = v;
+    }
+    for (int e = lane; e < DD; e += 32) {
+      const int i = e / D, j = e - i * D;
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + Ft[i * D + k] * SG[k * D + j];
+      SF[e] = s;
+    }
+    __syncwarp();
+    // sig_p = (F sig_f) F^T + Q
+    for (int e = lane; e < DD; e += 32) {
+      const int i = e / D, j = e - i * D;
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + SF[i * D + k] * Ft[j * D + k];
+      const float v = s + Qproc[e];
+      P[e] = v;
+      sig_pred_out[bt * DD + e] = v;
+    }
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(32 * kGeneralWarps)
+i2c_rts_general(const float* __restrict__ mu_f, const float* __restrict__ sig_f,
+                const float* __restrict__ mu_pred, const float* __restrict__ sig_pred,
+                const float* __restrict__ F, float* __restrict__ mu_s, int B, int T, int D,
+                float* ws) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kGeneralWarps + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const int DD = D * D;
+  float* SN = general_workspace(ws, general_rts_floats(D), b);
+  float* MN = SN + DD;
+  float* M = MN + D;
+  float* A = M + DD;
+  float* G = A + DD;
+  float* GD = G + DD;
+  float* MS = GD + DD;
+  // the carry starts from the filtered moments of t = T-1, the last output row
+  {
+    const size_t bl = (size_t)b * T + (T - 1);
+    for (int e = lane; e < DD; e += 32) SN[e] = sig_f[bl * DD + e];
+    for (int i = lane; i < D; i += 32) {
+      MN[i] = mu_f[bl * D + i];
+      mu_s[bl * D + i] = mu_f[bl * D + i];
+    }
+  }
+  __syncwarp();
+  for (int t = T - 2; t >= 0; --t) {
+    const size_t bt = (size_t)b * T + t;
+    const float* Ft = F + bt * DD;
+    const float* sft = sig_f + bt * DD;
+    const float* spt = sig_pred + bt * DD;
+    const float* mpt = mu_pred + bt * D;
+    // M = F sig_f, and sig_pred's lower triangle to factor
+    for (int e = lane; e < DD; e += 32) {
+      const int i = e / D, j = e - i * D;
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + Ft[i * D + k] * sft[k * D + j];
+      M[e] = s;
+      if (j <= i) A[e] = spt[e];
+    }
+    __syncwarp();
+    chol_warp(A, D, lane);
+    // G's rows: sig_pred x = M[:, i]
+    for (int i = lane; i < D; i += 32) chol_solve_lane(A, D, M + i, D, G + i * D);
+    __syncwarp();
+    // the smoothed mean, and G (sig_next - sig_pred)
+    for (int i = lane; i < D; i += 32) {
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + G[i * D + k] * (MN[k] - mpt[k]);
+      MS[i] = mu_f[bt * D + i] + s;
+    }
+    for (int e = lane; e < DD; e += 32) {
+      const int i = e / D, j = e - i * D;
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + G[i * D + k] * (SN[k * D + j] - spt[k * D + j]);
+      GD[e] = s;
+    }
+    __syncwarp();
+    // sig_next = sig_f + G Dlt G^T; the mean carried and stored
+    for (int e = lane; e < DD; e += 32) {
+      const int i = e / D, j = e - i * D;
+      float s = 0.0f;
+      for (int k = 0; k < D; ++k) s = s + GD[i * D + k] * G[j * D + k];
+      SN[e] = sft[e] + s;
+    }
+    for (int i = lane; i < D; i += 32) {
+      MN[i] = MS[i];
+      mu_s[bt * D + i] = MS[i];
+    }
+    __syncwarp();
+  }
+}
+
+// The general form's launch: blocks of kGeneralWarps scenarios, each
+// warp's workspace in shared memory, or in ws (B * per floats, non-null
+// exactly where kGeneralWarps * per floats pass kMaxSharedBytes).
+template <typename Kernel, typename... Args>
+int launch_general(Kernel kernel, int per, const float* ws, int B, cudaStream_t stream,
+                   Args... args) {
+  const int bytes = ws != nullptr ? 0 : kGeneralWarps * per * (int)sizeof(float);
+  if (bytes > kMaxSharedBytes) return (int)cudaErrorInvalidValue;  // ws was needed
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(B + kGeneralWarps - 1) / kGeneralWarps, 32 * kGeneralWarps, bytes, stream>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
 struct FilterArgs {
   const float *F, *m, *J, *z0, *R;
   int r_stride;
@@ -686,4 +955,65 @@ extern "C" int i2c_launch_config(int D, int Z, int B, int* out) {
     return wide ? kernel_info<RtsLayout<Dv, true>>(i2c_rts_kernel<Dv, true>, out + 7)
                 : kernel_info<RtsLayout<Dv, false>>(i2c_rts_kernel<Dv, false>, out + 7);
   });
+}
+
+// The general form (any D and Z; the wrapper takes it where D or Z passes
+// 6): the arguments of i2c_filter_launch, and ws, null where
+// kGeneralWarps workspaces of general_filter_floats(D, Z) floats fit a
+// block's shared memory, else B times that many floats of device memory.
+extern "C" int i2c_filter_general_launch(const float* F, const float* m, const float* J,
+                                         const float* z0, const float* R, const float* mu0,
+                                         const float* sig0, const float* Qproc,
+                                         const float* g_z, float* mu_f, float* sig_f,
+                                         float* mu_pred, float* sig_pred, int B, int T, int D,
+                                         int Z, int r_per_scenario, float* ws,
+                                         cudaStream_t stream) {
+  if (D < 1 || Z < 1) return (int)cudaErrorInvalidValue;
+  return launch_general(i2c_filter_general, general_filter_floats(D, Z), ws, B, stream, F, m,
+                        J, z0, R, r_per_scenario ? Z * Z : 0, mu0, sig0, Qproc, g_z, mu_f,
+                        sig_f, mu_pred, sig_pred, B, T, D, Z, ws);
+}
+
+// The smoother's general form: the arguments of i2c_rts_launch and ws, null
+// or B * general_rts_floats(D) floats by the same test.
+extern "C" int i2c_rts_general_launch(const float* mu_f, const float* sig_f,
+                                      const float* mu_pred, const float* sig_pred,
+                                      const float* F, float* mu_s, int B, int T, int D,
+                                      float* ws, cudaStream_t stream) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  return launch_general(i2c_rts_general, general_rts_floats(D), ws, B, stream, mu_f, sig_f,
+                        mu_pred, sig_pred, F, mu_s, B, T, D, ws);
+}
+
+// The general form's launch shape at (D, Z) for B scenarios into out[13],
+// laid out as i2c_launch_config's: 0 stages (nothing is staged), then for
+// the filter and the smoother each threads and scenarios per block, 0 time
+// steps per stage, shared bytes per block (0 where the workspace is in
+// device memory), registers per thread and resident blocks per SM.
+extern "C" int i2c_general_launch_config(int D, int Z, int B, int* out) {
+  out[0] = 0;
+  const int per[2] = {general_filter_floats(D, Z), general_rts_floats(D)};
+  const void* kernels[2] = {(const void*)i2c_filter_general, (const void*)i2c_rts_general};
+  for (int k = 0; k < 2; ++k) {
+    int* o = out + 1 + 6 * k;
+    const int bytes = kGeneralWarps * per[k] * (int)sizeof(float);
+    o[0] = 32 * kGeneralWarps;
+    o[1] = kGeneralWarps;
+    o[2] = 0;
+    o[3] = bytes <= kMaxSharedBytes ? bytes : 0;
+    if (o[3] > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize, o[3]);
+      if (e != cudaSuccess) return (int)e;
+    }
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernels[k]);
+    if (e != cudaSuccess) return (int)e;
+    o[4] = attr.numRegs;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[5], kernels[k], 32 * kGeneralWarps,
+                                                      o[3]);
+    if (e != cudaSuccess) return (int)e;
+  }
+  (void)B;
+  return 0;
 }

@@ -16,7 +16,8 @@ included.
 Scope as in the reference: single-input models (action_size == 1) with a
 ``quad_cost`` stage cost, and on the card only models that have a device
 function in ``csrc/models.cuh`` (the plants under any weights, the dummy
-family; ``_build.model_id``).
+family; ``_build.model_id``), the dummy past S = 8 in the kernel's dummy
+form (``_build.dummy_size``).
 """
 
 from __future__ import annotations
@@ -64,16 +65,21 @@ def fused_rollout_costs_tm(model: Model, x0_tm, us_tm, g_z):
         return fused_rollout_costs_tm_reference(model, x0_tm, us_tm, g_z)
     if x0_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {x0_tm.device}")
-    mid = _build.model_id(model)
-    w = _build.quad_weights(model.state_cost)
+    S_dummy = _build.dummy_size(model)
+    mid = None if S_dummy is not None else _build.model_id(model)
     dev = x0_tm.device
     _build.check_cuda_args("fused_rollout_costs_tm", dev, x0_tm=x0_tm, us_tm=us_tm, g_z=g_z)
     out = torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    rc = _build.kernel_fn("fused_rollout_costs_launch")(
-        mid, _build.ptr(x0_tm), _build.ptr(us_tm), _build.ptr(g_z), _build.ptr(out),
-        T, N, w, _build.stream_ptr(dev))
+    args = (_build.ptr(x0_tm), _build.ptr(us_tm), _build.ptr(g_z), _build.ptr(out), T, N)
+    if S_dummy is None:
+        rc = _build.kernel_fn("fused_rollout_costs_launch")(
+            mid, *args, _build.quad_weights(model.state_cost), _build.stream_ptr(dev))
+    else:
+        terms = _build.dummy_terms(model.state_cost, dev)
+        rc = _build.kernel_fn("fused_rollout_dummy_launch")(
+            S_dummy, *args, _build.ptr(terms), terms.shape[0], _build.stream_ptr(dev))
     _build.check_rc("fused_rollout_costs_tm", rc)
     fused_rollout_costs_tm.launches += 1
     return out

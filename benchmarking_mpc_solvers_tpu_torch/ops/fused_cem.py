@@ -4,8 +4,10 @@ smoothed mean/std update, for all ``max_iter`` refinement iterations.
 Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused_cem.py:
 fused_cem_step``. On a CUDA tensor ``fused_cem_step`` launches the
 hand-written kernel in ``csrc/fused_cem.cu`` (one warp per scenario, one
-lane per sample, the stage cost compiled for the model's own weights;
-``launch_config`` reports the launch shape); on a CPU tensor it runs
+lane per sample, the stage cost compiled for the model's own weights; the
+dummy family past S = 8 in the kernel's dummy form, S and the weights as
+arguments; ``launch_config`` reports the launch shape of the model
+functors' form); on a CPU tensor it runs
 ``fused_cem_step_reference``, the plain PyTorch version.
 ``fused_cem_step.launches`` counts kernel launches.
 
@@ -129,8 +131,8 @@ def fused_cem_step(model: Model, K: int, n_elite: int, max_iter: int, alpha: flo
                                         planned_tm, x0_tm, gz, seed, return_masks)
     if planned_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {planned_tm.device}")
-    mid = _build.model_id(model)
-    w = _build.quad_weights(model.state_cost)
+    S_dummy = _build.dummy_size(model)
+    mid = None if S_dummy is not None else _build.model_id(model)
     dev = planned_tm.device
     _build.check_cuda_args("fused_cem_step", dev, planned_tm=planned_tm, x0_tm=x0_tm, gz=gz)
     out = torch.empty_like(planned_tm)
@@ -141,12 +143,18 @@ def fused_cem_step(model: Model, K: int, n_elite: int, max_iter: int, alpha: flo
         return (out, masks) if return_masks else out
     a, one_minus_a = _smoothing(alpha)
     C = _round_up(max(B, SUBLANES * lanes), SUBLANES * lanes) // SUBLANES
-    rc = _build.kernel_fn("fused_cem_step_launch")(
-        mid, _build.ptr(planned_tm), _build.ptr(x0_tm), _build.ptr(gz), _build.ptr(out),
-        _build.ptr(masks) if return_masks else None,
-        T, B, K, n_elite, max_iter, a, one_minus_a, float(np.float32(std0)),
-        float(model.bounds_low[0]), float(model.bounds_high[0]),
-        int(seed) & _MASK, lanes, C, w, _build.stream_ptr(dev))
+    args = (_build.ptr(planned_tm), _build.ptr(x0_tm), _build.ptr(gz), _build.ptr(out),
+            _build.ptr(masks) if return_masks else None,
+            T, B, K, n_elite, max_iter, a, one_minus_a, float(np.float32(std0)),
+            float(model.bounds_low[0]), float(model.bounds_high[0]),
+            int(seed) & _MASK, lanes, C)
+    if S_dummy is None:
+        rc = _build.kernel_fn("fused_cem_step_launch")(
+            mid, *args, _build.quad_weights(model.state_cost), _build.stream_ptr(dev))
+    else:
+        terms = _build.dummy_terms(model.state_cost, dev)
+        rc = _build.kernel_fn("fused_cem_dummy_launch")(
+            S_dummy, *args, _build.ptr(terms), terms.shape[0], _build.stream_ptr(dev))
     _build.check_rc("fused_cem_step", rc)
     fused_cem_step.launches += 1
     return (out, masks) if return_masks else out

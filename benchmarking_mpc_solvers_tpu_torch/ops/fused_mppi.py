@@ -4,8 +4,10 @@ Counterpart of ``benchmarking_mpc_solvers_tpu/ops/fused_mppi.py:
 fused_mppi_step``. On a CUDA tensor ``fused_mppi_step`` launches the
 hand-written kernel in ``csrc/fused_mppi.cu`` (one warp per scenario, one
 lane per sample, the stage cost compiled for the model's own weights, pass
-1's noise kept in shared memory for pass 2 where it fits; ``launch_config``
-reports the launch shape); on a CPU tensor it runs
+1's noise kept in shared memory for pass 2 where it fits; the dummy family
+past S = 8 in the kernel's dummy form, S and the weights as arguments;
+``launch_config`` reports the launch shape of the model functors' form); on
+a CPU tensor it runs
 ``fused_mppi_step_reference``, the plain PyTorch version.
 ``fused_mppi_step.launches`` counts kernel launches.
 
@@ -189,8 +191,8 @@ def fused_mppi_step(model: Model, K: int, std: float, lam: float, lanes: int,
         return fused_mppi_step_reference(model, K, std, lam, lanes, planned_tm, x0_tm, gz, seed)
     if planned_tm.device.type != "cuda":
         raise ValueError(f"unsupported device {planned_tm.device}")
-    mid = _build.model_id(model)
-    w = _build.quad_weights(model.state_cost)
+    S_dummy = _build.dummy_size(model)
+    mid = None if S_dummy is not None else _build.model_id(model)
     dev = planned_tm.device
     _build.check_cuda_args("fused_mppi_step", dev, planned_tm=planned_tm, x0_tm=x0_tm, gz=gz)
     if B == 0 or T == 0:
@@ -199,10 +201,15 @@ def fused_mppi_step(model: Model, K: int, std: float, lam: float, lanes: int,
     tile = SUBLANES * lanes
     C = _round_up(max(B, tile), tile) // SUBLANES
     ctrl_scale = lam * (1.0 / (std * std))
-    rc = _build.kernel_fn("fused_mppi_step_launch")(
-        mid, _build.ptr(planned_tm), _build.ptr(x0_tm), _build.ptr(gz), _build.ptr(out),
-        T, B, K, std, ctrl_scale, lam, int(seed) & _MASK, lanes, C, w,
-        _build.stream_ptr(dev))
+    args = (_build.ptr(planned_tm), _build.ptr(x0_tm), _build.ptr(gz), _build.ptr(out),
+            T, B, K, std, ctrl_scale, lam, int(seed) & _MASK, lanes, C)
+    if S_dummy is None:
+        rc = _build.kernel_fn("fused_mppi_step_launch")(
+            mid, *args, _build.quad_weights(model.state_cost), _build.stream_ptr(dev))
+    else:
+        terms = _build.dummy_terms(model.state_cost, dev)
+        rc = _build.kernel_fn("fused_mppi_dummy_launch")(
+            S_dummy, *args, _build.ptr(terms), terms.shape[0], _build.stream_ptr(dev))
     _build.check_rc("fused_mppi_step", rc)
     fused_mppi_step.launches += 1
     return out

@@ -18,12 +18,17 @@ On CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/i2c_smooth.cu`` or raises; on CPU tensors it runs its
 ``*_reference``, the plain PyTorch version with the reference kernel's
 arithmetic written out entry by entry in the same order, so that the kernel
-and the plain version round alike. The kernels give each scenario a group of
-8 lanes, lane r computing row r of each matrix (the Cholesky factor in every
-lane), and copy the horizon's inputs into shared memory with ``cp.async`` a
-few steps ahead of the chain; ``launch_config`` reports the launch shape.
-``i2c_filter.launches`` and ``i2c_rts_smooth.launches`` count kernel
-launches.
+and the plain version round alike. The kernels take every D and Z, in two
+forms (``kernel_form``). Up to ``REG_DIM`` the register form: a template
+instance for each (D, Z), a group of 8 lanes a scenario, lane r computing
+row r of each matrix (the Cholesky factor in every lane) in registers, the
+horizon's inputs copied into shared memory with ``cp.async`` a few steps
+ahead of the chain. Past it the general form: one kernel pair with D and Z
+as arguments, a warp a scenario, every matrix in a per-warp workspace in
+shared memory, or in device memory where a block's workspaces pass the
+card's shared memory (``general_workspace``). ``launch_config`` reports the
+launch shape. ``i2c_filter.launches`` and ``i2c_rts_smooth.launches`` count
+kernel launches.
 
 The Cholesky diagonals are floored at 1e-30 (the inputs are positive definite
 by construction: R and the priors carry explicit ridges); a NaN passes the
@@ -38,7 +43,32 @@ import torch
 
 from .. import _build
 
-MAX_DIM = 6  # the kernels' largest D and Z (template parameters)
+REG_DIM = 6  # the register form's largest D and Z (its template instances)
+GENERAL_WARPS = 4  # the general form's scenarios (warps) per block
+MAX_SHARED_BYTES = 227 * 1024  # a block's shared memory on the H100
+
+
+def kernel_form(D: int, Z: int) -> str:
+    """The kernels' form at (D, Z): ``"register"`` up to ``REG_DIM``, else
+    ``"general"``. Both take any B and T, and both keep the plain version's
+    bits."""
+    return "register" if D <= REG_DIM and Z <= REG_DIM else "general"
+
+
+def general_floats(D: int, Z: int) -> tuple:
+    """Floats of one scenario's workspace in the general form's filter and
+    smoother (``csrc/i2c_smooth.cu``: general_filter_floats,
+    general_rts_floats)."""
+    return 3 * D * D + 2 * D * Z + Z * Z + 2 * D + Z, 5 * D * D + 2 * D
+
+
+def general_workspace(floats: int, B: int, device):
+    """The general form's device-memory workspace for B scenarios of
+    ``floats`` each, or None where a block's ``GENERAL_WARPS`` workspaces fit
+    its shared memory."""
+    if GENERAL_WARPS * floats * 4 <= MAX_SHARED_BYTES:
+        return None
+    return torch.empty((B * floats,), dtype=torch.float32, device=device)
 
 
 def _chol(A, n):
@@ -124,13 +154,6 @@ def _check_rts_shapes(mu_f, sig_f, mu_pred, sig_pred, F):
     return B, T, D
 
 
-def _check_dims(name: str, D: int, Z: int) -> None:
-    if D > MAX_DIM or Z > MAX_DIM:
-        raise NotImplementedError(
-            f"{name}: the kernels hold D, Z <= {MAX_DIM}, got D = {D}, Z = {Z}; the solver's "
-            f"solve_batch(use_fused=False) runs the plain per-step form")
-
-
 # -- plain versions -----------------------------------------------------------------
 
 
@@ -204,17 +227,21 @@ def i2c_smooth_batch_reference(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
 
 def launch_config(D: int, Z: int, B: int) -> dict:
     """The kernels' launch shape for B scenarios at (D, Z) on the current
-    card (the smoother's blocks are wider where B fills the SMs): the stages
-    of the shared-memory ring and, for ``filter`` and ``rts`` each, threads
-    and scenarios per block, time steps per stage, shared bytes per block,
-    registers per thread and resident blocks per SM."""
-    _check_dims("launch_config", D, Z)
+    card: their ``form`` (``kernel_form``), the stages of the shared-memory
+    ring (0 in the general form, which stages nothing) and, for ``filter``
+    and ``rts`` each, threads and scenarios per block, time steps per stage
+    (0 in the general form), shared bytes per block (0 where the general
+    form's workspace is in device memory), registers per thread and
+    resident blocks per SM. The register form's smoother takes wider blocks
+    where B fills the SMs."""
+    form = kernel_form(D, Z)
     out = (ctypes.c_int * 13)()
-    _build.check_rc("launch_config", _build.kernel_fn("i2c_launch_config")(
+    entry = "i2c_launch_config" if form == "register" else "i2c_general_launch_config"
+    _build.check_rc("launch_config", _build.kernel_fn(entry)(
         D, Z, B, ctypes.cast(out, ctypes.c_void_p)))
     keys = ("threads", "scenarios_per_block", "chunk", "shared_bytes", "registers",
             "blocks_per_sm")
-    return {"stages": out[0], "filter": dict(zip(keys, out[1:7])),
+    return {"form": form, "stages": out[0], "filter": dict(zip(keys, out[1:7])),
             "rts": dict(zip(keys, out[7:13]))}
 
 
@@ -229,7 +256,6 @@ def i2c_filter(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
         return i2c_filter_reference(F, m, J, z0, R, mu0, sig0, Qproc, g_z)
     if F.device.type != "cuda":
         raise ValueError(f"unsupported device {F.device}")
-    _check_dims("i2c_filter", D, Z)
     dev = F.device
     _build.check_cuda_args("i2c_filter", dev, F=F, m=m, J=J, z0=z0, R=R, mu0=mu0, sig0=sig0,
                            Qproc=Qproc, g_z=g_z)
@@ -239,10 +265,15 @@ def i2c_filter(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
     sig_pred = torch.empty_like(sig_f)
     if B == 0:
         return mu_f, sig_f, mu_pred, sig_pred
-    rc = _build.kernel_fn("i2c_filter_launch")(
-        *(_build.ptr(t) for t in (F, m, J, z0, R, mu0, sig0, Qproc, g_z,
-                                  mu_f, sig_f, mu_pred, sig_pred)),
-        B, T, D, Z, int(R.ndim == 3), _build.stream_ptr(dev))
+    args = [*(_build.ptr(t) for t in (F, m, J, z0, R, mu0, sig0, Qproc, g_z,
+                                      mu_f, sig_f, mu_pred, sig_pred)),
+            B, T, D, Z, int(R.ndim == 3)]
+    if kernel_form(D, Z) == "register":
+        rc = _build.kernel_fn("i2c_filter_launch")(*args, _build.stream_ptr(dev))
+    else:
+        ws = general_workspace(general_floats(D, Z)[0], B, dev)
+        rc = _build.kernel_fn("i2c_filter_general_launch")(
+            *args, None if ws is None else _build.ptr(ws), _build.stream_ptr(dev))
     _build.check_rc("i2c_filter", rc)
     i2c_filter.launches += 1
     return mu_f, sig_f, mu_pred, sig_pred
@@ -261,16 +292,19 @@ def i2c_rts_smooth(mu_f, sig_f, mu_pred, sig_pred, F):
         return i2c_rts_smooth_reference(mu_f, sig_f, mu_pred, sig_pred, F)
     if F.device.type != "cuda":
         raise ValueError(f"unsupported device {F.device}")
-    _check_dims("i2c_rts_smooth", D, D)
     dev = F.device
     _build.check_cuda_args("i2c_rts_smooth", dev, mu_f=mu_f, sig_f=sig_f, mu_pred=mu_pred,
                            sig_pred=sig_pred, F=F)
     mu_s = torch.empty((B, T, D), dtype=torch.float32, device=dev)
     if B == 0:
         return mu_s
-    rc = _build.kernel_fn("i2c_rts_launch")(
-        *(_build.ptr(t) for t in (mu_f, sig_f, mu_pred, sig_pred, F, mu_s)),
-        B, T, D, _build.stream_ptr(dev))
+    args = [*(_build.ptr(t) for t in (mu_f, sig_f, mu_pred, sig_pred, F, mu_s)), B, T, D]
+    if kernel_form(D, D) == "register":
+        rc = _build.kernel_fn("i2c_rts_launch")(*args, _build.stream_ptr(dev))
+    else:
+        ws = general_workspace(general_floats(D, D)[1], B, dev)
+        rc = _build.kernel_fn("i2c_rts_general_launch")(
+            *args, None if ws is None else _build.ptr(ws), _build.stream_ptr(dev))
     _build.check_rc("i2c_rts_smooth", rc)
     i2c_rts_smooth.launches += 1
     return mu_s

@@ -130,16 +130,26 @@ def _gather(results: list, device: torch.device):
                               for f in fields))
 
 
-def sharded_episodes(env, solver, cfg, mesh: Mesh, axis: str = BATCH_AXIS):
+def sharded_episodes(env, solver, cfg, mesh: Mesh, axis: str = BATCH_AXIS,
+                     use_fused: bool = False):
     """Return ``fn(x0s, generators=None) -> EpisodeResult`` with the
     scenario batch sharded over ``mesh``: each device runs its shard
-    through ``run_episodes_batch`` (the plain batched tier) with its own
-    generator (``generators``, one per shard on its device; default: shard
-    i's seeded with i). The result's batch is in scenario order on the
-    mesh's first device."""
-    from ..experiment.episode import run_episodes_batch
+    through ``run_episodes_batch`` (the plain batched tier), or with
+    ``use_fused`` through ``run_episodes_fused(use_kernel=False)`` (the
+    batched solve with its stages on the kernels, as the reference's
+    vmapped solve reaches its kernels), with its own generator
+    (``generators``, one per shard on its device; default: shard i's seeded
+    with i). The result's batch is in scenario order on the mesh's first
+    device."""
+    from ..experiment.episode import run_episodes_batch, run_episodes_fused
 
     devs = mesh.axis_devices(axis)
+
+    def run(x, g, d):
+        if use_fused:
+            return run_episodes_fused(env, solver, cfg, x, use_kernel=False, generator=g,
+                                      device=d)
+        return run_episodes_batch(env, solver, cfg, x, generator=g, device=d)
 
     def fn(x0s, generators=None):
         shards = _shards(mesh, x0s, axis)
@@ -147,7 +157,7 @@ def sharded_episodes(env, solver, cfg, mesh: Mesh, axis: str = BATCH_AXIS):
         results = []
         for x, g, d in zip(shards, gens, devs):
             with _on(d):
-                results.append(run_episodes_batch(env, solver, cfg, x, generator=g, device=d))
+                results.append(run(x, g, d))
         return _gather(results, devs[0])
 
     return fn

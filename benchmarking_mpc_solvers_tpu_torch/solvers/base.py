@@ -85,10 +85,12 @@ def fused_tier_applicable(model: Model) -> bool:
 def check_device_functor(name: str, model: Model, device) -> None:
     """On a CUDA device, refuse a model whose physics has no device functor
     (``_build.model_id``: the three plants under any weights and the dummy
-    family have one), before anything is allocated or launched: else the
-    first model-calling kernel would refuse it after other stages had run.
-    On the CPU the plain versions take every model."""
-    if torch.device(device).type != "cuda":
+    family have one; kernels 1, 2 and 3 take the dummy at any S,
+    ``_build.dummy_size``, and the Riccati kernel's state bound keeps
+    S > 8 off kernels 4 and 6), before anything is allocated or launched:
+    else the first model-calling kernel would refuse it after other stages
+    had run. On the CPU the plain versions take every model."""
+    if torch.device(device).type != "cuda" or _build.dummy_size(model) is not None:
         return
     try:
         _build.model_id(model)

@@ -26,9 +26,10 @@ exploration covariances.
 batch: B scenarios in lock-step for ``max_iter`` iterations, no early exit
 and no host sync inside the loop. With ``use_fused`` an iteration's filter
 and smoother are one launch each of ``ops/i2c_smooth.py``'s kernels on the
-card (their plain versions on the CPU); a per-scenario goal (B, T, Z), or an
-augmented state or feature size the kernels do not hold, is refused and
-needs ``use_fused=False``, which runs the per-step ``_kf_rts`` form.
+card (their plain versions on the CPU), for every augmented state and
+feature size, as the reference's kernels take every size; a per-scenario
+goal (B, T, Z) is refused and needs ``use_fused=False``, which runs the
+per-step ``_kf_rts`` form.
 The reference's ``pallas_smoother`` switch resolves as there: ``None`` and
 ``True`` leave the smoother to ``use_fused``, and an explicit ``False`` runs
 ``_kf_rts``, ``use_fused=True`` included. ``solve`` is ``solve_batch`` on a
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.i2c_smooth import MAX_DIM, i2c_smooth_batch
+from ..ops.i2c_smooth import i2c_smooth_batch
 from ..ops.linearize import _transform_jacobian, linearize_dynamics, mT, mv
 from ..ops.rollout import best_plan_by_rollout_cost, rollout, rollout_noisy
 from .base import Solver
@@ -140,28 +141,17 @@ class I2C(Solver):
         sig0[S:, S:] = self.sigma_u**2 * torch.eye(A)
         return sig0.to(device), Q_proc.to(device)
 
-    def _kernels_hold(self) -> bool:
-        """Whether the smoother kernels take the model: D = S + A and the
-        feature size Z up to ``MAX_DIM``."""
-        D = self.model.state_size + self.model.action_size
-        return max(D, self.model.state_cost.W.shape[0]) <= MAX_DIM
-
     def has_kernel_stages(self) -> bool:
-        """Whether ``pallas_smoother`` allows the smoother kernels and they
-        take the model."""
-        return self.pallas_smoother is not False and self._kernels_hold()
+        """Whether ``pallas_smoother`` allows the smoother kernels, which
+        take every model (any D and Z)."""
+        return self.pallas_smoother is not False
 
     def _check_fused(self, g_z) -> None:
         """Gate of ``use_fused=True``: the smoother kernels take one goal
-        trajectory (T, Z) for the whole batch and D, Z up to ``MAX_DIM``.
-        Anything else is refused here, on any device, so that a fused solve
-        never runs the plain form unasked. Any action size passes."""
-        D = self.model.state_size + self.model.action_size
-        Z = self.model.state_cost.W.shape[0]
-        if not self._kernels_hold():
-            raise NotImplementedError(
-                f"I2C.solve_batch(use_fused=True) needs state_size + action_size and the "
-                f"feature size <= {MAX_DIM}, got {D} and {Z}; pass use_fused=False")
+        trajectory (T, Z) for the whole batch, as the reference's batching
+        rule sends only a shared goal to its kernel. A per-scenario goal is
+        refused here, on any device, so that a fused solve never runs the
+        plain form unasked. Every D, Z and action size passes."""
         if g_z.ndim != 2:
             raise NotImplementedError(
                 f"I2C.solve_batch(use_fused=True) needs one goal trajectory (T, Z) shared by "

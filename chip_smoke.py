@@ -22,7 +22,7 @@ Phases (any failure exits non-zero before the result line):
      max_iter=3, T=50, B=10240, 10 MPC steps) on both tiers;
    - iLQR, the batched configuration (cart-pole swing-up, T=100,
      max_iter=5, reference_accept=False, B=1024, warm start 10; its 20 MPC
-     steps cut to 5) through the Riccati and line-search kernels, with exact
+     steps cut to 3) through the Riccati and line-search kernels, with exact
      Hessians and again with gauss_newton=True (then also the derivative
      kernel);
    - SQP, the suite's configuration 4 (acrobot, T=100, max_iter=4, B=1024,
@@ -88,6 +88,19 @@ Phases (any failure exits non-zero before the result line):
      with the launches of its route and no other; the Riccati crossover;
      kernels 9 and 10 timed at the kernel rows' shapes beside their bound
      and the SASS issue and pipe floors of their loops;
+   - the repairs and the benchmark entry points (phase (m)): kernels 1, 2
+     and 3 on the dummy past S = 8 (their dummy form: S = 9, 16 and 31 at a
+     small shape, S = 12 under dense weights, S = 16 at the MPPI bench, MPPI
+     two-stage and CEM sweep widths and on the MPPI and CEM tiers), kernels
+     8a/8b in their general form (D, Z above 6, block edges, T = 1, the
+     device-memory workspace, the sweep row's B and T, and
+     ``I2C.solve_batch(use_fused=True)`` on make_dummy_model(8, 1)), each
+     against its plain version; then ``scripts/bench_suite.py``'s main()
+     through its six configurations at full widths, cut to 2 steps and one
+     timing repetition (``SUITE_ARGS``), each configuration's launches by
+     its route, kernels 4, 5 and 6 of configuration 5's iLQR and SQP rows held
+     on one solve's own inputs at B = 10,240; and ``scripts/bench.py``'s
+     main() once;
    plus small MPPI, CEM, iLQR, SQP, QP-MPC and I2C episodes on the card
    against the plain versions on the CPU, and short swing-up progress
    checks.
@@ -132,7 +145,7 @@ MPPI_SWEEP_K, MPPI_SWEEP_B = 64, 10240
 # (scripts/bench_suite.py:216-223) of the reference's suite, iLQR's 20 MPC
 # steps cut to ILQR_STEPS for the time limit (both Hessians)
 CEM_T, CEM_K, CEM_ELITE, CEM_ITERS, CEM_B, CEM_STEPS = 50, 64, 8, 3, 10240, 10
-ILQR_T, ILQR_ITERS, ILQR_B, ILQR_WARM, ILQR_STEPS, N_ALPHAS = 100, 5, 1024, 10, 5, 10
+ILQR_T, ILQR_ITERS, ILQR_B, ILQR_WARM, ILQR_STEPS, N_ALPHAS = 100, 5, 1024, 10, 3, 10
 # SQP configuration 4 (its 20 steps cut to SQP_STEPS) and the QP-MPC
 # configurations 1 and 2 (scripts/bench_suite.py:225-238, :168-177, :179-214;
 # configuration 2's 40 steps cut to QP2_STEPS)
@@ -198,7 +211,7 @@ def experiment_keys(sensor: bool, actuation: bool, per_step: bool) -> list:
 # each held bit for bit on one solve's calls at the configuration; CEM,
 # MPPI and QP-MPC take the plain batched tier, as the reference's vmapped
 # solves reach no kernel
-STUDY_STEPS, STUDY_WARM = 10, 10
+STUDY_STEPS, STUDY_WARM = 5, 5
 STUDY_ROUTES = {
     "experiment_test": (), "sample_test": (), "mppi_temperature": (),
     "ilqr_tuning": ("fused_linesearch",), "noise_tests": (), "new_solver_sweep": (),
@@ -563,7 +576,7 @@ SHARDED_STEP_TOL = 2e-3
 # Host-clock episodes of each long path (iLQR, SQP, QP-MPC configuration 2,
 # I2C): its launch-count run, which follows the kernels' warm-up, is the
 # first of them
-LONG_EPISODE_REPS = 3
+LONG_EPISODE_REPS = 2
 # episodes of the sharded kernel tier and of run_episodes_fused, timed in turns
 SHARDED_ROUNDS = 8
 # The plain routes under pallas_backward=False / pallas_smoother=False
@@ -583,7 +596,7 @@ SWITCH_TOL, SWITCH_STEPS, SWITCH_SPLIT = 2e-3, 2, 0.05
 # FAMILY_WARM warm-start solves (iLQR; configuration 3 has 10) and
 # FAMILY_STEPS MPC steps (20 in both) for the time limit; cart-pole under
 # configuration 2's weights on its features (scripts/bench_suite.py:184-185)
-FAMILY_WARM, FAMILY_STEPS, FAMILY_REPS = 2, 3, 3
+FAMILY_WARM, FAMILY_STEPS, FAMILY_REPS = 2, 3, 2
 CART2_W = (0.5, 0.1, 5.0, 0.5, 0.1)
 DUMMY_START = (0.5, -0.3)
 
@@ -683,6 +696,20 @@ def i2c_rts_ops(D: int) -> int:
     return (D * D * 2 * D + chol_ops(D) + D * 2 * D * D   # F sig_f, factor, D solves
             + D + D * (2 * D + 1)                         # mu_s
             + D * D + D * D * 2 * D + D * D * (2 * D + 1))  # sig_s
+
+
+def i2c_work(p, clock_mhz: float) -> tuple:
+    """(bytes, operations, chain ms) of the filter and of the smoother on
+    the problem ``p`` (the filter's arguments): each input read once, each
+    output written once; the horizon's loop-carried chain at the clock."""
+    B_, T_, D = p[0].shape[:3]
+    Zf = p[2].shape[2]
+    pts = B_ * T_
+    shared = 2 * D * D + T_ * Zf + p[4].numel() + B_ * D  # sig0, Qproc, g_z, R, mu0
+    return ((4 * (pts * (D * D + D + Zf * D + Zf + 2 * (D + D * D)) + shared),
+             pts * i2c_filter_ops(D, Zf), chain_ms(T_, i2c_filter_chain(D, Zf), clock_mhz)),
+            (4 * (pts * (2 * (D + D * D) + D * D + D)), pts * i2c_rts_ops(D),
+             chain_ms(T_ - 1, i2c_rts_chain(D), clock_mhz)))
 
 
 def _dep(*depths):
@@ -1463,6 +1490,337 @@ def i2c_first_iteration_inputs_for(env_, T, B, seed, dev):
     F, m, J, z0, mu0 = solver._smoother_inputs(xs, us, gz)
     return [t.contiguous() for t in (F, m, J, z0, solver._obs_noise(solver.alphas()[0], dev),
                                      mu0, *solver._prior_covs(dev), gz)]
+
+
+# Phase (m): the repairs of kernels 1-3 (the dummy past S = 8) and 8a/8b (D, Z
+# above 6) on the card, then the benchmark suite's and bench's entry points.
+# The repairs: kernels 1, 2 and 3 on the dummy at S in REPAIR_DUMMY_S at a
+# small shape (T=17, B=1001, K=48, ragged blocks), once under dense weights,
+# and at REPAIR_WIDE_S at the MPPI bench width, the MPPI two-stage N and the
+# CEM sweep's width; kernels 8a/8b in their general form at D = Z in
+# REPAIR_I2C_DIMS, D != Z both ways, at the edges of their 4-scenario blocks,
+# T = 1, the device-memory workspace, and at the sweep row's B and T. The
+# suite at its full widths, cut to SUITE_ARGS' steps and timing repetitions.
+REPAIR_DUMMY_S, REPAIR_WIDE_S, REPAIR_DENSE_S = (9, 16, 31), 16, 12
+REPAIR_I2C_DIMS = ((6, 1, 7), (8, 1, 9), (11, 1, 12), (15, 1, 16), (6, 1, 10), (8, 1, 3))
+REPAIR_I2C_EDGES = ((1, 3), (4, 5), (5, 2), (33, 4), (6, 1))  # (B, T) at D = Z = 9
+REPAIR_EPISODE_STEPS = 3
+SUITE_ARGS = ["--steps", "2", "--inner", "2", "--outer", "1", "--samples", "2", "--min-chains"]
+# each suite configuration's kernels (its route), none other may launch
+SUITE_ROUTES = {
+    1: ("admm_iterate",), 2: (),
+    3: ("riccati_backward_batch", "fused_linesearch"),
+    4: ("fused_derivs", "riccati_backward_batch", "fused_linesearch"),
+    5: ("fused_mppi_step", "fused_cem_step", "fused_derivs", "riccati_backward_batch",
+        "fused_linesearch", "i2c_filter", "i2c_rts_smooth"),
+    6: ("i2c_filter", "i2c_rts_smooth"),
+}
+
+
+def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
+                           launches: dict) -> tuple:
+    """Phase (m). The suite's and bench's launch counts go into
+    ``launches`` (the registered plants' paths); returns the readings, the
+    kernels line's entries of the new shapes and the launch counts of the
+    repairs' paths."""
+    import dataclasses
+    import tempfile
+
+    from benchmarking_mpc_solvers_tpu_torch import _build
+    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv, PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.experiment import EpisodeConfig, run_episodes_fused
+    from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
+    from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+    from benchmarking_mpc_solvers_tpu_torch.ops import riccati_backward as riccati_module
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import (
+        fused_rollout_costs_tm, fused_rollout_costs_tm_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
+        fused_cem_step, fused_cem_step_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
+        fused_mppi_step, fused_mppi_step_reference, pick_lanes)
+    from benchmarking_mpc_solvers_tpu_torch.scripts import bench, bench_suite
+    from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, I2C, MPPI
+    from benchmarking_mpc_solvers_tpu_torch.solvers import ilqr as ilqr_module
+    from benchmarking_mpc_solvers_tpu_torch.solvers import sqp as sqp_module
+
+    dev = torch.device("cuda", 0)
+    readings, entries, repair = {}, [], {}
+    errs = {}
+
+    def err(name, e):
+        errs[name] = max(errs.get(name, e), e)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def drive(label, run, expect):
+        """One path with the counts at 0 before and read after: each count
+        of ``expect``, no other launch."""
+        reset_counts()
+        res = run()
+        got = counts()
+        want = {fn.__name__: 0 for fn in counters}
+        want.update(expect)
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want}")
+        repair[label] = got
+        print(f"[{smi}] phase (m) {label}: launches {expect}", flush=True)
+        return res
+
+    def entry(base, label, n, e, fn, plain_fn, bnd, cfg=None, plain_reps=3):
+        around, device = cuda_time_ms(fn), device_time_ms(fn)
+        plain = cuda_time_ms(plain_fn, reps=plain_reps, warmup=min(plain_reps, 1))
+        entries.append({"base": base, "name": f"{base}[{label}]", "route": "cuda",
+                        "launches": n, "max_abs_err": e[0], "max_rel_err": e[1], "ms": around,
+                        "device_ms": device, "plain_ms": plain, "bound_ms": bnd[0],
+                        "bound_by": bnd[1], "library_ms": None, "launch": cfg, "pass": True})
+        print(f"[{smi}] {base}[{label}]: around one call {around:.4f} ms, device {device:.4f} ms,"
+              f" plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); launch {cfg}", flush=True)
+
+    # (a) kernels 1, 2 and 3 on the dummy past S = 8: small shapes
+    def sampling(model, T, B, K, N, seed, tag, which=(1, 2, 3)):
+        """Kernels ``which`` of 1, 2 and 3 against their plain versions
+        (2 and 3 bit for bit); returns each one's arguments and errors."""
+        S, Z = model.state_size, model.goal_size
+        rng = np.random.default_rng(seed)
+        plan = torch.from_numpy(rng.uniform(-1.5, 1.5, (T, B)).astype(np.float32)).to(dev)
+        x0 = torch.from_numpy(rng.uniform(-1, 1, (S, B)).astype(np.float32)).to(dev)
+        gz = torch.from_numpy(rng.uniform(-0.2, 0.2, (T, Z)).astype(np.float32)).to(dev)
+        lanes = pick_lanes(B)
+        out = {}
+        if 1 in which:
+            a1 = (model, K, 0.9, 0.7, lanes, plan, x0, gz, 5)
+            out[1] = a1, compare(f"fused_mppi_step[{tag}, B={B}, K={K}, T={T}]",
+                                 fused_mppi_step(*a1), fused_mppi_step_reference(*a1))
+            err("fused_mppi_step", out[1][1][0])
+        if 2 in which:
+            xn = torch.from_numpy(rng.uniform(-1, 1, (S, N)).astype(np.float32)).to(dev)
+            us = torch.from_numpy(rng.uniform(-2, 2, (T, N)).astype(np.float32)).to(dev)
+            a2 = (model, xn, us, gz)
+            got, want = fused_rollout_costs_tm(*a2), fused_rollout_costs_tm_reference(*a2)
+            exact_nan(f"fused_rollout_costs_tm[{tag}, N={N}, T={T}]", got, want)
+            out[2] = a2, compare(f"fused_rollout_costs_tm[{tag}, N={N}, T={T}]", got, want)
+            err("fused_rollout_costs_tm", out[2][1][0])
+        if 3 in which:
+            a3 = (model, K, CEM_ELITE if K >= 64 else 5, CEM_ITERS, 0.2, 1.5, lanes, plan, x0,
+                  gz, 7)
+            got, masks = fused_cem_step(*a3, return_masks=True)
+            want, wmasks = fused_cem_step_reference(*a3, return_masks=True)
+            exact(f"fused_cem_step[{tag}] elite masks", masks, wmasks)
+            exact_nan(f"fused_cem_step[{tag}, B={B}, K={K}, T={T}] plan", got, want)
+            out[3] = a3, compare(f"fused_cem_step[{tag}] plan", got, want)
+            err("fused_cem_step", out[3][1][0])
+        return out
+
+    reset_counts()
+    for S in REPAIR_DUMMY_S:
+        sampling(make_dummy_model(S, 1), 17, 1001, 48, 4097, S, f"dummy S={S}")
+    Zd = REPAIR_DENSE_S + 1
+    Wm = np.random.default_rng(12).uniform(-0.5, 1.0, (Zd, Zd)).astype(np.float32)
+    dense = dataclasses.replace(make_dummy_model(REPAIR_DENSE_S, 1),
+                                state_cost=quad_cost(Wm @ Wm.T))
+    sampling(dense, 17, 1001, 48, 4097, 13, f"dummy S={REPAIR_DENSE_S} dense weights")
+    small = counts()
+    n_small = len(REPAIR_DUMMY_S) + 1
+    if small != {**{fn.__name__: 0 for fn in counters}, "fused_mppi_step": n_small,
+                 "fused_rollout_costs_tm": n_small, "fused_cem_step": n_small}:
+        fail(f"phase (m) sampling kernels on the dummy past S = 8: launches {small}")
+    repair["dummy past S = 8, small shapes"] = small
+
+    # the dummy at REPAIR_WIDE_S at the MPPI bench, MPPI two-stage and CEM
+    # sweep widths, then its closed loop on the kernel and two-stage tiers
+    wide = make_dummy_model(REPAIR_WIDE_S, 1)
+    a1, e1 = sampling(wide, HORIZON, BATCH, K_SAMPLES, 0, 51,
+                      f"dummy S={REPAIR_WIDE_S} bench width", (1,))[1]
+    a2, e2 = sampling(wide, HORIZON, 0, 0, BATCH * K_SAMPLES, 52,
+                      f"dummy S={REPAIR_WIDE_S} MPPI two-stage N", (2,))[2]
+    a3, e3 = sampling(wide, CEM_T, CEM_B, CEM_K, 0, 53,
+                      f"dummy S={REPAIR_WIDE_S} CEM sweep width", (3,))[3]
+    denv = dataclasses.replace(PendulumEnv, name="dummy", model=wide,
+                               default_start=(0.5,) * REPAIR_WIDE_S)
+    cfg_m = EpisodeConfig(n_steps=REPAIR_EPISODE_STEPS, record_plans=False)
+    gen = torch.Generator(device=dev)
+    paths = (
+        ("dummy S=16 mppi kernel tier", MPPI(model=wide, T=HORIZON, K=K_SAMPLES), BATCH, True,
+         {"fused_mppi_step": REPAIR_EPISODE_STEPS}),
+        ("dummy S=16 mppi two-stage tier", MPPI(model=wide, T=HORIZON, K=K_SAMPLES), BATCH,
+         False, {"fused_rollout_costs_tm": REPAIR_EPISODE_STEPS}),
+        ("dummy S=16 cem kernel tier", CEM(model=wide, T=CEM_T, K=CEM_K, n_elite=CEM_ELITE,
+                                           max_iter=CEM_ITERS), CEM_B, True,
+         {"fused_cem_step": REPAIR_EPISODE_STEPS}))
+    for label, sol, B, use_kernel, expect in paths:
+        x0s = denv.start_state(dev).expand(B, -1).contiguous()
+        res = drive(label, lambda sol=sol, x0s=x0s, use_kernel=use_kernel: run_episodes_fused(
+            denv, sol, cfg_m, x0s, generator=gen.manual_seed(0), use_kernel=use_kernel,
+            device=dev), expect)
+        if not bool(torch.isfinite(res.costs).all()):
+            fail(f"phase (m) {label}: episode costs not finite")
+    entry("fused_mppi_step", f"dummy S={REPAIR_WIDE_S}, B={BATCH}, K={K_SAMPLES}, T={HORIZON}",
+          REPAIR_EPISODE_STEPS, e1, lambda: fused_mppi_step(*a1),
+          lambda: fused_mppi_step_reference(*a1), mppi_bound_for(wide, BATCH, K_SAMPLES, HORIZON))
+    entry("fused_rollout_costs_tm", f"dummy S={REPAIR_WIDE_S}, N={BATCH * K_SAMPLES}, "
+          f"T={HORIZON}", REPAIR_EPISODE_STEPS, e2, lambda: fused_rollout_costs_tm(*a2),
+          lambda: fused_rollout_costs_tm_reference(*a2),
+          rollout_bound_for(wide, BATCH * K_SAMPLES, HORIZON))
+    entry("fused_cem_step", f"dummy S={REPAIR_WIDE_S}, B={CEM_B}, K={CEM_K}, T={CEM_T}, "
+          f"n_elite={CEM_ELITE}, max_iter={CEM_ITERS}", REPAIR_EPISODE_STEPS, e3,
+          lambda: fused_cem_step(*a3), lambda: fused_cem_step_reference(*a3),
+          cem_bound_for(wide, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS), plain_reps=1)
+
+    # kernels 8a/8b in their general form
+    def i2c_problem(B, T, S, A, Z, seed):
+        rng = np.random.default_rng(seed)
+        D = S + A
+        F = np.zeros((B, T, D, D))
+        F[:, :, :S, :S] = np.eye(S) * 0.9 + 0.05 * rng.standard_normal((B, T, S, S))
+        F[:, :, :S, S:] = 0.3 * rng.standard_normal((B, T, S, A))
+        Rm = rng.standard_normal((B, Z, Z))
+        R = np.einsum("bij,bkj->bik", Rm, Rm) * 0.1 + 0.5 * np.eye(Z)
+        sig0, Q = np.zeros((D, D)), np.zeros((D, D))
+        sig0[:S, :S], sig0[S:, S:] = 1e-8 * np.eye(S), 0.25 * np.eye(A)
+        Q[:S, :S], Q[S:, S:] = 1e-6 * np.eye(S), 0.25 * np.eye(A)
+        J = rng.standard_normal((B, T, Z, D))
+        J[:, :, :, S:] = -0.0  # features that ignore the action: structural zeros
+        mu0 = np.concatenate([rng.standard_normal((B, S)), np.zeros((B, A))], axis=1)
+        arrays = (F, 0.1 * rng.standard_normal((B, T, D)), J, 0.2 * rng.standard_normal((B, T, Z)),
+                  R, mu0, sig0, Q, 0.1 * rng.standard_normal((T, Z)))
+        return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in arrays]
+
+    def i2c_held(tag, p):
+        got = ts.i2c_filter(*p)
+        for key, g, w in zip(("mu_f", "sig_f", "mu_pred", "sig_pred"), got,
+                             ts.i2c_filter_reference(*p)):
+            exact_nan(f"i2c_filter[{tag}] {key}", g, w)
+        if p[0].shape[1] > 1:
+            exact_nan(f"i2c_rts_smooth[{tag}]", ts.i2c_rts_smooth(*got, p[0]),
+                      ts.i2c_rts_smooth_reference(*got, p[0]))
+        return got
+
+    reset_counts()
+    n_rts = 0
+    for i, (S, A, Z) in enumerate(REPAIR_I2C_DIMS):
+        p = i2c_problem(17, 6, S, A, Z, 60 + i)
+        i2c_held(f"general, D={S + A}, Z={Z}, B=17, T=6", p)
+        n_rts += 1
+    for i, (B, T) in enumerate(REPAIR_I2C_EDGES):
+        p = i2c_problem(B, T, 8, 1, 9, 70 + i)
+        i2c_held(f"general, D=Z=9, B={B}, T={T}", p)
+        n_rts += T > 1
+    got = counts()
+    n_filter = len(REPAIR_I2C_DIMS) + len(REPAIR_I2C_EDGES)
+    if (got["i2c_filter"], got["i2c_rts_smooth"]) != (n_filter, n_rts) or sum(got.values()) != (
+            n_filter + n_rts):
+        fail(f"phase (m) general-form I2C checks: launches {got}")
+    repair["i2c general form, small shapes"] = got
+    # the device-memory workspace against shared memory, bit for bit
+    B, T, D = 6, 5, 9
+    p = i2c_problem(B, T, 8, 1, 9, 80)
+    fl, rl = ts.general_floats(D, D)
+    outs = []
+    for ws in (None, torch.empty(B * max(fl, rl), device=dev)):
+        o = [torch.empty(s, device=dev) for s in ((B, T, D), (B, T, D, D), (B, T, D),
+                                                  (B, T, D, D))]
+        _build.check_rc("i2c_filter_general_launch", _build.kernel_fn(
+            "i2c_filter_general_launch")(*(_build.ptr(t) for t in (*p, *o)), B, T, D, D, 1,
+                                         None if ws is None else _build.ptr(ws),
+                                         _build.stream_ptr(dev)))
+        mu_s = torch.empty((B, T, D), device=dev)
+        _build.check_rc("i2c_rts_general_launch", _build.kernel_fn("i2c_rts_general_launch")(
+            *(_build.ptr(t) for t in (*o, p[0], mu_s)), B, T, D,
+            None if ws is None else _build.ptr(ws), _build.stream_ptr(dev)))
+        outs.append(o + [mu_s])
+    for a, b in zip(*outs):
+        exact_nan("i2c general form, device-memory workspace against shared memory", a, b)
+    # I2C.solve_batch(use_fused=True) on make_dummy_model(8, 1): D = Z = 9
+    d8 = make_dummy_model(8, 1)
+    i2c8 = I2C(model=d8, T=I2C6_T, max_iter=3)
+    st8 = i2c8.init_state_batch(I2C6_B, torch.Generator(device=dev).manual_seed(0), dev)
+    x8 = 0.5 * torch.ones((I2C6_B, 8), device=dev)
+    gz8 = torch.zeros((I2C6_T, 9), device=dev)
+    reset_counts()
+    st8, u8, _ = i2c8.solve_batch(st8, x8, gz8, use_fused=True)
+    got = counts()
+    if got != {**{fn.__name__: 0 for fn in counters}, "i2c_filter": 3, "i2c_rts_smooth": 3}:
+        fail(f"phase (m) I2C.solve_batch on the dummy at S = 8: launches {got}")
+    if not bool(torch.isfinite(st8.planned_us).all()) or not bool(torch.isfinite(u8).all()):
+        fail("phase (m) I2C on the dummy at S = 8: plans not finite")
+    repair["i2c solve_batch dummy S=8 (D=Z=9)"] = got
+    print(f"[{smi}] phase (m) I2C.solve_batch(use_fused=True) on the dummy at S = 8 "
+          f"(D = Z = 9, B={I2C6_B}, T={I2C6_T}, 3 iterations): launches {got}", flush=True)
+    # the sweep row's B and T at D = Z = 9
+    p = i2c_problem(I2CS_B, I2CS_T, 8, 1, 9, 90)
+    outs = i2c_held(f"general, D=Z=9, B={I2CS_B}, T={I2CS_T}", p)
+    work = i2c_work(p, clock)
+    cfg9 = ts.launch_config(9, 9, I2CS_B)
+    entry("i2c_filter", f"general form, D=Z=9, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
+          lambda: ts.i2c_filter(*p), lambda: ts.i2c_filter_reference(*p),
+          bound(*work[0][:2]), cfg9, plain_reps=1)
+    entry("i2c_rts_smooth", f"general form, D=9, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
+          lambda: ts.i2c_rts_smooth(*outs, p[0]),
+          lambda: ts.i2c_rts_smooth_reference(*outs, p[0]), bound(*work[1][:2]), cfg9,
+          plain_reps=1)
+
+    # (b) the suite's main() through all six configurations, full widths
+    t0 = time.perf_counter()
+    suite_counts = {}
+
+    def after(conf, line_):
+        got_ = counts()
+        route = SUITE_ROUTES[conf.key]
+        if any(got_[k] == 0 for k in route) or any(v for k, v in got_.items() if k not in route):
+            fail(f"suite configuration {conf.key}: launches {got_}, route {route}")
+        suite_counts[conf.key] = {k: v for k, v in got_.items() if v}
+        launches[f"suite configuration {conf.key}"] = got_
+        print(f"[{smi}] suite configuration {conf.key} ({conf.name}, B={conf.B}): launches "
+              f"{suite_counts[conf.key]}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = bench_suite.main(SUITE_ARGS + ["--results-dir", tmp],
+                                 before=lambda conf: reset_counts(), after=after)
+    suite_wall = time.perf_counter() - t0
+    if len(lines) != 6:
+        fail(f"the suite printed {len(lines)} lines")
+    costs5 = lines[4]["median_costs"]
+    if not all(np.isfinite(costs5[k]) for k in ("QPMPC", "ILQR", "SQP")):
+        fail(f"suite configuration 5: median costs {costs5}")
+    # kernels 4, 5 and 6 of configuration 5's iLQR and SQP rows on one
+    # solve's own inputs at B = 10,240, T = 50
+    conf5 = bench_suite.configurations(False, 1)[4]
+    x5 = CartPoleSwingUpEnv.start_state(dev).expand(conf5.B, -1).contiguous()
+    gz5 = torch.zeros((50, 5), device=dev)
+    held5 = {}
+    for label, solver, targets in (
+            ("ILQR", dict(conf5.rows)["ILQR"],
+             [(ilqr_module, "riccati_backward_batch"), (ilqr_module, "fused_linesearch")]),
+            ("SQP", dict(conf5.rows)["SQP"],
+             [(sqp_module, "fused_derivs"), (riccati_module, "riccati_backward_batch"),
+              (sqp_module, "fused_linesearch")])):
+        st = solver.init_state_batch(conf5.B, torch.Generator(device=dev).manual_seed(0), dev)
+        calls = spy_calls(targets, lambda: solver.solve_batch(st, x5, gz5))
+        if not all(calls.values()):
+            fail(f"suite configuration 5 {label}: calls {[len(v) for v in calls.values()]}")
+        held5[label] = held_calls(f"suite configuration 5 {label} solve (B={conf5.B}, T=50)",
+                                  calls)
+    readings["suite"] = {"args": SUITE_ARGS, "wall_s": suite_wall, "lines": lines,
+                         "launches": suite_counts, "config5_held_max_abs_err": held5}
+
+    # (c) bench's main() once
+    t0 = time.perf_counter()
+    reset_counts()
+    rec = bench.main([])
+    got = counts()
+    # a warm-up and OUTER_REPS chains of 1 batch, then of INNER_REPS batches
+    want = bench.N_STEPS * (1 + bench.OUTER_REPS) * (1 + bench.INNER_REPS)
+    if got["fused_mppi_step"] != want or sum(got.values()) != want:
+        fail(f"bench: launches {got}, expected fused_mppi_step {want}")
+    launches["bench"] = got
+    readings["bench"] = {"line": rec, "wall_s": time.perf_counter() - t0,
+                         "launches": got["fused_mppi_step"]}
+    readings["max_abs_err"] = errs
+    print(f"[{smi}] phase (m) bench: {rec}, fused_mppi_step {want} launches", flush=True)
+    return readings, entries, repair
 
 
 def main():
@@ -2813,6 +3171,13 @@ def main():
     measure, roofline_entries = measurement_paths(counters, reset_counts, smi, launches, errs)
     print(f"[{smi}] measurement phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # (m) the repairs (the dummy past S = 8 on kernels 1-3, D and Z above 6 on
+    # 8a/8b), then the suite's and bench's entry points
+    t0 = time.perf_counter()
+    suite, repair_entries, repair_launches = repair_and_suite_paths(
+        counters, reset_counts, smi, max_sm_clock_mhz(), launches)
+    print(f"[{smi}] repair and suite phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # small episodes on the card against the plain versions on the CPU
     def small_match(label, tol, run):
         on_card, on_cpu = run(dev), run("cpu")
@@ -3115,14 +3480,7 @@ def main():
     # beside it, the larger with the horizon's loop-carried chain
 
     def i2c_bounds(p):
-        B_, T_, D = p[0].shape[:3]
-        Zf = p[2].shape[2]
-        pts = B_ * T_
-        shared = 2 * D * D + T_ * Zf + p[4].numel() + B_ * D  # sig0, Qproc, g_z, R, mu0
-        work = ((4 * (pts * (D * D + D + Zf * D + Zf + 2 * (D + D * D)) + shared),
-                 pts * i2c_filter_ops(D, Zf), chain_ms(T_, i2c_filter_chain(D, Zf), clock)),
-                (4 * (pts * (2 * (D + D * D) + D * D + D)), pts * i2c_rts_ops(D),
-                 chain_ms(T_ - 1, i2c_rts_chain(D), clock)))
+        work = i2c_work(p, clock)
         return [bound(b_, o_) for b_, o_, _ in work], [bound(*w) for w in work]
 
     def i2c_line(label, p, outs, times, plain):
@@ -3269,11 +3627,18 @@ def main():
                         "replaces": replaces, "launches_by_path": {
                             p: n[e["name"].split("[")[0]] for p, n in family_launches.items()
                             if n[e["name"].split("[")[0]]}})
+    for e in repair_entries:  # the dummy form past S = 8 and 8a/8b's general form, phase (m)
+        src, replaces = sources[e.pop("base")]
+        kernels.append({**e, "source": f"benchmarking_mpc_solvers_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches_by_path": {
+                            p: n[e["name"].split("[")[0]] for p, n in repair_launches.items()
+                            if n[e["name"].split("[")[0]]}})
     print(json.dumps({"kernels": kernels, "episode_ms": {k: v * 1e3 for k, v in ep.items()},
                       "experiment_wall_s": exp_walls, "port_layer": port_layer,
                       "model_family": family, "utils_timers": timers, "study_entry_points": study,
                       "measurement_scripts": {k: {"wall_s": v["wall_s"], "launches": v["launches"]}
                                               for k, v in measure.items()},
+                      "repairs_and_suite": suite,
                       "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

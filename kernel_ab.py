@@ -51,6 +51,7 @@ Imports only the port (``benchmarking_mpc_solvers_tpu_torch``), never JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import ctypes
 import json
 import re
@@ -67,8 +68,10 @@ from benchmarking_mpc_solvers_tpu_torch import _build
 
 def i2c_cases(dev):
     """Kernels 8a and 8b on a first iteration's matrices at configuration
-    6's shape and at the sweep row's, as chip_smoke.py times them."""
+    6's shape and at the sweep row's, as chip_smoke.py times them, and on
+    the dummy at S = 5 (D = Z = 6, the register form's largest instance)."""
     from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv, PendulumEnv
+    from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import i2c_filter, i2c_rts_smooth
 
     cases = []
@@ -76,7 +79,10 @@ def i2c_cases(dev):
             (f"configuration 6 (pendulum, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=3)", PendulumEnv,
              cs.I2C6_T, cs.I2C6_B),
             (f"the sweep's shape (cart-pole, B={cs.I2CS_B}, T={cs.I2CS_T}, D=Z=5)",
-             CartPoleSwingUpEnv, cs.I2CS_T, cs.I2CS_B)):
+             CartPoleSwingUpEnv, cs.I2CS_T, cs.I2CS_B),
+            (f"the register form's largest (dummy S=5, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=6)",
+             dataclasses.replace(PendulumEnv, name="dummy", model=make_dummy_model(5, 1),
+                                 default_start=(0.5,) * 5), cs.I2C6_T, cs.I2C6_B)):
         p = cs.i2c_first_iteration_inputs_for(env_, T, B, 26, dev)
         outs = i2c_filter(*p)
         cases.append((label, [("i2c_filter", lambda p=p: i2c_filter(*p)),
@@ -171,16 +177,24 @@ def linesearch_cases(dev):
                                                         return_states=True))])]
 
 
+def _model(name):
+    """A registered plant, or ``dummy<S>``: make_dummy_model(S, 1)."""
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY, make_dummy_model
+
+    if name.startswith("dummy"):
+        return make_dummy_model(int(name[len("dummy"):]), 1)
+    return REGISTRY[name]
+
+
 def cem_cases(dev):
     """Kernel 3 at the CEM sweep's shape on each plant (cart-pole's is the
     sweep's), with the elite masks, as chip_smoke.py checks it."""
-    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import fused_cem_step
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import pick_lanes
 
     cases = []
-    for name in ("cartpole_swingup", "pendulum", "acrobot"):
-        model = REGISTRY[name]
+    for name in ("cartpole_swingup", "pendulum", "acrobot", "dummy2", "dummy8"):
+        model = _model(name)
         plan, x0, gz = cs.mppi_inputs(model, cs.CEM_B, cs.CEM_T, 3, dev)
         args = (model, cs.CEM_K, cs.CEM_ELITE, cs.CEM_ITERS, 0.2, 1.0, pick_lanes(cs.CEM_B),
                 plan, x0, gz, 7)
@@ -198,7 +212,6 @@ def mppi_cases(dev):
     SM would hold 4, 3 and 1 blocks of 4 scenarios), where the two forms
     are compared by building with -DFUSED_MPPI_CACHE_BYTES=0 (redraw) and
     a large value (cache)."""
-    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import fused_mppi_step, pick_lanes
 
     cases = []
@@ -206,12 +219,14 @@ def mppi_cases(dev):
             ("the bench shape", "cartpole_swingup", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
             ("the bench shape", "pendulum", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
             ("the bench shape", "acrobot", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
+            ("the bench shape", "dummy2", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
+            ("the bench shape", "dummy8", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
             ("the sweep's MPPI row", "cartpole_swingup", cs.MPPI_SWEEP_B, cs.MPPI_SWEEP_K,
              cs.HORIZON),
             ("past the cache's budget", "cartpole_swingup", cs.BATCH, 32, 110),
             ("past the cache's budget", "cartpole_swingup", cs.BATCH, 48, 90),
             ("past the cache's budget", "cartpole_swingup", cs.BATCH, 64, 128)):
-        model = REGISTRY[name]
+        model = _model(name)
         plan, x0, gz = cs.mppi_inputs(model, B, T, 1, dev)
         args = (model, K, 1.0, 1.0, pick_lanes(B), plan, x0, gz, 7)
         cases.append((f"{label} ({name}, B={B}, K={K}, T={T})",
@@ -222,7 +237,6 @@ def mppi_cases(dev):
 def rollout_cases(dev):
     """Kernel 2 at the MPPI two-stage tier's shape (each plant) and the CEM
     two-stage tier's (cart-pole), as chip_smoke.py times it."""
-    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
     from benchmarking_mpc_solvers_tpu_torch.ops.fused import fused_rollout_costs_tm
 
     cases = []
@@ -230,8 +244,10 @@ def rollout_cases(dev):
             ("the MPPI two-stage shape", "cartpole_swingup", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
             ("the MPPI two-stage shape", "pendulum", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
             ("the MPPI two-stage shape", "acrobot", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
+            ("the MPPI two-stage shape", "dummy2", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
+            ("the MPPI two-stage shape", "dummy8", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
             ("the CEM two-stage shape", "cartpole_swingup", cs.CEM_B * cs.CEM_K, cs.CEM_T)):
-        model = REGISTRY[name]
+        model = _model(name)
         gen = torch.Generator(device=dev).manual_seed(N)
         x0 = torch.rand((model.state_size, N), generator=gen, device=dev) * 2 - 1
         us = torch.rand((T, N), generator=gen, device=dev) * 3 - 1.5

@@ -4,7 +4,8 @@ Kernels 1, 2, 3 and 6 compile the stage cost for the nonzero terms each
 plant's functor in ``csrc/models.cuh`` names (``kCostTerms``, a 64-bit mask
 of ``term(i, j)`` bits over the upper triangle of kMaxZ = 9 features) and
 take other weights in their generic form; the dummy family's functor
-``Dummy<S>`` names none. These tests read the header and hold each
+``Dummy<S>`` names none (past S = 8 kernels 1, 2 and 3 take the dummy in
+a form whose weights are a term list). These tests read the header and hold each
 functor's terms, the mask's bits, the dispatch order and the feature bound
 against the Python side (``_build.DEVICE_MODELS``, ``_build.MAX_Z``,
 ``_build.quad_weights``), so a mask that disagrees with its model shows
@@ -55,6 +56,13 @@ def _term_bit(i: int, j: int) -> int:
 
 
 def test_dispatch_order_and_feature_bound_match_build():
+    """The functors' dispatch and kMaxZ (the plants' and kernels 4 and 6's
+    bound: the dummy's Z = S + 1 at S = 8) match ``_build``; past S = 8 the
+    dummy needs no functor and no kMaxZ: kernels 1, 2 and 3 take it in their
+    dummy form, whose weights are a term list in device memory
+    (``dummy_cost``), through entry points of their own."""
+    from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
+
     dispatch = _dispatch()
     n = len(_build.DEVICE_MODELS) + len(_build.DUMMY_STATES)
     assert sorted(dispatch) == list(range(n))
@@ -62,6 +70,14 @@ def test_dispatch_order_and_feature_bound_match_build():
         assert dispatch[_build.dummy_id(S)] == f"Dummy<{S}>", S
     assert int(re.search(r"constexpr int kMaxZ = (\d+);", HEADER).group(1)) == _build.MAX_Z
     assert _build.MAX_Z == _build.DUMMY_STATES[-1] + 1  # the dummy's Z = S + 1 at S = 8
+    past = _build.DUMMY_STATES[-1] + 1
+    assert _build.dummy_size(make_dummy_model(past, 1)) == past
+    assert "__device__ __forceinline__ float dummy_cost(" in HEADER
+    for src, entry in (("fused_mppi.cu", "fused_mppi_dummy_launch"),
+                       ("fused_rollout.cu", "fused_rollout_dummy_launch"),
+                       ("fused_cem.cu", "fused_cem_dummy_launch")):
+        assert f'extern "C" int {entry}(' in (_build.CSRC / src).read_text(), entry
+        assert _build.SIGNATURES[entry][0] == src
 
 
 def test_cost_term_bits_are_distinct_and_fit_64():
@@ -80,6 +96,11 @@ def test_functor_cost_terms_are_the_models_nonzero_weights(name):
     if name == "dummy":
         assert all(_cost_terms(_dispatch()[_build.dummy_id(S)]) == set()
                    for S in _build.DUMMY_STATES)
+        # past S = 8 the dummy form contracts the weights' own terms, in order
+        from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
+        cost = make_dummy_model(_build.DUMMY_STATES[-1] + 1, 1).state_cost
+        terms = _build.dummy_terms(cost, "cpu")
+        assert [(i, j) for i, j, _, _ in terms.tolist()] == [(i, j) for i, j, _ in cost.nz]
         return
     functor = _dispatch()[_build.DEVICE_MODELS.index(name)]
     w = _build.quad_weights(REGISTRY[name].state_cost)

@@ -182,6 +182,8 @@ def test_mppi_and_rollout_kernels_refuse_other_weights(dev):
     plan, out = torch.zeros((T, B), device=dev), torch.full((T, B), 7.0, device=dev)
     x0, gz = torch.zeros((4, B), device=dev), torch.zeros((T, 5), device=dev)
     stream = _build.stream_ptr(dev)
+    # past the last Dummy<S> functor: the dummy at larger S has no id (kernels
+    # 1, 2 and 3 take it through entry points of their own)
     no_functor = _build.dummy_id(_build.DUMMY_STATES[-1]) + 1
     rc = _build.kernel_fn("fused_mppi_step_launch")(
         no_functor, _build.ptr(plan), _build.ptr(x0), _build.ptr(gz), _build.ptr(out), T, B, K,
@@ -227,6 +229,54 @@ def _functor_model(case):
 
 
 FUNCTOR_CASES = ["dummy1", "dummy2", "dummy5", "dummy6", "dummy8", "cartpole_reweighted"]
+
+
+@pytest.mark.parametrize("S,weights", [(9, "identity"), (16, "identity"), (31, "identity"),
+                                       (12, "dense")])
+def test_sampling_kernels_take_the_dummy_past_eight(dev, S, weights):
+    """Kernels 1, 2 and 3 on the dummy at S > 8 (their dummy form: S and
+    the weights' terms as arguments) against their plain versions: 2 and 3
+    bit for bit, 1 within 1e-4; once under dense non-identity weights (every
+    term, off-diagonals included). Kernels 4 and 6 have no ``Dummy<S>`` past
+    8 and refuse it by name."""
+    import dataclasses
+
+    from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
+
+    model = _functor_model(f"dummy{S}")
+    Z = S + 1
+    rng = np.random.default_rng(S)
+    if weights == "dense":
+        Wm = rng.uniform(-0.5, 1.0, (Z, Z)).astype(np.float32)
+        model = dataclasses.replace(model, state_cost=quad_cost(Wm @ Wm.T))
+    T, B, K = 17, 1001, 48
+    plan = _t(rng.uniform(-1.5, 1.5, (T, B)), dev)
+    x0 = _t(rng.uniform(-1, 1, (S, B)), dev)
+    gz = _t(rng.uniform(-0.2, 0.2, (T, Z)), dev)
+    lanes = pick_lanes(B)
+    before = (fused_mppi_step.launches, fused_rollout_costs_tm.launches,
+              fused_cem_step.launches)
+    torch.testing.assert_close(
+        fused_mppi_step(model, K, 0.9, 0.7, lanes, plan, x0, gz, 5),
+        fused_mppi_step_reference(model, K, 0.9, 0.7, lanes, plan, x0, gz, 5),
+        rtol=1e-4, atol=1e-4)
+    us = _t(rng.uniform(-2.0, 2.0, (T, 4097)), dev)
+    xn = _t(rng.uniform(-1, 1, (S, 4097)), dev)
+    _bits(fused_rollout_costs_tm(model, xn, us, gz),
+          fused_rollout_costs_tm_reference(model, xn, us, gz))
+    args = (model, K, 5, 2, 0.2, 1.5, lanes, plan, x0, gz, 7)
+    got, got_masks = fused_cem_step(*args, return_masks=True)
+    want, want_masks = fused_cem_step_reference(*args, return_masks=True)
+    assert torch.equal(got_masks, want_masks)
+    _bits(got, want)
+    assert (fused_mppi_step.launches, fused_rollout_costs_tm.launches,
+            fused_cem_step.launches) == tuple(n + 1 for n in before)
+    alphas = torch.ones(2, device=dev)
+    with pytest.raises(NotImplementedError, match="no CUDA device function"):
+        fused_linesearch(model, alphas, x0.T.contiguous(), plan.T[..., None].contiguous(),
+                         plan.T[..., None].contiguous(),
+                         torch.zeros((B, T, 1, S), device=dev),
+                         torch.zeros((B, T + 1, S), device=dev), gz)
 
 
 @pytest.mark.parametrize("case", FUNCTOR_CASES)
@@ -768,6 +818,59 @@ def test_i2c_filter_and_smoother_match_plain_bit_for_bit(dev, B, T, S, A, Z, sha
         before[0] + 2, before[1] + n_rts)
 
 
+@pytest.mark.parametrize("B,T,S,A,Z,variant", [
+    (5, 7, 6, 1, 7, None), (4, 5, 8, 1, 9, "zeros"), (9, 4, 11, 1, 12, None),
+    (1, 3, 15, 1, 16, None), (33, 6, 6, 2, 11, "offset"), (6, 1, 8, 1, 9, None),
+    (7, 5, 4, 1, 9, None), (3, 4, 8, 1, 3, None)])
+def test_i2c_general_form_matches_plain(dev, B, T, S, A, Z, variant):
+    """The general form (D or Z above 6), every output bit for bit with the
+    plain versions, a zero's sign included: D = Z = 7, 9, 12 and 16, D != Z
+    both ways, T = 1, B at and off the 4-scenario blocks, inputs as views
+    into larger buffers, negative zeros."""
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+
+    p = _i2c_problem(dev, B * 100 + Z, B, T, S, A, Z, variant=variant)
+    assert ts.kernel_form(S + A, Z) == "general"
+    got = ts.i2c_filter(*p)
+    for g, w in zip(got, ts.i2c_filter_reference(*p)):
+        _bits(g, w)
+    if T > 1:
+        _bits(ts.i2c_rts_smooth(*got, p[0]), ts.i2c_rts_smooth_reference(*got, p[0]))
+    _bits(ts.i2c_smooth_batch(*p), ts.i2c_smooth_batch_reference(*p))
+    cfg = ts.launch_config(S + A, Z, B)
+    assert cfg["form"] == "general" and cfg["filter"]["blocks_per_sm"] >= 1
+
+
+def test_i2c_general_form_device_workspace(dev):
+    """The general form's device-memory workspace (taken where a block's
+    four shared-memory workspaces pass 227 KB) gives the bits of the
+    shared-memory one: both entry points called at D = Z = 9 with and
+    without a workspace."""
+    from benchmarking_mpc_solvers_tpu_torch import _build
+    from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
+
+    B, T, D, Z = 6, 5, 9, 9
+    p = _i2c_problem(dev, 77, B, T, 8, 1, Z)
+    fl, rl = ts.general_floats(D, Z)
+    outs = []
+    for ws in (None, torch.empty(B * max(fl, rl), device=dev)):
+        o = [torch.empty((B, T, D), device=dev), torch.empty((B, T, D, D), device=dev),
+             torch.empty((B, T, D), device=dev), torch.empty((B, T, D, D), device=dev)]
+        rc = _build.kernel_fn("i2c_filter_general_launch")(
+            *(_build.ptr(t) for t in (*p, *o)), B, T, D, Z, 1,
+            None if ws is None else _build.ptr(ws), _build.stream_ptr(dev))
+        assert rc == 0
+        mu_s = torch.empty((B, T, D), device=dev)
+        rc = _build.kernel_fn("i2c_rts_general_launch")(
+            *(_build.ptr(t) for t in (*o, p[0], mu_s)), B, T, D,
+            None if ws is None else _build.ptr(ws), _build.stream_ptr(dev))
+        assert rc == 0
+        outs.append(o + [mu_s])
+    for a, b in zip(*outs):
+        _bits(a, b)
+    _bits(outs[0][4], ts.i2c_smooth_batch_reference(*p))
+
+
 def test_i2c_launch_shape_fits_the_sweep(dev):
     """At the sweep's D = Z = 5 at least two blocks of each kernel fit on an
     SM, and every instantiation launches (a shared-memory request above the
@@ -775,7 +878,7 @@ def test_i2c_launch_shape_fits_the_sweep(dev):
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import launch_config
 
     for name, k in launch_config(5, 5, 10240).items():
-        if name != "stages":
+        if name not in ("stages", "form"):
             assert k["threads"] == 8 * k["scenarios_per_block"]
             assert k["blocks_per_sm"] >= 2
     assert launch_config(3, 3, 256)["rts"]["scenarios_per_block"] == 8  # narrow at B = 256
@@ -799,15 +902,16 @@ def test_i2c_nan_scenario_stays_nan_on_the_card(dev):
 
 
 def test_i2c_kernels_refuse_sizes_above_six_and_bad_arguments(dev):
+    """Sizes above six, once refused, launch the general form, bit for bit
+    with the plain version on the card; bad arguments are refused."""
     from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
 
     big = _i2c_problem(dev, 8, 16, 4, 6, 1, 7)  # D = Z = 7
-    with pytest.raises(NotImplementedError, match="use_fused=False"):
-        ts.i2c_filter(*big)
-    with pytest.raises(NotImplementedError, match="use_fused=False"):
-        ts.i2c_smooth_batch(*big)
-    cpu = [t.cpu() for t in big]
-    assert torch.isfinite(ts.i2c_smooth_batch(*cpu)).all()  # the plain version takes it
+    before = (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches)
+    out = ts.i2c_smooth_batch(*big)
+    assert (ts.i2c_filter.launches, ts.i2c_rts_smooth.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    _bits(out, ts.i2c_smooth_batch_reference(*big))
     p = _i2c_problem(dev, 9, 16, 4, 2, 1, 3)
     with pytest.raises(ValueError, match="contiguous"):
         ts.i2c_filter(*p[:4], p[4].transpose(1, 2), *p[5:])

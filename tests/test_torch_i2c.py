@@ -257,14 +257,37 @@ def test_fused_tier_refuses_what_the_kernels_do_not_take():
     shared, _, _ = ts.solve_batch(st, torch.tensor(x0s), torch.tensor(g_z), use_fused=True)
     tiled, _, _ = ts.solve_batch(st, torch.tensor(x0s), tiled_gz, use_fused=False)
     torch.testing.assert_close(tiled.planned_us, shared.planned_us, rtol=TOL, atol=TOL)
-    # D = Z = 7 is above the kernels' size; the plain per-step form runs it
+    # D = Z = 7, once above the kernels' size, is taken (their general form,
+    # as the reference's kernel takes every size) and agrees with the plain
+    # per-step form
     big = TI2C(model=make_dummy_model(5, 2), T=4, max_iter=2)
     state = big.init_state_batch(3, torch.Generator().manual_seed(0), device="cpu")
     xs, gz7 = torch.full((3, 5), 0.5), torch.zeros((4, 7))
-    with pytest.raises(NotImplementedError, match="pass use_fused=False"):
-        big.solve_batch(state, xs, gz7, use_fused=True)
+    fused, u0f, _ = big.solve_batch(state, xs, gz7, use_fused=True)
     out, u0, _ = big.solve_batch(state, xs, gz7, use_fused=False)
     assert out.planned_us.shape == (3, 4, 2) and torch.isfinite(u0).all()
+    torch.testing.assert_close(fused.planned_us, out.planned_us, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(u0f, u0, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("S", [8, 15])
+def test_dummy_past_the_register_sizes_runs_on_the_fused_tier(S):
+    """``I2C.solve_batch(use_fused=True)`` takes the dummy at S = 8
+    (D = Z = 9) and S = 15 (D = Z = 16), which the kernels once refused: the
+    reference sends every batched solve with a shared goal to its kernel.
+    On the CPU the fused tier runs the kernels' plain versions; it agrees
+    with the per-step form (``use_fused=False``)."""
+    model = make_dummy_model(S, 1)
+    solver = TI2C(model=model, T=4, max_iter=2)
+    assert solver.has_kernel_stages()
+    state = solver.init_state_batch(3, torch.Generator().manual_seed(1), device="cpu")
+    xs = torch.from_numpy(np.random.default_rng(S).uniform(-1, 1, (3, S)).astype(np.float32))
+    gz = torch.zeros((4, S + 1))
+    fused, u0f, _ = solver.solve_batch(state, xs, gz, use_fused=True)
+    plain, u0, _ = solver.solve_batch(state, xs, gz, use_fused=False)
+    assert torch.isfinite(fused.planned_us).all()
+    torch.testing.assert_close(fused.planned_us, plain.planned_us, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(u0f, u0, rtol=TOL, atol=TOL)
 
 
 def test_two_actions_run_on_the_fused_tier():

@@ -59,7 +59,8 @@ def _problem(seed, B, T, S, A, Z, shared_R=False):
 def _jax_scans(p, env):
     """vmap of the reference's scan form; its priors are the defaults'."""
     F, m, J, z0, R, mu0, sig0, Qproc, g_z = (jnp.asarray(a) for a in p)
-    solver = JI2C(model=env.model, T=F.shape[1])
+    model = env.model if hasattr(env, "model") else env
+    solver = JI2C(model=model, T=F.shape[1])
     np.testing.assert_array_equal(np.asarray(solver._prior_covs()[0]), p[6])
     np.testing.assert_array_equal(np.asarray(solver._prior_covs()[1]), p[7])
     with jax.default_matmul_precision("highest"):
@@ -84,6 +85,30 @@ def test_plain_smoother_matches_reference_kernel():
     want = np.asarray(j_smooth(*(jnp.asarray(a) for a in p), interpret=True))
     got = ts.i2c_smooth_batch(*i2c_problem_from_numpy(*p, device="cpu"))
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
+
+
+@pytest.mark.parametrize("S,A,Z", [(8, 1, 9), (6, 1, 10)], ids=["D9Z9", "D7Z10"])
+def test_plain_smoother_matches_reference_kernel_past_six(S, A, Z):
+    """Past the register form's D, Z <= 6 (the general form's sizes): the
+    reference's kernel in interpret mode at D = Z = 9 (the dummy at S = 8)
+    and D = 7, Z = 10, B = 2, T = 2 (its unrolled body compiles for 84 s and
+    48 s on the CPU)."""
+    p = _problem(21, 2, 2, S, A, Z)
+    want = np.asarray(j_smooth(*(jnp.asarray(a) for a in p), interpret=True))
+    got = ts.i2c_smooth_batch(*i2c_problem_from_numpy(*p, device="cpu"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
+
+
+@pytest.mark.parametrize("S", [8, 15])
+def test_plain_smoother_matches_reference_scans_past_six(S):
+    """The dummy's D = Z = S + 1 (9 and 16) against the vmapped scans of the
+    reference's I2C on ``make_dummy_model(S, 1)``."""
+    from benchmarking_mpc_solvers_tpu.models import make_dummy_model
+
+    p = _problem(S, 4, 6, S, 1, S + 1)
+    want = _jax_scans(p, make_dummy_model(S, 1))
+    got = ts.i2c_smooth_batch(*i2c_problem_from_numpy(*p, device="cpu"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL_SCAN, atol=TOL_SCAN)
 
 
 @pytest.mark.parametrize("D,Z", [(3, 3), (5, 5), (6, 4)])
@@ -158,20 +183,43 @@ def test_nan_scenario_stays_nan_and_leaves_the_others():
 
 
 def test_shape_errors_and_kernel_size_limit():
+    """Shapes are checked; no size is refused: the kernels' register form
+    holds D, Z <= 6 and their general form every larger size, its workspace
+    in shared memory while a block's four fit the card's 227 KB, else in
+    device memory (B workspaces)."""
     p = _problem(8, 2, 4, 2, 1, 3)
     args = list(i2c_problem_from_numpy(*p, device="cpu"))
     bad = list(args)
     bad[8] = bad[8][:-1]
     with pytest.raises(ValueError, match="g_z"):
         ts.i2c_filter(*bad)
-    with pytest.raises(NotImplementedError, match="use_fused=False"):
-        ts._check_dims("i2c_filter", 7, 3)
-    ts._check_dims("i2c_filter", 6, 6)
+    assert ts.kernel_form(6, 6) == "register"
+    assert ts.kernel_form(7, 3) == ts.kernel_form(3, 7) == ts.kernel_form(16, 16) == "general"
+    assert ts.general_floats(9, 9) == (3 * 81 + 2 * 81 + 81 + 27, 5 * 81 + 18)
+    assert ts.general_workspace(ts.general_floats(16, 16)[0], 5, "cpu") is None
+    ws = ts.general_workspace(ts.general_floats(64, 64)[0], 5, "cpu")  # 4 x 98 KB
+    assert ws.shape == (5 * ts.general_floats(64, 64)[0],)
     # the plain version takes any size
     big = i2c_problem_from_numpy(*_problem(9, 2, 3, 6, 1, 7), device="cpu")
     assert torch.isfinite(ts.i2c_smooth_batch(*big)).all()
 
 
-def test_launch_config_refuses_sizes_above_six():
-    with pytest.raises(NotImplementedError, match="D, Z <= 6"):
-        ts.launch_config(7, 3, 16)
+@pytest.mark.parametrize("D,Z,form", [(7, 3, "general"), (3, 3, "register"),
+                                      (64, 64, "general")])
+def test_launch_config_refuses_sizes_above_six(monkeypatch, D, Z, form):
+    """Sizes above six, once refused, report the general form's launch
+    shape (its own entry point); the register form's stay as they were.
+    Read from the entry point each asks for, without a card."""
+    asked = []
+
+    def fake(name):
+        def fn(D_, Z_, B_, out):
+            asked.append((name, D_, Z_, B_))
+            return 0
+        return fn
+
+    monkeypatch.setattr(ts._build, "kernel_fn", fake)
+    cfg = ts.launch_config(D, Z, 16)
+    entry = "i2c_launch_config" if form == "register" else "i2c_general_launch_config"
+    assert asked == [(entry, D, Z, 16)] and cfg["form"] == form
+    assert set(cfg) == {"form", "stages", "filter", "rts"}

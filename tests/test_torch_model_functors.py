@@ -5,8 +5,9 @@ The reference's kernels 1, 2, 3, 4 and 6 trace any model whose functions
 act element by element over the leading axes: the dummy family
 (``make_dummy_model(S, 1)``) and the plants under other ``quad_cost``
 weights. The port's plain versions of those kernels are held here against
-the JAX kernels run in interpret mode on ``DummyModel``, the dummy at S = 1
-and S = 8, and cart-pole with configuration 2's weights
+the JAX kernels run in interpret mode on ``DummyModel``, the dummy at S = 1,
+8, 9, 16 and 31 (kernels 1, 2 and 3 take S > 8 in their dummy form, S an
+argument), and cart-pole with configuration 2's weights
 (``scripts/bench_suite.py:184-185``), with actions beyond the dummy's ±1
 bounds (its transform sees u unclipped). The noise is the reference's
 interpret-mode stream, which the plain versions draw exactly. Tolerances
@@ -39,6 +40,7 @@ from benchmarking_mpc_solvers_tpu.ops import fused_cem as jfused_cem
 from benchmarking_mpc_solvers_tpu.ops import fused_derivs as jfused_derivs
 from benchmarking_mpc_solvers_tpu.ops import fused_linesearch as jfused_linesearch
 from benchmarking_mpc_solvers_tpu.ops import fused_mppi as jfused_mppi
+from benchmarking_mpc_solvers_tpu.solvers import CEM as JCEM
 from benchmarking_mpc_solvers_tpu.solvers import MPPI as JMPPI
 from benchmarking_mpc_solvers_tpu_torch import _build
 from benchmarking_mpc_solvers_tpu_torch import models as tmodels
@@ -68,7 +70,13 @@ def _pair(name):
             dataclasses.replace(tmodels.CartPoleSwingUpModel, state_cost=tquad_cost(W_CART2)))
 
 
-MODELS = ["dummy2", "dummy1", "dummy8", "cartpole_reweighted"]
+# dummy9 to dummy31: kernels 1, 2 and 3 take the dummy at any S (their dummy
+# form, S an argument); kernels 4 and 6 stop at S = 8 (the Riccati kernel's
+# state bound keeps larger S off their tiers in both packages)
+MODELS = ["dummy2", "dummy1", "dummy8", "cartpole_reweighted", "dummy9", "dummy16", "dummy31"]
+# the reference's kernel 4 pushes a tangent per state: in interpret mode it
+# takes 38 s at S = 16 and 188 s at S = 31, so its test stops at S = 9
+DERIV_MODELS = MODELS[:5]
 T, B = 8, 16
 
 
@@ -119,7 +127,7 @@ def test_cem_step_plain_matches_reference_kernel(name):
     _close(got.numpy(), want, 2e-4, 1e-3)
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", DERIV_MODELS)
 def test_derivs_plain_matches_reference_kernel(name):
     """At T = 4: the interpret-mode kernel runs a grid step per t."""
     jm, tm = _pair(name)
@@ -183,14 +191,53 @@ def test_dummy_kernel_episode_matches_reference():
         _close(getattr(got, field).numpy(), getattr(want, field), 1e-4, 1e-4)
 
 
-@pytest.mark.parametrize("S", _build.DUMMY_STATES)
+@pytest.mark.parametrize("S", [9, 16, 31])
+def test_dummy_past_eight_takes_the_reference_kernel_tier(S):
+    """Past S = 8 both packages send MPPI and CEM to their single-kernel
+    tier (``kernel_ok``) and the port no longer refuses the model on the
+    card; the closed loop on the MPPI kernel tier, with the reference's
+    per-call seeds, matches the JAX package's (its kernel in interpret
+    mode), at the episode test's tolerance."""
+    jm, tm = _pair(f"dummy{S}")
+    for J, P in ((JMPPI, MPPI), (JCEM, CEM)):
+        assert J(model=jm, T=4).kernel_ok() and P(model=tm, T=4).kernel_ok()
+    check_device_functor("run_episodes_fused", tm, "cuda")  # no CUDA needed: it only looks
+    Bn, Tn, K, steps, warm = 8, 6, 8, 2, 1
+    start = tuple(np.linspace(-0.5, 0.5, S).tolist())
+    jenv = dataclasses.replace(JPendulumEnv, name="dummy", model=jm, default_start=start)
+    tenv = dataclasses.replace(TPendulumEnv, name="dummy", model=tm, default_start=start)
+    x0s = (np.tile(np.asarray(start, np.float32), (Bn, 1))
+           + 0.3 * np.random.default_rng(S).standard_normal((Bn, S))).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(S), Bn)
+    want = j_run_fused(jenv, JMPPI(model=jm, T=Tn, K=K),
+                       JConfig(n_steps=steps, warmstart=warm, record_plans=False), keys,
+                       jnp.asarray(x0s))
+    got = run_episodes_fused(tenv, MPPI(model=tm, T=Tn, K=K),
+                             EpisodeConfig(n_steps=steps, warmstart=warm, record_plans=False),
+                             torch.tensor(x0s), seeds=_reference_seeds(keys, warm + steps),
+                             device="cpu")
+    for field in ("costs", "true_actions", "true_states"):
+        _close(getattr(got, field).numpy(), getattr(want, field), 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("S", _build.DUMMY_STATES + (9, 16, 31, 64))
 def test_dummy_family_maps_to_its_functor(S):
     """Every make_dummy_model(S, 1) shares the dummy's functions, and so its
-    ``Dummy<S>`` functor, whatever its weights."""
+    ``Dummy<S>`` functor (S ≤ 8), or kernels 1, 2 and 3's dummy form (any
+    larger S: ``dummy_size``), whatever its weights; the dummy form's terms
+    are the cost's nonzero terms in quad_cost's order."""
     model = tmodels.make_dummy_model(S, 1)
-    assert _build.model_id(model) == _build.dummy_id(S)
     other = dataclasses.replace(model, state_cost=tquad_cost(2.0 * np.eye(S + 1)))
-    assert _build.model_id(other) == _build.model_id(model)
+    if S in _build.DUMMY_STATES:
+        assert _build.dummy_size(model) is None
+        assert _build.model_id(model) == _build.dummy_id(S)
+        assert _build.model_id(other) == _build.model_id(model)
+    else:
+        assert _build.dummy_size(model) == _build.dummy_size(other) == S
+        terms = _build.dummy_terms(other.state_cost, "cpu")
+        assert _build.dummy_terms(other.state_cost, "cpu") is terms  # built once
+        assert terms.tolist() == [[i, i, int(np.float32(2.0).view(np.int32)), 0]
+                                  for i in range(S + 1)]
     check_device_functor("test", model, "cuda")  # no CUDA needed: it only looks
 
 
@@ -214,7 +261,10 @@ def _linear():
                                   "dummy A=2"])
 def test_models_without_a_functor_are_refused(case):
     """Refused with the model's name, the reason and the way round; on a
-    CUDA device the early check refuses it the same way."""
+    CUDA device the early check refuses it the same way. The dummy at S = 9
+    has no ``Dummy<S>`` functor, so kernels 4 and 6 refuse it by name, but
+    kernels 1, 2 and 3 take it in their dummy form: the early check lets it
+    through."""
     model = {
         "linear": _linear,
         "foreign under a plant's name": lambda: Model(
@@ -227,8 +277,13 @@ def test_models_without_a_functor_are_refused(case):
     }[case]()
     with pytest.raises(NotImplementedError, match=f"model {model.name!r}: .*use_fused=False"):
         _build.model_id(model)
-    with pytest.raises(NotImplementedError, match="no CUDA device function"):
+    if case == "dummy S=9":
+        assert _build.dummy_size(model) == 9
         check_device_functor("run_episodes_fused", model, "cuda")
+    else:
+        assert _build.dummy_size(model) is None
+        with pytest.raises(NotImplementedError, match="no CUDA device function"):
+            check_device_functor("run_episodes_fused", model, "cuda")
     check_device_functor("run_episodes_fused", model, "cpu")  # the CPU takes every model
     if case == "linear":
         with pytest.raises(NotImplementedError, match="do not trace either"):
