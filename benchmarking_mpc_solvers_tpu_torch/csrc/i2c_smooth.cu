@@ -522,32 +522,35 @@ i2c_rts_kernel(const float* __restrict__ mu_f, const float* __restrict__ sig_f,
   }
 }
 
-// --- the general form: any D and Z --------------------------------------------
+// --- the general form (D, Z up to 16) and the large form (past 16) ----------
 //
 // Sizes past the register instances (D or Z above 6, ops/i2c_smooth.py:
-// REG_DIM) take one kernel pair whose D and Z are runtime arguments. A warp
-// per scenario; every matrix of a step lives in a per-warp workspace, in
-// shared memory or, where a block's kGeneralWarps workspaces pass
-// kMaxSharedBytes, in device memory; the inputs are read from device memory
-// where a step needs them. Each entry of each product is one lane's sum in
-// the reference order, the lanes taking the entries in turn; the Cholesky
-// factorisation runs in place column by column, row i on lane i % 32, which
-// also forms the next diagonal from its own row (so one __syncwarp per
-// column); each lane solves its own rows. Every value is formed once, by one
-// lane, with the operations of the plain version in its order, so the
-// general form keeps the plain version's bits at every size. Warps past B
-// return at once: no barrier spans warps.
-constexpr int kGeneralWarps = 4;             // warps (scenarios) per block
+// REG_DIM) take the general form (i2c_general.cuh) up to kGeneralMax, and
+// the large form past it: one kernel pair whose D and Z are runtime
+// arguments. A warp per scenario; every matrix of a step lives in a
+// per-warp workspace, in shared memory or, where a block's kLargeWarps
+// workspaces pass kMaxSharedBytes, in device memory; the inputs are read
+// from device memory where a step needs them. Each entry of each product is
+// one lane's sum in the reference order, the lanes taking the entries in
+// turn; the Cholesky factorisation runs in place column by column, row i on
+// lane i % 32, which also forms the next diagonal from its own row (so one
+// __syncwarp per column); each lane solves its own rows. Every value is
+// formed once, by one lane, with the operations of the plain version in its
+// order, so the large form keeps the plain version's bits at every size.
+// Warps past B return at once: no barrier spans warps.
+#include "i2c_general.cuh"
+
+constexpr int kLargeWarps = 4;               // warps (scenarios) per block
 constexpr int kMaxSharedBytes = 227 * 1024;  // a block's shared memory on sm_90
 
 // Floats of one scenario's workspace: the filter's sig_p, mu_p, P J^T, sig_y
 // (factored in place), the gain rows, the innovation, mu_f, sf (then
 // F sig_f) and sig_f; the smoother's sig_next, mu_next, M, the factor of
 // sig_pred, G, G Dlt and the smoothed mean.
-__host__ __device__ inline int general_filter_floats(int D, int Z) {
+__host__ __device__ inline int large_filter_floats(int D, int Z) {
   return 3 * D * D + 2 * D * Z + Z * Z + 2 * D + Z;
 }
-__host__ __device__ inline int general_rts_floats(int D) { return 5 * D * D + 2 * D; }
+__host__ __device__ inline int large_rts_floats(int D) { return 5 * D * D + 2 * D; }
 
 // Lower Cholesky factor of the n x n matrix at A (row stride n), in place:
 // only the lower triangle is read and written. Ends with a __syncwarp.
@@ -588,25 +591,25 @@ __device__ __forceinline__ void chol_solve_lane(const float* Lc, int n, const fl
 }
 
 // The warp's workspace: its slot of the block's shared memory, or of ws.
-__device__ __forceinline__ float* general_workspace(float* ws, int per, int b) {
+__device__ __forceinline__ float* large_workspace(float* ws, int per, int b) {
   extern __shared__ float smem[];
   return ws != nullptr ? ws + (size_t)b * per : smem + (threadIdx.x >> 5) * per;
 }
 
-__global__ void __launch_bounds__(32 * kGeneralWarps)
-i2c_filter_general(const float* __restrict__ F, const float* __restrict__ m,
-                   const float* __restrict__ J, const float* __restrict__ z0,
-                   const float* __restrict__ R, int r_stride,
-                   const float* __restrict__ mu0, const float* __restrict__ sig0,
-                   const float* __restrict__ Qproc, const float* __restrict__ g_z,
-                   float* __restrict__ mu_f_out, float* __restrict__ sig_f_out,
-                   float* __restrict__ mu_pred_out, float* __restrict__ sig_pred_out,
-                   int B, int T, int D, int Z, float* ws) {
+__global__ void __launch_bounds__(32 * kLargeWarps)
+i2c_filter_large(const float* __restrict__ F, const float* __restrict__ m,
+                 const float* __restrict__ J, const float* __restrict__ z0,
+                 const float* __restrict__ R, int r_stride,
+                 const float* __restrict__ mu0, const float* __restrict__ sig0,
+                 const float* __restrict__ Qproc, const float* __restrict__ g_z,
+                 float* __restrict__ mu_f_out, float* __restrict__ sig_f_out,
+                 float* __restrict__ mu_pred_out, float* __restrict__ sig_pred_out,
+                 int B, int T, int D, int Z, float* ws) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kGeneralWarps + (threadIdx.x >> 5);
+  const int b = blockIdx.x * kLargeWarps + (threadIdx.x >> 5);
   if (b >= B) return;
   const int DD = D * D, DZ = D * Z;
-  float* P = general_workspace(ws, general_filter_floats(D, Z), b);
+  float* P = large_workspace(ws, large_filter_floats(D, Z), b);
   float* MU = P + DD;
   float* PJ = MU + D;
   float* LY = PJ + DZ;
@@ -700,16 +703,16 @@ i2c_filter_general(const float* __restrict__ F, const float* __restrict__ m,
   }
 }
 
-__global__ void __launch_bounds__(32 * kGeneralWarps)
-i2c_rts_general(const float* __restrict__ mu_f, const float* __restrict__ sig_f,
-                const float* __restrict__ mu_pred, const float* __restrict__ sig_pred,
-                const float* __restrict__ F, float* __restrict__ mu_s, int B, int T, int D,
-                float* ws) {
+__global__ void __launch_bounds__(32 * kLargeWarps)
+i2c_rts_large(const float* __restrict__ mu_f, const float* __restrict__ sig_f,
+              const float* __restrict__ mu_pred, const float* __restrict__ sig_pred,
+              const float* __restrict__ F, float* __restrict__ mu_s, int B, int T, int D,
+              float* ws) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kGeneralWarps + (threadIdx.x >> 5);
+  const int b = blockIdx.x * kLargeWarps + (threadIdx.x >> 5);
   if (b >= B) return;
   const int DD = D * D;
-  float* SN = general_workspace(ws, general_rts_floats(D), b);
+  float* SN = large_workspace(ws, large_rts_floats(D), b);
   float* MN = SN + DD;
   float* M = MN + D;
   float* A = M + DD;
@@ -773,21 +776,20 @@ i2c_rts_general(const float* __restrict__ mu_f, const float* __restrict__ sig_f,
   }
 }
 
-// The general form's launch: blocks of kGeneralWarps scenarios, each
-// warp's workspace in shared memory, or in ws (B * per floats, non-null
-// exactly where kGeneralWarps * per floats pass kMaxSharedBytes).
+// The large form's launch: blocks of kLargeWarps scenarios, each warp's
+// workspace in shared memory, or in ws (B * per floats, non-null exactly
+// where kLargeWarps * per floats pass kMaxSharedBytes).
 template <typename Kernel, typename... Args>
-int launch_general(Kernel kernel, int per, const float* ws, int B, cudaStream_t stream,
-                   Args... args) {
-  const int bytes = ws != nullptr ? 0 : kGeneralWarps * per * (int)sizeof(float);
+int launch_large(Kernel kernel, int per, const float* ws, int B, cudaStream_t stream,
+                 Args... args) {
+  const int bytes = ws != nullptr ? 0 : kLargeWarps * per * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return (int)cudaErrorInvalidValue;  // ws was needed
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(B + kGeneralWarps - 1) / kGeneralWarps, 32 * kGeneralWarps, bytes, stream>>>(
-      args...);
+  kernel<<<(B + kLargeWarps - 1) / kLargeWarps, 32 * kLargeWarps, bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -892,6 +894,14 @@ int dispatch_d(int D, Fn&& fn) {
   return dispatch(D, 1, [&](auto d, auto) { return fn(d); });
 }
 
+// fn(integral_constant<N>) for the general form's row length N: 12 or 16,
+// the smaller that holds n (1 <= n <= kGeneralMax)
+template <typename Fn>
+int dispatch_general(int n, Fn&& fn) {
+  if (n <= 12) return fn(std::integral_constant<int, 12>{});
+  return fn(std::integral_constant<int, 16>{});
+}
+
 // threads, scenarios, time steps per stage, shared bytes, registers and
 // resident blocks per SM of one kernel into out[0..5]
 template <typename L, typename Kernel>
@@ -957,10 +967,11 @@ extern "C" int i2c_launch_config(int D, int Z, int B, int* out) {
   });
 }
 
-// The general form (any D and Z; the wrapper takes it where D or Z passes
-// 6): the arguments of i2c_filter_launch, and ws, null where
-// kGeneralWarps workspaces of general_filter_floats(D, Z) floats fit a
-// block's shared memory, else B times that many floats of device memory.
+// The general form (D and Z up to kGeneralMax) and past it the large form;
+// the wrapper takes this entry point where D or Z passes 6: the arguments of
+// i2c_filter_launch, and ws, null except for the large form where
+// kLargeWarps workspaces of large_filter_floats(D, Z) floats pass a block's
+// shared memory: then B times that many floats of device memory.
 extern "C" int i2c_filter_general_launch(const float* F, const float* m, const float* J,
                                          const float* z0, const float* R, const float* mu0,
                                          const float* sig0, const float* Qproc,
@@ -969,36 +980,70 @@ extern "C" int i2c_filter_general_launch(const float* F, const float* m, const f
                                          int Z, int r_per_scenario, float* ws,
                                          cudaStream_t stream) {
   if (D < 1 || Z < 1) return (int)cudaErrorInvalidValue;
-  return launch_general(i2c_filter_general, general_filter_floats(D, Z), ws, B, stream, F, m,
-                        J, z0, R, r_per_scenario ? Z * Z : 0, mu0, sig0, Qproc, g_z, mu_f,
-                        sig_f, mu_pred, sig_pred, B, T, D, Z, ws);
+  const int r_stride = r_per_scenario ? Z * Z : 0;
+  if (D <= kGeneralMax && Z <= kGeneralMax)
+    return dispatch_general(D > Z ? D : Z, [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      return launch<GeneralFilterLayout<N>>(i2c_filter_general<N>, B, stream, F, m, J, z0, R,
+                                            r_stride, mu0, sig0, Qproc, g_z, mu_f, sig_f,
+                                            mu_pred, sig_pred, B, T, D, Z);
+    });
+  return launch_large(i2c_filter_large, large_filter_floats(D, Z), ws, B, stream, F, m, J, z0,
+                      R, r_stride, mu0, sig0, Qproc, g_z, mu_f, sig_f, mu_pred, sig_pred, B, T,
+                      D, Z, ws);
 }
 
-// The smoother's general form: the arguments of i2c_rts_launch and ws, null
-// or B * general_rts_floats(D) floats by the same test.
+// The smoother's general and large forms, by D: the arguments of
+// i2c_rts_launch and ws, null or B * large_rts_floats(D) floats by the same
+// test.
 extern "C" int i2c_rts_general_launch(const float* mu_f, const float* sig_f,
                                       const float* mu_pred, const float* sig_pred,
                                       const float* F, float* mu_s, int B, int T, int D,
                                       float* ws, cudaStream_t stream) {
   if (D < 1) return (int)cudaErrorInvalidValue;
-  return launch_general(i2c_rts_general, general_rts_floats(D), ws, B, stream, mu_f, sig_f,
-                        mu_pred, sig_pred, F, mu_s, B, T, D, ws);
+  if (D <= kGeneralMax)
+    return dispatch_general(D, [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      return launch<GeneralRtsLayout<N>>(i2c_rts_general<N>, B, stream, mu_f, sig_f, mu_pred,
+                                         sig_pred, F, mu_s, B, T, D);
+    });
+  return launch_large(i2c_rts_large, large_rts_floats(D), ws, B, stream, mu_f, sig_f, mu_pred,
+                      sig_pred, F, mu_s, B, T, D, ws);
 }
 
-// The general form's launch shape at (D, Z) for B scenarios into out[13],
-// laid out as i2c_launch_config's: 0 stages (nothing is staged), then for
-// the filter and the smoother each threads and scenarios per block, 0 time
-// steps per stage, shared bytes per block (0 where the workspace is in
-// device memory), registers per thread and resident blocks per SM.
+// The launch shape at (D, Z) for B scenarios into out[13], laid out as
+// i2c_launch_config's, of the filter's form at (D, Z) and the smoother's at
+// D: the general form's as the register form's (stages of one time step);
+// the large form's with 0 time steps per stage (nothing is staged; out[0]
+// is 0 where the filter takes it) and 0 shared bytes where its workspace is
+// in device memory.
 extern "C" int i2c_general_launch_config(int D, int Z, int B, int* out) {
-  out[0] = 0;
-  const int per[2] = {general_filter_floats(D, Z), general_rts_floats(D)};
-  const void* kernels[2] = {(const void*)i2c_filter_general, (const void*)i2c_rts_general};
+  if (D < 1 || Z < 1) return (int)cudaErrorInvalidValue;
+  (void)B;
+  const bool general[2] = {D <= kGeneralMax && Z <= kGeneralMax, D <= kGeneralMax};
+  out[0] = general[0] ? kStages : 0;
+  if (general[0]) {
+    const int err = dispatch_general(D > Z ? D : Z, [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      return kernel_info<GeneralFilterLayout<N>>(i2c_filter_general<N>, out + 1);
+    });
+    if (err) return err;
+  }
+  if (general[1]) {
+    const int err = dispatch_general(D, [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      return kernel_info<GeneralRtsLayout<N>>(i2c_rts_general<N>, out + 7);
+    });
+    if (err) return err;
+  }
+  const int per[2] = {large_filter_floats(D, Z), large_rts_floats(D)};
+  const void* kernels[2] = {(const void*)i2c_filter_large, (const void*)i2c_rts_large};
   for (int k = 0; k < 2; ++k) {
+    if (general[k]) continue;
     int* o = out + 1 + 6 * k;
-    const int bytes = kGeneralWarps * per[k] * (int)sizeof(float);
-    o[0] = 32 * kGeneralWarps;
-    o[1] = kGeneralWarps;
+    const int bytes = kLargeWarps * per[k] * (int)sizeof(float);
+    o[0] = 32 * kLargeWarps;
+    o[1] = kLargeWarps;
     o[2] = 0;
     o[3] = bytes <= kMaxSharedBytes ? bytes : 0;
     if (o[3] > 48 * 1024) {
@@ -1010,10 +1055,9 @@ extern "C" int i2c_general_launch_config(int D, int Z, int B, int* out) {
     cudaError_t e = cudaFuncGetAttributes(&attr, kernels[k]);
     if (e != cudaSuccess) return (int)e;
     o[4] = attr.numRegs;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[5], kernels[k], 32 * kGeneralWarps,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[5], kernels[k], 32 * kLargeWarps,
                                                       o[3]);
     if (e != cudaSuccess) return (int)e;
   }
-  (void)B;
   return 0;
 }

@@ -18,17 +18,20 @@ On CUDA tensors each wrapper launches its hand-written kernel in
 ``csrc/i2c_smooth.cu`` or raises; on CPU tensors it runs its
 ``*_reference``, the plain PyTorch version with the reference kernel's
 arithmetic written out entry by entry in the same order, so that the kernel
-and the plain version round alike. The kernels take every D and Z, in two
-forms (``kernel_form``). Up to ``REG_DIM`` the register form: a template
-instance for each (D, Z), a group of 8 lanes a scenario, lane r computing
-row r of each matrix (the Cholesky factor in every lane) in registers, the
-horizon's inputs copied into shared memory with ``cp.async`` a few steps
-ahead of the chain. Past it the general form: one kernel pair with D and Z
-as arguments, a warp a scenario, every matrix in a per-warp workspace in
-shared memory, or in device memory where a block's workspaces pass the
-card's shared memory (``general_workspace``). ``launch_config`` reports the
-launch shape. ``i2c_filter.launches`` and ``i2c_rts_smooth.launches`` count
-kernel launches.
+and the plain version round alike. The kernels take every D and Z, in three
+forms by size (``kernel_form``). Up to ``REG_DIM`` the register form: a
+template instance for each (D, Z), a group of 8 lanes a scenario, lane r
+computing row r of each matrix (the Cholesky factor in every lane) in
+registers, the horizon's inputs copied into shared memory with ``cp.async``
+a few steps ahead of the chain. Up to ``GENERAL_MAX`` the general form
+(``csrc/i2c_general.cuh``): D and Z as arguments, rows of 12 or 16 entries,
+a group of 16 lanes a scenario, lane r's rows in registers, the Cholesky
+factorisation across the group by shuffles, each step's inputs staged a step
+ahead. Past it the large form: a warp a scenario, every matrix in a
+per-warp workspace in shared memory, or in device memory where a block's
+workspaces pass the card's shared memory (``large_workspace``).
+``launch_config`` reports the launch shape. ``i2c_filter.launches`` and
+``i2c_rts_smooth.launches`` count kernel launches.
 
 The Cholesky diagonals are floored at 1e-30 (the inputs are positive definite
 by construction: R and the priors carry explicit ridges); a NaN passes the
@@ -43,32 +46,37 @@ import torch
 
 from .. import _build
 
+# Edit these with csrc/i2c_smooth.cu and csrc/i2c_general.cuh.
 REG_DIM = 6  # the register form's largest D and Z (its template instances)
-GENERAL_WARPS = 4  # the general form's scenarios (warps) per block
+GENERAL_MAX = 16  # the general form's largest D and Z (kGeneralMax)
+LARGE_WARPS = 4  # the large form's scenarios (warps) per block
 MAX_SHARED_BYTES = 227 * 1024  # a block's shared memory on the H100
 
 
 def kernel_form(D: int, Z: int) -> str:
-    """The kernels' form at (D, Z): ``"register"`` up to ``REG_DIM``, else
-    ``"general"``. Both take any B and T, and both keep the plain version's
-    bits."""
-    return "register" if D <= REG_DIM and Z <= REG_DIM else "general"
+    """The kernels' form at (D, Z), by size: ``"register"`` up to
+    ``REG_DIM``, ``"general"`` up to ``GENERAL_MAX``, else ``"large"``. The
+    filter takes the form of its (D, Z), the smoother that of (D, D). Every
+    form takes any B and T and keeps the plain version's bits."""
+    n = max(D, Z)
+    return "register" if n <= REG_DIM else "general" if n <= GENERAL_MAX else "large"
 
 
-def general_floats(D: int, Z: int) -> tuple:
-    """Floats of one scenario's workspace in the general form's filter and
-    smoother (``csrc/i2c_smooth.cu``: general_filter_floats,
-    general_rts_floats)."""
+def large_floats(D: int, Z: int) -> tuple:
+    """Floats of one scenario's workspace in the large form's filter and
+    smoother (``csrc/i2c_smooth.cu``: large_filter_floats,
+    large_rts_floats)."""
     return 3 * D * D + 2 * D * Z + Z * Z + 2 * D + Z, 5 * D * D + 2 * D
 
 
-def general_workspace(floats: int, B: int, device):
-    """The general form's device-memory workspace for B scenarios of
-    ``floats`` each, or None where a block's ``GENERAL_WARPS`` workspaces fit
+def large_workspace(floats: int, B: int, device):
+    """The large form's device-memory workspace for B scenarios of
+    ``floats`` each, or None where a block's ``LARGE_WARPS`` workspaces fit
     its shared memory."""
-    if GENERAL_WARPS * floats * 4 <= MAX_SHARED_BYTES:
+    if LARGE_WARPS * floats * 4 <= MAX_SHARED_BYTES:
         return None
     return torch.empty((B * floats,), dtype=torch.float32, device=device)
+
 
 
 def _chol(A, n):
@@ -227,22 +235,33 @@ def i2c_smooth_batch_reference(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
 
 def launch_config(D: int, Z: int, B: int) -> dict:
     """The kernels' launch shape for B scenarios at (D, Z) on the current
-    card: their ``form`` (``kernel_form``), the stages of the shared-memory
-    ring (0 in the general form, which stages nothing) and, for ``filter``
-    and ``rts`` each, threads and scenarios per block, time steps per stage
-    (0 in the general form), shared bytes per block (0 where the general
-    form's workspace is in device memory), registers per thread and
-    resident blocks per SM. The register form's smoother takes wider blocks
-    where B fills the SMs."""
-    form = kernel_form(D, Z)
-    out = (ctypes.c_int * 13)()
-    entry = "i2c_launch_config" if form == "register" else "i2c_general_launch_config"
-    _build.check_rc("launch_config", _build.kernel_fn(entry)(
-        D, Z, B, ctypes.cast(out, ctypes.c_void_p)))
+    card: the filter's ``form`` (``kernel_form``), the stages of its
+    shared-memory ring (0 in the large form, which stages nothing) and, for
+    ``filter`` and ``rts`` each, its form, threads and scenarios per block,
+    time steps per stage (0 in the large form), shared bytes per block (0
+    where the large form's workspace is in device memory), registers per
+    thread, resident blocks per SM and blocks in the grid. The register
+    form's smoother takes wider blocks where B fills the SMs."""
+    forms = {"filter": kernel_form(D, Z), "rts": kernel_form(D, D)}
     keys = ("threads", "scenarios_per_block", "chunk", "shared_bytes", "registers",
             "blocks_per_sm")
-    return {"form": form, "stages": out[0], "filter": dict(zip(keys, out[1:7])),
-            "rts": dict(zip(keys, out[7:13]))}
+    outs, asked = {}, {}
+    for form in forms.values():
+        # the register form's entry point holds D, Z <= 6: the smoother asks at (D, D)
+        key = (("i2c_launch_config", Z if forms["filter"] == "register" else D)
+               if form == "register" else ("i2c_general_launch_config", Z))
+        if key not in asked:
+            out = (ctypes.c_int * 13)()
+            _build.check_rc("launch_config", _build.kernel_fn(key[0])(
+                D, key[1], B, ctypes.cast(out, ctypes.c_void_p)))
+            asked[key] = list(out)
+        outs[form] = asked[key]
+    cfg = {"form": forms["filter"], "stages": outs[forms["filter"]][0]}
+    for k, (name, form) in enumerate(forms.items()):
+        cfg[name] = {"form": form, **dict(zip(keys, outs[form][1 + 6 * k:7 + 6 * k]))}
+        spb = cfg[name]["scenarios_per_block"]
+        cfg[name]["blocks"] = -(-B // spb) if spb else 0
+    return cfg
 
 
 def i2c_filter(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
@@ -268,10 +287,11 @@ def i2c_filter(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
     args = [*(_build.ptr(t) for t in (F, m, J, z0, R, mu0, sig0, Qproc, g_z,
                                       mu_f, sig_f, mu_pred, sig_pred)),
             B, T, D, Z, int(R.ndim == 3)]
-    if kernel_form(D, Z) == "register":
+    form = kernel_form(D, Z)
+    if form == "register":
         rc = _build.kernel_fn("i2c_filter_launch")(*args, _build.stream_ptr(dev))
     else:
-        ws = general_workspace(general_floats(D, Z)[0], B, dev)
+        ws = large_workspace(large_floats(D, Z)[0], B, dev) if form == "large" else None
         rc = _build.kernel_fn("i2c_filter_general_launch")(
             *args, None if ws is None else _build.ptr(ws), _build.stream_ptr(dev))
     _build.check_rc("i2c_filter", rc)
@@ -299,10 +319,11 @@ def i2c_rts_smooth(mu_f, sig_f, mu_pred, sig_pred, F):
     if B == 0:
         return mu_s
     args = [*(_build.ptr(t) for t in (mu_f, sig_f, mu_pred, sig_pred, F, mu_s)), B, T, D]
-    if kernel_form(D, D) == "register":
+    form = kernel_form(D, D)
+    if form == "register":
         rc = _build.kernel_fn("i2c_rts_launch")(*args, _build.stream_ptr(dev))
     else:
-        ws = general_workspace(general_floats(D, D)[1], B, dev)
+        ws = large_workspace(large_floats(D, D)[1], B, dev) if form == "large" else None
         rc = _build.kernel_fn("i2c_rts_general_launch")(
             *args, None if ws is None else _build.ptr(ws), _build.stream_ptr(dev))
     _build.check_rc("i2c_rts_smooth", rc)

@@ -92,11 +92,13 @@ Phases (any failure exits non-zero before the result line):
      and 3 on the dummy past S = 8 (their dummy form: S = 9, 16 and 31 at a
      small shape, S = 12 under dense weights, S = 16 at the MPPI bench, MPPI
      two-stage and CEM sweep widths and on the MPPI and CEM tiers), kernels
-     8a/8b in their general form (D, Z above 6, block edges, T = 1, the
-     device-memory workspace, the sweep row's B and T, and
-     ``I2C.solve_batch(use_fused=True)`` on make_dummy_model(8, 1)), each
-     against its plain version; then ``scripts/bench_suite.py``'s main()
-     through its six configurations at full widths, cut to 2 steps and one
+     8a/8b in their general form (D, Z from 7 to 16, block edges, T = 1,
+     the sweep row's B and T at D = Z = 9 and 16, and
+     ``I2C.solve_batch(use_fused=True)`` on make_dummy_model(8, 1) and
+     (15, 1)) and their large form (D = Z = 17, its device-memory
+     workspace), each against its plain version; then
+     ``scripts/bench_suite.py``'s main()
+     through its six configurations at full widths, cut to 1 step and one
      timing repetition (``SUITE_ARGS``), each configuration's launches by
      its route, kernels 4, 5 and 6 of configuration 5's iLQR and SQP rows held
      on one solve's own inputs at B = 10,240; and ``scripts/bench.py``'s
@@ -1497,15 +1499,18 @@ def i2c_first_iteration_inputs_for(env_, T, B, seed, dev):
 # The repairs: kernels 1, 2 and 3 on the dummy at S in REPAIR_DUMMY_S at a
 # small shape (T=17, B=1001, K=48, ragged blocks), once under dense weights,
 # and at REPAIR_WIDE_S at the MPPI bench width, the MPPI two-stage N and the
-# CEM sweep's width; kernels 8a/8b in their general form at D = Z in
-# REPAIR_I2C_DIMS, D != Z both ways, at the edges of their 4-scenario blocks,
-# T = 1, the device-memory workspace, and at the sweep row's B and T. The
+# CEM sweep's width; kernels 8a/8b in their general form (and past D, Z =
+# 16 the large form) at D = Z in REPAIR_I2C_DIMS, D != Z both ways, at the
+# edges of their 4-scenario blocks, T = 1, the large form's device-memory
+# workspace, and at the sweep row's B and T at D = Z in REPAIR_I2C_WIDE. The
 # suite at its full widths, cut to SUITE_ARGS' steps and timing repetitions.
 REPAIR_DUMMY_S, REPAIR_WIDE_S, REPAIR_DENSE_S = (9, 16, 31), 16, 12
-REPAIR_I2C_DIMS = ((6, 1, 7), (8, 1, 9), (11, 1, 12), (15, 1, 16), (6, 1, 10), (8, 1, 3))
+REPAIR_I2C_DIMS = ((6, 1, 7), (8, 1, 9), (11, 1, 12), (15, 1, 16), (6, 1, 10), (8, 1, 3),
+                   (12, 1, 13), (16, 1, 17))
+REPAIR_I2C_WIDE = (9, 16)
 REPAIR_I2C_EDGES = ((1, 3), (4, 5), (5, 2), (33, 4), (6, 1))  # (B, T) at D = Z = 9
 REPAIR_EPISODE_STEPS = 3
-SUITE_ARGS = ["--steps", "2", "--inner", "2", "--outer", "1", "--samples", "2", "--min-chains"]
+SUITE_ARGS = ["--steps", "1", "--inner", "2", "--outer", "1", "--samples", "2", "--min-chains"]
 # each suite configuration's kernels (its route), none other may launch
 SUITE_ROUTES = {
     1: ("admm_iterate",), 2: (),
@@ -1569,15 +1574,21 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
         print(f"[{smi}] phase (m) {label}: launches {expect}", flush=True)
         return res
 
-    def entry(base, label, n, e, fn, plain_fn, bnd, cfg=None, plain_reps=3):
+    def entry(base, label, n, e, fn, plain_fn, bnd, cfg=None, plain_reps=3, chain=None):
+        """A kernels-line entry; plain_fn is the plain version, or its time
+        in ms where the check already took it."""
         around, device = cuda_time_ms(fn), device_time_ms(fn)
-        plain = cuda_time_ms(plain_fn, reps=plain_reps, warmup=min(plain_reps, 1))
+        plain = (plain_fn if isinstance(plain_fn, float)
+                 else cuda_time_ms(plain_fn, reps=plain_reps, warmup=min(plain_reps, 1)))
         entries.append({"base": base, "name": f"{base}[{label}]", "route": "cuda",
                         "launches": n, "max_abs_err": e[0], "max_rel_err": e[1], "ms": around,
                         "device_ms": device, "plain_ms": plain, "bound_ms": bnd[0],
-                        "bound_by": bnd[1], "library_ms": None, "launch": cfg, "pass": True})
+                        "bound_by": bnd[1], "library_ms": None, "launch": cfg, "pass": True,
+                        **({} if chain is None else {"chain_bound_ms": chain})})
         print(f"[{smi}] {base}[{label}]: around one call {around:.4f} ms, device {device:.4f} ms,"
-              f" plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); launch {cfg}", flush=True)
+              f" plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})"
+              + ("" if chain is None else f", chain {chain:.5f} ms") + f"; launch {cfg}",
+              flush=True)
 
     # (a) kernels 1, 2 and 3 on the dummy past S = 8: small shapes
     def sampling(model, T, B, K, N, seed, tag, which=(1, 2, 3)):
@@ -1688,15 +1699,27 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
                   R, mu0, sig0, Q, 0.1 * rng.standard_normal((T, Z)))
         return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in arrays]
 
+    def timed(fn):
+        """fn's result and its ms on the card (CUDA events around one call)."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
     def i2c_held(tag, p):
+        """Both kernels against their plain versions, bit for bit; the
+        filter's outputs and the plain versions' ms (one call each)."""
         got = ts.i2c_filter(*p)
-        for key, g, w in zip(("mu_f", "sig_f", "mu_pred", "sig_pred"), got,
-                             ts.i2c_filter_reference(*p)):
+        want, plain_f = timed(lambda: ts.i2c_filter_reference(*p))
+        for key, g, w in zip(("mu_f", "sig_f", "mu_pred", "sig_pred"), got, want):
             exact_nan(f"i2c_filter[{tag}] {key}", g, w)
+        plain_r = None
         if p[0].shape[1] > 1:
-            exact_nan(f"i2c_rts_smooth[{tag}]", ts.i2c_rts_smooth(*got, p[0]),
-                      ts.i2c_rts_smooth_reference(*got, p[0]))
-        return got
+            want, plain_r = timed(lambda: ts.i2c_rts_smooth_reference(*got, p[0]))
+            exact_nan(f"i2c_rts_smooth[{tag}]", ts.i2c_rts_smooth(*got, p[0]), want)
+        return got, plain_f, plain_r
 
     reset_counts()
     n_rts = 0
@@ -1714,10 +1737,11 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             n_filter + n_rts):
         fail(f"phase (m) general-form I2C checks: launches {got}")
     repair["i2c general form, small shapes"] = got
-    # the device-memory workspace against shared memory, bit for bit
-    B, T, D = 6, 5, 9
-    p = i2c_problem(B, T, 8, 1, 9, 80)
-    fl, rl = ts.general_floats(D, D)
+    # the large form's device-memory workspace against shared memory, bit
+    # for bit, just past the general form
+    B, T, D = 6, 5, 17
+    p = i2c_problem(B, T, 16, 1, 17, 80)
+    fl, rl = ts.large_floats(D, D)
     outs = []
     for ws in (None, torch.empty(B * max(fl, rl), device=dev)):
         o = [torch.empty(s, device=dev) for s in ((B, T, D), (B, T, D, D), (B, T, D),
@@ -1732,35 +1756,40 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             None if ws is None else _build.ptr(ws), _build.stream_ptr(dev)))
         outs.append(o + [mu_s])
     for a, b in zip(*outs):
-        exact_nan("i2c general form, device-memory workspace against shared memory", a, b)
-    # I2C.solve_batch(use_fused=True) on make_dummy_model(8, 1): D = Z = 9
-    d8 = make_dummy_model(8, 1)
-    i2c8 = I2C(model=d8, T=I2C6_T, max_iter=3)
-    st8 = i2c8.init_state_batch(I2C6_B, torch.Generator(device=dev).manual_seed(0), dev)
-    x8 = 0.5 * torch.ones((I2C6_B, 8), device=dev)
-    gz8 = torch.zeros((I2C6_T, 9), device=dev)
-    reset_counts()
-    st8, u8, _ = i2c8.solve_batch(st8, x8, gz8, use_fused=True)
-    got = counts()
-    if got != {**{fn.__name__: 0 for fn in counters}, "i2c_filter": 3, "i2c_rts_smooth": 3}:
-        fail(f"phase (m) I2C.solve_batch on the dummy at S = 8: launches {got}")
-    if not bool(torch.isfinite(st8.planned_us).all()) or not bool(torch.isfinite(u8).all()):
-        fail("phase (m) I2C on the dummy at S = 8: plans not finite")
-    repair["i2c solve_batch dummy S=8 (D=Z=9)"] = got
-    print(f"[{smi}] phase (m) I2C.solve_batch(use_fused=True) on the dummy at S = 8 "
-          f"(D = Z = 9, B={I2C6_B}, T={I2C6_T}, 3 iterations): launches {got}", flush=True)
-    # the sweep row's B and T at D = Z = 9
-    p = i2c_problem(I2CS_B, I2CS_T, 8, 1, 9, 90)
-    outs = i2c_held(f"general, D=Z=9, B={I2CS_B}, T={I2CS_T}", p)
-    work = i2c_work(p, clock)
-    cfg9 = ts.launch_config(9, 9, I2CS_B)
-    entry("i2c_filter", f"general form, D=Z=9, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
-          lambda: ts.i2c_filter(*p), lambda: ts.i2c_filter_reference(*p),
-          bound(*work[0][:2]), cfg9, plain_reps=1)
-    entry("i2c_rts_smooth", f"general form, D=9, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
-          lambda: ts.i2c_rts_smooth(*outs, p[0]),
-          lambda: ts.i2c_rts_smooth_reference(*outs, p[0]), bound(*work[1][:2]), cfg9,
-          plain_reps=1)
+        exact_nan("i2c large form, device-memory workspace against shared memory", a, b)
+    # I2C.solve_batch(use_fused=True) on make_dummy_model(S, 1), D = Z = S + 1
+    # at REPAIR_I2C_WIDE: 3 iterations, a launch of each kernel an iteration
+    for D in REPAIR_I2C_WIDE:
+        S = D - 1
+        solver = I2C(model=make_dummy_model(S, 1), T=I2C6_T, max_iter=3)
+        st = solver.init_state_batch(I2C6_B, torch.Generator(device=dev).manual_seed(0), dev)
+        reset_counts()
+        st, u, _ = solver.solve_batch(st, 0.5 * torch.ones((I2C6_B, S), device=dev),
+                                      torch.zeros((I2C6_T, D), device=dev), use_fused=True)
+        got = counts()
+        if got != {**{fn.__name__: 0 for fn in counters}, "i2c_filter": 3, "i2c_rts_smooth": 3}:
+            fail(f"phase (m) I2C.solve_batch on the dummy at S = {S}: launches {got}")
+        if not bool(torch.isfinite(st.planned_us).all()) or not bool(torch.isfinite(u).all()):
+            fail(f"phase (m) I2C on the dummy at S = {S}: plans not finite")
+        repair[f"i2c solve_batch dummy S={S} (D=Z={D})"] = got
+        print(f"[{smi}] phase (m) I2C.solve_batch(use_fused=True) on the dummy at S = {S} "
+              f"(D = Z = {D}, B={I2C6_B}, T={I2C6_T}, 3 iterations): launches {got}", flush=True)
+    # the sweep row's B and T at D = Z in REPAIR_I2C_WIDE: bytes and chain
+    # bounds, launch shape with its waves on this card
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for D in REPAIR_I2C_WIDE:
+        p = i2c_problem(I2CS_B, I2CS_T, D - 1, 1, D, 90 + D)
+        outs, plain_f, plain_r = i2c_held(f"general, D=Z={D}, B={I2CS_B}, T={I2CS_T}", p)
+        work = i2c_work(p, clock)
+        cfg = ts.launch_config(D, D, I2CS_B)
+        for k in ("filter", "rts"):
+            cfg[k]["waves"] = cfg[k]["blocks"] / (cfg[k]["blocks_per_sm"] * sms)
+        entry("i2c_filter", f"general form, D=Z={D}, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
+              lambda p=p: ts.i2c_filter(*p), plain_f, bound(*work[0][:2]), cfg,
+              chain=work[0][2])
+        entry("i2c_rts_smooth", f"general form, D={D}, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
+              lambda p=p, o=outs: ts.i2c_rts_smooth(*o, p[0]), plain_r, bound(*work[1][:2]),
+              cfg, chain=work[1][2])
 
     # (b) the suite's main() through all six configurations, full widths
     t0 = time.perf_counter()

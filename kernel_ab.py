@@ -68,11 +68,17 @@ from benchmarking_mpc_solvers_tpu_torch import _build
 
 def i2c_cases(dev):
     """Kernels 8a and 8b on a first iteration's matrices at configuration
-    6's shape and at the sweep row's, as chip_smoke.py times them, and on
-    the dummy at S = 5 (D = Z = 6, the register form's largest instance)."""
+    6's shape and at the sweep row's, as chip_smoke.py times them, on the
+    dummy at S = 5 (D = Z = 6, the register form's largest instance), and
+    in the general form on the dummy at S = 8 and 15 (D = Z = 9 and 16) at
+    the sweep row's B and T."""
     from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv, PendulumEnv
     from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import i2c_filter, i2c_rts_smooth
+
+    def dummy_env(S):
+        return dataclasses.replace(PendulumEnv, name="dummy", model=make_dummy_model(S, 1),
+                                   default_start=(0.5,) * S)
 
     cases = []
     for label, env_, T, B in (
@@ -81,8 +87,9 @@ def i2c_cases(dev):
             (f"the sweep's shape (cart-pole, B={cs.I2CS_B}, T={cs.I2CS_T}, D=Z=5)",
              CartPoleSwingUpEnv, cs.I2CS_T, cs.I2CS_B),
             (f"the register form's largest (dummy S=5, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=6)",
-             dataclasses.replace(PendulumEnv, name="dummy", model=make_dummy_model(5, 1),
-                                 default_start=(0.5,) * 5), cs.I2C6_T, cs.I2C6_B)):
+             dummy_env(5), cs.I2C6_T, cs.I2C6_B),
+            *((f"the general form (dummy S={S}, B={cs.I2CS_B}, T={cs.I2CS_T}, D=Z={S + 1})",
+               dummy_env(S), cs.I2CS_T, cs.I2CS_B) for S in (8, 15))):
         p = cs.i2c_first_iteration_inputs_for(env_, T, B, 26, dev)
         outs = i2c_filter(*p)
         cases.append((label, [("i2c_filter", lambda p=p: i2c_filter(*p)),

@@ -818,40 +818,70 @@ def test_i2c_filter_and_smoother_match_plain_bit_for_bit(dev, B, T, S, A, Z, sha
         before[0] + 2, before[1] + n_rts)
 
 
+# The general form gives a scenario 16 lanes, a block 4 scenarios and rows
+# of 12 or 16 entries (the smaller that holds max(D, Z)), with a ring of two
+# one-step slots; past D, Z = 16 the large form. The cases reach D and Z at
+# the row lengths' edges (7, 8, 12, 13, 16) and just past the cap (17), D !=
+# Z both ways (the smoother in the register form where D <= 6, the filter
+# alone in the large form at Z = 17), B off the 4-scenario blocks, T = 1, 2
+# and odd T (the ring's two slots end on either), inputs as views into
+# larger buffers, negative zeros and a NaN scenario.
 @pytest.mark.parametrize("B,T,S,A,Z,variant", [
-    (5, 7, 6, 1, 7, None), (4, 5, 8, 1, 9, "zeros"), (9, 4, 11, 1, 12, None),
-    (1, 3, 15, 1, 16, None), (33, 6, 6, 2, 11, "offset"), (6, 1, 8, 1, 9, None),
-    (7, 5, 4, 1, 9, None), (3, 4, 8, 1, 3, None)])
+    (5, 7, 6, 1, 7, None), (4, 5, 7, 1, 8, "zeros"), (9, 4, 11, 1, 12, None),
+    (6, 3, 12, 1, 13, None), (1, 3, 15, 1, 16, None), (5, 4, 16, 1, 17, None),
+    (33, 6, 6, 2, 11, "offset"), (6, 1, 8, 1, 9, None), (7, 5, 4, 1, 9, None),
+    (3, 4, 8, 1, 3, None), (5, 3, 15, 1, 7, None), (6, 4, 2, 1, 16, None),
+    (3, 3, 15, 1, 17, None), (3, 3, 16, 1, 16, None), (10, 11, 8, 1, 9, None),
+    (2, 2, 12, 1, 16, "zeros"), (6, 5, 8, 1, 9, "nan"), (7, 6, 14, 2, 13, "nan")],
+    ids=["D7", "D8-signed-zeros", "D12", "D13", "D16", "D17-large", "D8-Z11-offset", "T1",
+         "D5-Z9", "D9-Z3", "D16-Z7", "D3-Z16", "D16-Z17", "D17-Z16", "B10-T11", "D13-Z16-T2",
+         "D9-nan", "D16-Z13-nan"])
 def test_i2c_general_form_matches_plain(dev, B, T, S, A, Z, variant):
-    """The general form (D or Z above 6), every output bit for bit with the
-    plain versions, a zero's sign included: D = Z = 7, 9, 12 and 16, D != Z
-    both ways, T = 1, B at and off the 4-scenario blocks, inputs as views
-    into larger buffers, negative zeros."""
+    """The general form (D or Z above 6, up to 16) and the large form past
+    it, every output bit for bit with the plain versions, a zero's sign
+    included, NaN where the plain version has NaN."""
     from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
 
-    p = _i2c_problem(dev, B * 100 + Z, B, T, S, A, Z, variant=variant)
-    assert ts.kernel_form(S + A, Z) == "general"
+    D = S + A
+    p = _i2c_problem(dev, B * 100 + Z, B, T, S, A, Z, variant=None if variant == "nan" else variant)
+    assert ts.kernel_form(D, Z) == ("general" if max(D, Z) <= 16 else "large")
+    clean = ts.i2c_smooth_batch(*p)
+    if variant == "nan":
+        p[0][2, T // 2, 0, 0] = float("nan")
     got = ts.i2c_filter(*p)
     for g, w in zip(got, ts.i2c_filter_reference(*p)):
         _bits(g, w)
     if T > 1:
         _bits(ts.i2c_rts_smooth(*got, p[0]), ts.i2c_rts_smooth_reference(*got, p[0]))
-    _bits(ts.i2c_smooth_batch(*p), ts.i2c_smooth_batch_reference(*p))
-    cfg = ts.launch_config(S + A, Z, B)
-    assert cfg["form"] == "general" and cfg["filter"]["blocks_per_sm"] >= 1
+    if variant == "zeros" and T > 1:
+        neg = [torch.where(t == 0, torch.full_like(t, -0.0), t) for t in got]
+        _bits(ts.i2c_rts_smooth(*neg, p[0]), ts.i2c_rts_smooth_reference(*neg, p[0]))
+    out = ts.i2c_smooth_batch(*p)
+    _bits(out, ts.i2c_smooth_batch_reference(*p))
+    if variant == "nan":
+        others = torch.arange(B, device=dev) != 2
+        assert torch.isnan(out[2]).all()
+        assert torch.equal(out[others], clean[others])
+    cfg = ts.launch_config(D, Z, B)
+    assert cfg["filter"]["form"] == ts.kernel_form(D, Z)
+    assert cfg["rts"]["form"] == ts.kernel_form(D, D)
+    for k in ("filter", "rts"):
+        assert cfg[k]["blocks_per_sm"] >= 1
+        assert cfg[k]["blocks"] * cfg[k]["scenarios_per_block"] >= B
 
 
 def test_i2c_general_form_device_workspace(dev):
-    """The general form's device-memory workspace (taken where a block's
-    four shared-memory workspaces pass 227 KB) gives the bits of the
-    shared-memory one: both entry points called at D = Z = 9 with and
-    without a workspace."""
+    """The large form's device-memory workspace (taken where a block's four
+    shared-memory workspaces pass 227 KB) gives the bits of the
+    shared-memory one: both entry points called at D = Z = 17, just past the
+    general form, with and without a workspace."""
     from benchmarking_mpc_solvers_tpu_torch import _build
     from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
 
-    B, T, D, Z = 6, 5, 9, 9
-    p = _i2c_problem(dev, 77, B, T, 8, 1, Z)
-    fl, rl = ts.general_floats(D, Z)
+    B, T, D, Z = 6, 5, 17, 17
+    p = _i2c_problem(dev, 77, B, T, 16, 1, Z)
+    assert ts.kernel_form(D, Z) == "large"
+    fl, rl = ts.large_floats(D, Z)
     outs = []
     for ws in (None, torch.empty(B * max(fl, rl), device=dev)):
         o = [torch.empty((B, T, D), device=dev), torch.empty((B, T, D, D), device=dev),

@@ -99,10 +99,11 @@ def test_plain_smoother_matches_reference_kernel_past_six(S, A, Z):
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
 
 
-@pytest.mark.parametrize("S", [8, 15])
+@pytest.mark.parametrize("S", [8, 11, 15, 16])
 def test_plain_smoother_matches_reference_scans_past_six(S):
-    """The dummy's D = Z = S + 1 (9 and 16) against the vmapped scans of the
-    reference's I2C on ``make_dummy_model(S, 1)``."""
+    """The dummy's D = Z = S + 1 (9, 12 and 16, the general form's edges,
+    and 17, past them) against the vmapped scans of the reference's I2C on
+    ``make_dummy_model(S, 1)``."""
     from benchmarking_mpc_solvers_tpu.models import make_dummy_model
 
     p = _problem(S, 4, 6, S, 1, S + 1)
@@ -184,32 +185,55 @@ def test_nan_scenario_stays_nan_and_leaves_the_others():
 
 def test_shape_errors_and_kernel_size_limit():
     """Shapes are checked; no size is refused: the kernels' register form
-    holds D, Z <= 6 and their general form every larger size, its workspace
-    in shared memory while a block's four fit the card's 227 KB, else in
-    device memory (B workspaces)."""
+    holds D, Z <= 6, their general form D, Z <= 16 and their large form
+    every larger size, its workspace in shared memory while a block's four
+    fit the card's 227 KB, else in device memory (B workspaces)."""
     p = _problem(8, 2, 4, 2, 1, 3)
     args = list(i2c_problem_from_numpy(*p, device="cpu"))
     bad = list(args)
     bad[8] = bad[8][:-1]
     with pytest.raises(ValueError, match="g_z"):
         ts.i2c_filter(*bad)
-    assert ts.kernel_form(6, 6) == "register"
-    assert ts.kernel_form(7, 3) == ts.kernel_form(3, 7) == ts.kernel_form(16, 16) == "general"
-    assert ts.general_floats(9, 9) == (3 * 81 + 2 * 81 + 81 + 27, 5 * 81 + 18)
-    assert ts.general_workspace(ts.general_floats(16, 16)[0], 5, "cpu") is None
-    ws = ts.general_workspace(ts.general_floats(64, 64)[0], 5, "cpu")  # 4 x 98 KB
-    assert ws.shape == (5 * ts.general_floats(64, 64)[0],)
+    assert ts.large_floats(9, 9) == (3 * 81 + 2 * 81 + 81 + 27, 5 * 81 + 18)
+    assert ts.large_workspace(ts.large_floats(17, 17)[0], 5, "cpu") is None
+    ws = ts.large_workspace(ts.large_floats(64, 64)[0], 5, "cpu")  # 4 x 98 KB
+    assert ws.shape == (5 * ts.large_floats(64, 64)[0],)
     # the plain version takes any size
     big = i2c_problem_from_numpy(*_problem(9, 2, 3, 6, 1, 7), device="cpu")
     assert torch.isfinite(ts.i2c_smooth_batch(*big)).all()
 
 
-@pytest.mark.parametrize("D,Z,form", [(7, 3, "general"), (3, 3, "register"),
-                                      (64, 64, "general")])
-def test_launch_config_refuses_sizes_above_six(monkeypatch, D, Z, form):
-    """Sizes above six, once refused, report the general form's launch
-    shape (its own entry point); the register form's stay as they were.
-    Read from the entry point each asks for, without a card."""
+@pytest.mark.parametrize("D,Z,form", [
+    (1, 1, "register"), (6, 6, "register"), (7, 3, "general"), (3, 7, "general"),
+    (12, 12, "general"), (13, 1, "general"), (16, 16, "general"), (17, 16, "large"),
+    (16, 17, "large"), (64, 64, "large")])
+def test_kernel_form_by_size(D, Z, form):
+    """The kernels' form by size, at each class's edges: the register form
+    up to REG_DIM, the general form up to GENERAL_MAX, the large form past
+    it; the smoother takes the form of (D, D)."""
+    assert (ts.REG_DIM, ts.GENERAL_MAX) == (6, 16)
+    assert ts.kernel_form(D, Z) == form
+    assert ts.kernel_form(D, D) == ("register" if D <= 6 else "general" if D <= 16 else "large")
+
+
+# (D, Z, the filter's form, the entry points asked with (D, Z) in order): a
+# smoother in the register form beside a larger filter asks its own entry
+# point at (D, D) (it holds D, Z <= 6); the general and the large form share
+# one, which reports each kernel's form by size
+@pytest.mark.parametrize("D,Z,form,asks", [
+    (7, 3, "general", [("i2c_general_launch_config", 7, 3)]),
+    (3, 3, "register", [("i2c_launch_config", 3, 3)]),
+    (12, 12, "general", [("i2c_general_launch_config", 12, 12)]),
+    (16, 16, "general", [("i2c_general_launch_config", 16, 16)]),
+    (17, 16, "large", [("i2c_general_launch_config", 17, 16)]),
+    (16, 17, "large", [("i2c_general_launch_config", 16, 17)]),
+    (3, 9, "general", [("i2c_general_launch_config", 3, 9), ("i2c_launch_config", 3, 3)]),
+    (5, 17, "large", [("i2c_general_launch_config", 5, 17), ("i2c_launch_config", 5, 5)]),
+    (64, 64, "large", [("i2c_general_launch_config", 64, 64)])])
+def test_launch_config_refuses_sizes_above_six(monkeypatch, D, Z, form, asks):
+    """Sizes above six, once refused, report the general or the large form's
+    launch shape (their own entry point); the register form's stay as they
+    were. Read from the entry point each asks for, without a card."""
     asked = []
 
     def fake(name):
@@ -220,6 +244,6 @@ def test_launch_config_refuses_sizes_above_six(monkeypatch, D, Z, form):
 
     monkeypatch.setattr(ts._build, "kernel_fn", fake)
     cfg = ts.launch_config(D, Z, 16)
-    entry = "i2c_launch_config" if form == "register" else "i2c_general_launch_config"
-    assert asked == [(entry, D, Z, 16)] and cfg["form"] == form
+    assert asked == [(*a, 16) for a in asks] and cfg["form"] == form
     assert set(cfg) == {"form", "stages", "filter", "rts"}
+    assert cfg["filter"]["form"] == form and cfg["rts"]["form"] == ts.kernel_form(D, D)
