@@ -157,12 +157,16 @@ SIGNATURES = {
         "admm_iterate.cu", [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _F, _F] + [_I] * 4 + [_P]),
     "admm_launch_config": ("admm_iterate.cu", [_I, _I, _I, _I, _P]),
     "fused_mppi_dummy_launch": (
-        "fused_mppi.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _U, _I, _I, _P, _I, _P]),
+        "fused_mppi.cu",
+        [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _U, _I, _I, _P, _I, _I, _P]),
+    "fused_mppi_dummy_launch_config": ("fused_mppi.cu", [_I] * 6 + [_P]),
     "fused_rollout_dummy_launch": (
         "fused_rollout.cu", [_I, _P, _P, _P, _P, _I, _I, _P, _I, _P]),
     "fused_cem_dummy_launch": (
         "fused_cem.cu",
-        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _P, _I, _P]),
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _P, _I, _I,
+         _P]),
+    "fused_cem_dummy_launch_config": ("fused_cem.cu", [_I] * 6 + [_P]),
     "i2c_filter_launch": ("i2c_smooth.cu", [_P] * 13 + [_I] * 5 + [_P]),
     "i2c_rts_launch": ("i2c_smooth.cu", [_P] * 6 + [_I] * 3 + [_P]),
     "i2c_launch_config": ("i2c_smooth.cu", [_I, _I, _I, _P]),
@@ -207,22 +211,33 @@ def dummy_size(model) -> int | None:
     return None
 
 
-def dummy_terms(cost, device) -> torch.Tensor:
+def dummy_terms(cost, device) -> tuple:
     """A ``quad_cost``'s nonzero (i, j, w) terms, in its order, as the
-    (n, 4) int32 device array of the kernels' dummy form: i, j, the bits of
-    the float32 w, 0. Built once per cost and device and kept on the cost."""
+    (n, 4) int32 device array of the kernels' dummy form (i, j, the bits of
+    the float32 w, 0), and ``n_lead``: the length of the leading run of
+    terms that leave out the action (the last feature), which kernels 1 and
+    3 sum once per scenario and step (``csrc/models.cuh``: dummy_lead).
+    Built once per cost and device and kept on the cost."""
     cache = getattr(cost, "terms_dev", None)
     if cache is None:
         nz = getattr(cost, "nz", None)
         if nz is None:
             raise NotImplementedError("the kernels need a quad_cost cost")
-        cache = cost.terms_dev = {"host": torch.tensor(
-            [(i, j, int(np.float32(w).view(np.int32)), 0) for i, j, w in nz],
-            dtype=torch.int32).reshape(-1, 4)}
+        action = np.asarray(cost.W).shape[0] - 1
+        cache = cost.terms_dev = {
+            "host": torch.tensor([(i, j, int(np.float32(w).view(np.int32)), 0)
+                                  for i, j, w in nz], dtype=torch.int32).reshape(-1, 4),
+            "n_lead": next((e for e, (_, j, _) in enumerate(nz) if j == action), len(nz))}
     key = str(torch.device(device))
     if key not in cache:
         cache[key] = cache["host"].to(device)
-    return cache[key]
+    return cache[key], cache["n_lead"]
+
+
+# The forms of the dummy form of kernels 1 and 3 (csrc/models.cuh: DummyTail),
+# by their index: the leading run summed once per scenario and step and one
+# action term added at each step; the whole list at each step
+DUMMY_TAIL_FORMS = ("one term", "whole list")
 
 
 def model_id(model) -> int:

@@ -173,24 +173,44 @@ fused_cem_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
   for (int t = lane; t < T; t += 32) out[t * B + b] = mean[t];
 }
 
-// The dummy family at any S (models.cuh: dummy_cost): the kernel above with
-// the state left at x0 (identity dynamics) and the stage cost over the
-// weights' term list, S and the terms as arguments. The noise, the selection
-// and pass 2 are the kernel above's, operation for operation.
+// Floats of a warp's shared memory in the dummy form: the kernel above's
+// 2T + 3K, after kTailOne's T four-float step records (rounded up to a float4,
+// so the next warp's records stay aligned).
+__host__ __device__ inline int dummy_warp_floats(int form, int T, int K) {
+  return form == bmpc::kTailOne ? (6 * T + 3 * K + 3) & ~3 : 2 * T + 3 * K;
+}
+
+// The dummy family at any S: the kernel above with the state left at x0
+// (identity dynamics) and the stage cost over the weights' term list, S and
+// the terms as arguments. The noise, the selection and pass 2 are the kernel
+// above's, operation for operation. In kTailOne (models.cuh: DummyTail) the
+// cost is split (models.cuh: dummy_lead): a prologue sums the leading run of
+// the terms once per (b, t) (a lane a step, t = lane, lane + 32, ...) and
+// stages it in a record with what the one term of the tail needs, and each
+// of the K x T x max_iter steps goes on from it: one shared load, one
+// subtraction, two multiplications, one addition and the clip, where
+// dummy_cost reads S + 1 terms, 2(S + 1) state values and goals, from
+// device memory. kTailWhole runs dummy_cost over the whole list at each step.
+template <int kForm>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fused_cem_dummy_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
                        const float* __restrict__ gz, float* __restrict__ out,
                        float* __restrict__ masks, int T, int B, int K, int n_elite,
                        int max_iter, float alpha, float one_minus_alpha, float std0,
                        float lo, float hi, uint32_t seed, int lanes, int C, int S,
-                       const int4* __restrict__ terms, int n_terms) {
+                       const int4* __restrict__ terms, int n_terms, int n_lead) {
+  constexpr bool kOne = kForm == bmpc::kTailOne;
   const int Z = S + 1;
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];  // float4: the step records' alignment
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;  // uniform per warp: shuffles below see full warps
-  float* mean = smem + warp * (2 * T + 3 * K);
+  float* base = reinterpret_cast<float*>(smem4) + warp * dummy_warp_floats(kForm, T, K);
+  // kTailOne's step t record: the leading run, g_t[S], x_i - g_t[i] where
+  // the term is (i, S) with i < S, unused
+  float4* rec = reinterpret_cast<float4*>(base);
+  float* mean = base + (kOne ? 4 * T : 0);
   float* stdv = mean + T;
   float* cost = stdv + T;
   float* sel = cost + K;
@@ -203,8 +223,17 @@ fused_cem_dummy_kernel(const float* __restrict__ plan, const float* __restrict__
   const uint32_t seed_p = seed + (uint32_t)pid * kPidStride;
   const float excl = (float)(4.0 * (double)T * 1e30);
   const float* xb = x0 + b;  // x_i at xb[i * B], the whole horizon
+  // kTailOne's term (i, S, w): i = S is the action's square
+  const int4 one = kOne ? __ldg(terms + n_lead) : make_int4(0, 0, 0, 0);
+  const float w1 = __int_as_float(one.z);
+  const bool square = one.x == S;
 
   for (int t = lane; t < T; t += 32) {
+    if (kOne) {
+      const float* g = gz + t * Z;
+      const float f = square ? 0.0f : xb[(size_t)one.x * B] - g[one.x];
+      rec[t] = make_float4(bmpc::dummy_lead(xb, B, g, terms, n_lead), g[S], f, 0.0f);
+    }
     mean[t] = plan[t * B + b];
     stdv[t] = std0;
   }
@@ -218,7 +247,16 @@ fused_cem_dummy_kernel(const float* __restrict__ plan, const float* __restrict__
       for (int t = 0; t < T; ++t) {
         const float d = bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
         const float u = bmpc::clampf(mean[t] + stdv[t] * d, lo, hi);
-        acc = acc + bmpc::dummy_cost(xb, B, S, u, gz + t * Z, terms, n_terms);
+        float c;
+        if (kOne) {
+          const float4 r = rec[t];
+          const float za = u - r.y;
+          const float zi = square ? za : r.z;
+          c = bmpc::clampf(r.x + w1 * (zi * za), -1e30f, 1e30f);
+        } else {
+          c = bmpc::dummy_cost(xb, B, S, u, gz + t * Z, terms, n_terms);
+        }
+        acc = acc + c;
       }
       cost[k] = isfinite(acc) ? acc : 1e30f;  // failure guard
       sel[k] = 0.0f;
@@ -265,6 +303,33 @@ fused_cem_dummy_kernel(const float* __restrict__ plan, const float* __restrict__
     __syncwarp();
   }
   for (int t = lane; t < T; t += 32) out[t * B + b] = mean[t];
+}
+
+using DummyFn = void (*)(const float*, const float*, const float*, float*, float*, int, int,
+                         int, int, int, float, float, float, float, float, uint32_t, int, int,
+                         int, const int4*, int, int);
+
+// A dummy launch's form (models.cuh: dummy_tail_form), its kernel and the
+// dynamic shared bytes of a block.
+struct DummyShape {
+  int form;
+  DummyFn kernel;
+  size_t smem;
+};
+
+DummyShape dummy_shape(int T, int K, int n_terms, int n_lead) {
+  const auto bytes = [&](int form) {
+    return sizeof(float) * kWarpsPerBlock * dummy_warp_floats(form, T, K);
+  };
+  const int form = bmpc::dummy_tail_form(n_terms, n_lead, bytes(bmpc::kTailOne));
+  const DummyFn kernels[2] = {fused_cem_dummy_kernel<bmpc::kTailOne>,
+                              fused_cem_dummy_kernel<bmpc::kTailWhole>};
+  return {form, kernels[form], bytes(form)};
+}
+
+cudaError_t allow_smem(DummyFn kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <class M>
@@ -335,24 +400,45 @@ extern "C" int fused_cem_launch_config(int model_id, int T, int K, int B, const 
   });
 }
 
-// The dummy family at any S: the arguments of fused_cem_step_launch with S
-// and the device array of n_terms weight terms (_build.dummy_terms) in place
-// of the model id and the host weights.
+// The dummy family at any S: the arguments of fused_cem_step_launch with S,
+// the device array of n_terms weight terms and the length n_lead of their
+// leading run (_build.dummy_terms) in place of the model id and the host
+// weights.
 extern "C" int fused_cem_dummy_launch(int S, const float* plan, const float* x0,
                                       const float* gz, float* out, float* masks, int T, int B,
                                       int K, int n_elite, int max_iter, float alpha,
                                       float one_minus_alpha, float std0, float lo, float hi,
                                       uint32_t seed, int lanes, int C, const int4* terms,
-                                      int n_terms, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * T + 3 * K) * kWarpsPerBlock;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_cem_dummy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fused_cem_dummy_kernel<<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock,
-                           smem, stream>>>(plan, x0, gz, out, masks, T, B, K, n_elite,
-                                           max_iter, alpha, one_minus_alpha, std0, lo, hi,
-                                           seed, lanes, C, S, terms, n_terms);
+                                      int n_terms, int n_lead, cudaStream_t stream) {
+  const DummyShape sh = dummy_shape(T, K, n_terms, n_lead);
+  const cudaError_t e = allow_smem(sh.kernel, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  sh.kernel<<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, sh.smem,
+              stream>>>(plan, x0, gz, out, masks, T, B, K, n_elite, max_iter, alpha,
+                        one_minus_alpha, std0, lo, hi, seed, lanes, C, S, terms, n_terms,
+                        n_lead);
   return (int)cudaGetLastError();
+}
+
+// The dummy form's launch shape at (S, T, K, B, n_terms, n_lead) on the current
+// card, into out[9]: threads per block, scenarios per block, blocks, shared
+// bytes per block, registers per thread, resident blocks per SM, the tail's
+// form (models.cuh: DummyTail), the leading run a prologue sums and the terms
+// a step adds (0 and n_terms in kTailWhole). Returns a cudaError.
+extern "C" int fused_cem_dummy_launch_config(int S, int T, int K, int B, int n_terms,
+                                             int n_lead, int* out) {
+  const DummyShape sh = dummy_shape(T, K, n_terms, n_lead);
+  const int threads = 32 * kWarpsPerBlock;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, sh.kernel);
+  if (e == cudaSuccess) e = allow_smem(sh.kernel, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sh.kernel, threads, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  const int lead = sh.form == bmpc::kTailWhole ? 0 : n_lead;
+  const int vals[9] = {threads, kWarpsPerBlock, (B + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                       (int)sh.smem, attr.numRegs, per_sm, sh.form, lead, n_terms - lead};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  return 0;
 }

@@ -152,23 +152,45 @@ fused_mppi_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
   }
 }
 
-// The dummy family at any S (models.cuh: dummy_cost): the kernel above with
-// the state left at x0 (identity dynamics) and the stage cost over the
-// weights' term list, S and the terms as arguments. The noise, the softmax
-// and pass 2 are the kernel above's, operation for operation.
-template <bool kCache>
+// Floats of a warp's shared memory in the dummy form: the kernel above's K
+// weights and (with the cache) K*T noise values, after kTailOne's T
+// four-float step records (rounded up to a float4, so the next warp's records
+// stay aligned).
+__host__ __device__ inline int dummy_warp_floats(int form, bool cache, int T, int K) {
+  const int rest = K + (cache ? K * T : 0);
+  return form == bmpc::kTailOne ? (4 * T + rest + 3) & ~3 : rest;
+}
+
+// The dummy family at any S: the kernel above with the state left at x0
+// (identity dynamics) and the stage cost over the weights' term list, S and
+// the terms as arguments. The noise, the softmax and pass 2 are the kernel
+// above's, operation for operation. In kTailOne (models.cuh: DummyTail) the
+// cost is split as in fused_cem.cu (models.cuh: dummy_lead): a prologue (a
+// lane a step, t = lane, lane + 32, ...) sums the leading run of the terms
+// once per (b, t) and stages it in a record with what the one term of the
+// tail needs and the plan's value, and each of the K x T steps goes on from
+// it. The plan's column is then read from device memory once per scenario: a
+// step and pass 2 read the staged copy. kTailWhole runs dummy_cost over the
+// whole list at each step and reads the plan from device memory.
+template <bool kCache, int kForm>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 fused_mppi_dummy_kernel(const float* __restrict__ plan, const float* __restrict__ x0,
                         const float* __restrict__ gz, float* __restrict__ out, int T, int B,
                         int K, float stdv, float ctrl_scale, float lam, uint32_t seed,
-                        int lanes, int C, int S, const int4* __restrict__ terms, int n_terms) {
+                        int lanes, int C, int S, const int4* __restrict__ terms, int n_terms,
+                        int n_lead) {
+  constexpr bool kOne = kForm == bmpc::kTailOne;
   const int Z = S + 1;
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];  // float4: the step records' alignment
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;  // uniform per warp: shuffles below see full warps
-  float* wk = smem + warp * (K + (kCache ? K * T : 0));
+  float* base = reinterpret_cast<float*>(smem4) + warp * dummy_warp_floats(kForm, kCache, T, K);
+  // kTailOne's step t record: the leading run, g_t[S], x_i - g_t[i] where the
+  // term is (i, S) with i < S, plan[t][b]
+  float4* rec = reinterpret_cast<float4*>(base);
+  float* wk = base + (kOne ? 4 * T : 0);
   float* sdk = wk + K;
 
   const int s = b / C, col = b % C;
@@ -177,6 +199,19 @@ fused_mppi_dummy_kernel(const float* __restrict__ plan, const float* __restrict_
   const uint32_t i2 = (uint32_t)((8 + s) * lanes + l);
   const uint32_t seed_p = seed + (uint32_t)pid * kPidStride;
   const float* xb = x0 + b;  // x_i at xb[i * B], the whole horizon
+  // kTailOne's term (i, S, w): i = S is the action's square
+  const int4 one = kOne ? __ldg(terms + n_lead) : make_int4(0, 0, 0, 0);
+  const float w1 = __int_as_float(one.z);
+  const bool square = one.x == S;
+
+  if (kOne) {
+    for (int t = lane; t < T; t += 32) {
+      const float* g = gz + t * Z;
+      const float f = square ? 0.0f : xb[(size_t)one.x * B] - g[one.x];
+      rec[t] = make_float4(bmpc::dummy_lead(xb, B, g, terms, n_lead), g[S], f, plan[t * B + b]);
+    }
+    __syncwarp();
+  }
 
   float cmin = 1e30f;
   for (int k = lane; k < K; k += 32) {
@@ -185,8 +220,17 @@ fused_mppi_dummy_kernel(const float* __restrict__ plan, const float* __restrict_
     for (int t = 0; t < T; ++t) {
       const float sd = stdv * bmpc::interp_normal(seed_c, (uint32_t)t, i1, i2);
       if (kCache) sdk[t * K + k] = sd;
-      const float u = plan[t * B + b] + sd;
-      float c = bmpc::dummy_cost(xb, B, S, u, gz + t * Z, terms, n_terms);
+      float u, c;
+      if (kOne) {
+        const float4 r = rec[t];
+        u = r.w + sd;
+        const float za = u - r.y;
+        const float zi = square ? za : r.z;
+        c = bmpc::clampf(r.x + w1 * (zi * za), -1e30f, 1e30f);
+      } else {
+        u = plan[t * B + b] + sd;
+        c = bmpc::dummy_cost(xb, B, S, u, gz + t * Z, terms, n_terms);
+      }
       c = c + ctrl_scale * (u * sd);
       acc = acc + c;
     }
@@ -213,7 +257,7 @@ fused_mppi_dummy_kernel(const float* __restrict__ plan, const float* __restrict_
       upd += wk[k] * sd;
     }
     upd = warp_sum(upd);
-    if (lane == 0) out[t * B + b] = plan[t * B + b] + upd;
+    if (lane == 0) out[t * B + b] = (kOne ? rec[t].w : plan[t * B + b]) + upd;
   }
 }
 
@@ -247,6 +291,33 @@ template <class F>
 cudaError_t allow_smem(F kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+using DummyFn = void (*)(const float*, const float*, const float*, float*, int, int, int,
+                         float, float, float, uint32_t, int, int, int, const int4*, int, int);
+
+// A dummy launch's form (models.cuh: dummy_tail_form), its kernel and the
+// dynamic shared bytes of a block. The cache is taken or not by K*T alone, as
+// in the functors' form.
+struct DummyShape {
+  bool cache;
+  int form;
+  DummyFn kernel;
+  size_t smem;
+};
+
+DummyShape dummy_shape(int T, int K, int n_terms, int n_lead) {
+  const bool cache = shape_for(T, K).cache;
+  const auto bytes = [&](int form) {
+    return sizeof(float) * kWarpsPerBlock * dummy_warp_floats(form, cache, T, K);
+  };
+  const int form = bmpc::dummy_tail_form(n_terms, n_lead, bytes(bmpc::kTailOne));
+  const DummyFn kernels[2][2] = {
+      {fused_mppi_dummy_kernel<false, bmpc::kTailOne>,
+       fused_mppi_dummy_kernel<false, bmpc::kTailWhole>},
+      {fused_mppi_dummy_kernel<true, bmpc::kTailOne>,
+       fused_mppi_dummy_kernel<true, bmpc::kTailWhole>}};
+  return {cache, form, kernels[cache][form], bytes(form)};
 }
 
 }  // namespace
@@ -303,18 +374,44 @@ extern "C" int fused_mppi_launch_config(int model_id, int T, int K, int B, const
 }
 
 // The dummy family at any S (the dummy form above): the arguments of
-// fused_mppi_step_launch with S and the device array of n_terms weight terms
-// (_build.dummy_terms) in place of the model id and the host weights.
+// fused_mppi_step_launch with S, the device array of n_terms weight terms and
+// the length n_lead of their leading run (_build.dummy_terms) in place of the
+// model id and the host weights.
 extern "C" int fused_mppi_dummy_launch(int S, const float* plan, const float* x0,
                                        const float* gz, float* out, int T, int B, int K,
                                        float stdv, float ctrl_scale, float lam, uint32_t seed,
                                        int lanes, int C, const int4* terms, int n_terms,
-                                       cudaStream_t stream) {
-  const Shape sh = shape_for(T, K);
-  const auto kernel = sh.cache ? fused_mppi_dummy_kernel<true> : fused_mppi_dummy_kernel<false>;
-  const cudaError_t e = allow_smem(kernel, sh.smem);
+                                       int n_lead, cudaStream_t stream) {
+  const DummyShape sh = dummy_shape(T, K, n_terms, n_lead);
+  const cudaError_t e = allow_smem(sh.kernel, sh.smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, sh.smem, stream>>>(
-      plan, x0, gz, out, T, B, K, stdv, ctrl_scale, lam, seed, lanes, C, S, terms, n_terms);
+  sh.kernel<<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, sh.smem,
+              stream>>>(plan, x0, gz, out, T, B, K, stdv, ctrl_scale, lam, seed, lanes, C, S,
+                        terms, n_terms, n_lead);
   return (int)cudaGetLastError();
+}
+
+// The dummy form's launch shape at (S, T, K, B, n_terms, n_lead) on the current
+// card, into out[10]: threads per block, scenarios per block, blocks, shared
+// bytes per block, registers per thread, resident blocks per SM, 1 where pass
+// 2 reads the noise cache, the tail's form (models.cuh: DummyTail), the
+// leading run a prologue sums and the terms a step adds (0 and n_terms in
+// kTailWhole). Returns a cudaError.
+extern "C" int fused_mppi_dummy_launch_config(int S, int T, int K, int B, int n_terms,
+                                              int n_lead, int* out) {
+  const DummyShape sh = dummy_shape(T, K, n_terms, n_lead);
+  const int threads = 32 * kWarpsPerBlock;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, sh.kernel);
+  if (e == cudaSuccess) e = allow_smem(sh.kernel, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sh.kernel, threads, sh.smem);
+  if (e != cudaSuccess) return (int)e;
+  const int lead = sh.form == bmpc::kTailWhole ? 0 : n_lead;
+  const int vals[10] = {threads, kWarpsPerBlock, (B + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                        (int)sh.smem, attr.numRegs, per_sm, sh.cache ? 1 : 0, sh.form, lead,
+                        n_terms - lead};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 0;
 }

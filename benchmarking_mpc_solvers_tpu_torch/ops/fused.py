@@ -77,7 +77,7 @@ def fused_rollout_costs_tm(model: Model, x0_tm, us_tm, g_z):
         rc = _build.kernel_fn("fused_rollout_costs_launch")(
             mid, *args, _build.quad_weights(model.state_cost), _build.stream_ptr(dev))
     else:
-        terms = _build.dummy_terms(model.state_cost, dev)
+        terms, _ = _build.dummy_terms(model.state_cost, dev)
         rc = _build.kernel_fn("fused_rollout_dummy_launch")(
             S_dummy, *args, _build.ptr(terms), terms.shape[0], _build.stream_ptr(dev))
     _build.check_rc("fused_rollout_costs_tm", rc)

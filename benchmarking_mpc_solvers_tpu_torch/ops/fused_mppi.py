@@ -5,9 +5,10 @@ fused_mppi_step``. On a CUDA tensor ``fused_mppi_step`` launches the
 hand-written kernel in ``csrc/fused_mppi.cu`` (one warp per scenario, one
 lane per sample, the stage cost compiled for the model's own weights, pass
 1's noise kept in shared memory for pass 2 where it fits; the dummy family
-past S = 8 in the kernel's dummy form, S and the weights as arguments;
-``launch_config`` reports the launch shape of the model functors' form); on
-a CPU tensor it runs
+past S = 8 in the kernel's dummy form, S and the weights as arguments,
+where one action term ends the weights' list the terms before it summed
+once per scenario and step; ``launch_config`` reports the launch shape of
+either form); on a CPU tensor it runs
 ``fused_mppi_step_reference``, the plain PyTorch version.
 ``fused_mppi_step.launches`` counts kernel launches.
 
@@ -132,7 +133,21 @@ def launch_config(model: Model, T: int, K: int, B: int) -> dict:
     thread, resident blocks per SM, and whether pass 2 reads pass 1's noise
     from shared memory (``noise_cache``; else it draws it again), and the
     stage cost's form (``generic_cost``: True where the model's weights are
-    not its functor's compiled terms)."""
+    not its functor's compiled terms). For the dummy past S = 8, the dummy
+    form's: in place of ``generic_cost``
+    its form (``_build.DUMMY_TAIL_FORMS``), the leading run its prologue sums
+    (``n_lead``; 0 in the whole list's form) and the terms each step adds
+    (``tail``)."""
+    S_dummy = _build.dummy_size(model)
+    if S_dummy is not None:
+        terms, n_lead = _build.dummy_terms(model.state_cost, "cuda")
+        out = (ctypes.c_int * 10)()
+        _build.check_rc("launch_config", _build.kernel_fn("fused_mppi_dummy_launch_config")(
+            S_dummy, T, K, B, terms.shape[0], n_lead, ctypes.cast(out, ctypes.c_void_p)))
+        keys = ("threads", "scenarios_per_block", "blocks", "shared_bytes", "registers",
+                "blocks_per_sm", "noise_cache", "form", "n_lead", "tail")
+        return {**dict(zip(keys, out)), "noise_cache": bool(out[6]),
+                "form": _build.DUMMY_TAIL_FORMS[out[7]]}
     out = (ctypes.c_int * 8)()
     _build.check_rc("launch_config", _build.kernel_fn("fused_mppi_launch_config")(
         _build.model_id(model), T, K, B, _build.quad_weights(model.state_cost),
@@ -207,9 +222,9 @@ def fused_mppi_step(model: Model, K: int, std: float, lam: float, lanes: int,
         rc = _build.kernel_fn("fused_mppi_step_launch")(
             mid, *args, _build.quad_weights(model.state_cost), _build.stream_ptr(dev))
     else:
-        terms = _build.dummy_terms(model.state_cost, dev)
+        terms, n_lead = _build.dummy_terms(model.state_cost, dev)
         rc = _build.kernel_fn("fused_mppi_dummy_launch")(
-            S_dummy, *args, _build.ptr(terms), terms.shape[0], _build.stream_ptr(dev))
+            S_dummy, *args, _build.ptr(terms), terms.shape[0], n_lead, _build.stream_ptr(dev))
     _build.check_rc("fused_mppi_step", rc)
     fused_mppi_step.launches += 1
     return out

@@ -90,8 +90,12 @@ Phases (any failure exits non-zero before the result line):
      and the SASS issue and pipe floors of their loops;
    - the repairs and the benchmark entry points (phase (m)): kernels 1, 2
      and 3 on the dummy past S = 8 (their dummy form: S = 9, 16 and 31 at a
-     small shape, S = 12 under dense weights, S = 16 at the MPPI bench, MPPI
-     two-stage and CEM sweep widths and on the MPPI and CEM tiers), kernels
+     small shape, S = 12 under dense weights, 1 and 3 at S = 16 under the
+     mid-list and off-square weights, each with its launch configuration and
+     the dummy form it must take, S = 16 at the
+     MPPI bench, MPPI two-stage and CEM sweep widths, 1 and 3 there beside
+     the SASS issue and pipe floors of their one-term loop
+     (``DUMMY_SASS_LOOPS``), and on the MPPI and CEM tiers), kernels
      8a/8b in their general form (D, Z from 7 to 16, block edges, T = 1,
      the sweep row's B and T at D = Z = 9 and 16, and
      ``I2C.solve_batch(use_fused=True)`` on make_dummy_model(8, 1) and
@@ -610,16 +614,38 @@ DUMMY_START = (0.5, -0.3)
 STEP_OPS = {"pendulum": 34, "cartpole_swingup": 59, "acrobot": 252}
 
 
-def step_ops(model) -> int:
+def step_ops(model, split=None) -> int:
     """``STEP_OPS`` of a model under its own weights: a plant's count with
     its registered cost's terms replaced by the model's (4 a term, the clip
     2); the dummy's copies cost nothing, so its step is the cost and the
-    sum."""
+    sum. With the dummy form's ``split`` (n_lead, tail: ``dummy_split``) the
+    step is the tail's terms, the clip and the sum: the leading run is work
+    of a (b, t), counted apart (``lead_ops``)."""
+    if split is not None:
+        return 4 * split[1] + 2 + 1
     nz = len(model.state_cost.nz)
     if model.name in STEP_OPS:
         from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY
         return STEP_OPS[model.name] + 4 * (nz - len(REGISTRY[model.name].state_cost.nz))
     return 4 * nz + 2 + 1
+
+
+def dummy_split(model):
+    """(n_lead, tail) of the dummy form's cost: the leading run that kernels
+    1 and 3 sum once per (b, t) and the terms every step adds
+    (``_build.dummy_terms``)."""
+    from benchmarking_mpc_solvers_tpu_torch import _build
+
+    terms, n_lead = _build.dummy_terms(model.state_cost, "cpu")
+    return n_lead, terms.shape[0] - n_lead
+
+
+def lead_ops(B, T, split) -> int:
+    """The leading run's operations, once per (b, t) as the function needs
+    them (4 a term); 0 without a split."""
+    return 0 if split is None else B * T * 4 * split[0]
+
+
 # the noise draw (u01 x2, +1e-7, log, -2*, sqrt, 2pi*, cos, r*), counted once
 # per (b, k, t): the function needs one normal there. Where its cache does
 # not fit, the kernel draws it a second time in pass 2; that is a cost of the
@@ -1225,13 +1251,24 @@ SASS_LOOPS = {
 }
 
 
-def rollout_loop_count(sass: str, source: str):
+# The dummy form's rollout loop of kernels 3 and 1 (the one-term tail, the
+# identity's; kernel 1 in its noise-cache form): a loop without the plants'
+# divisions. Kernel 3's is the loop with the draw's MUFU.RSQ and the loads of
+# mean, std and the step's staged record (pass 2's loop over the elites loads
+# two words); kernel 1's is the only loop of its cache form that draws.
+DUMMY_SASS_LOOPS = {
+    "fused_cem.cu": (("fused_cem_dummy_kernelILi0E",), {"MUFU.RSQ": 1, "LDS": 3}),
+    "fused_mppi.cu": (("fused_mppi_dummy_kernelILb1ELi0E",), {"MUFU.RSQ": 1}),
+}
+
+
+def rollout_loop_count(sass: str, source: str, loops: dict = SASS_LOOPS):
     """The fast-path instructions per trip of the rollout's time loop in a
-    build of ``source`` (``SASS_LOOPS``): the innermost loop that holds the
-    instructions that mark it. Returns (count, static instructions of the
-    loop, the count by pipe), or None where no such function or loop is
-    found."""
-    names, marks = SASS_LOOPS[source]
+    build of ``source`` (``loops``: ``SASS_LOOPS`` or ``DUMMY_SASS_LOOPS``):
+    the innermost loop that holds the instructions that mark it. Returns
+    (count, static instructions of the loop, the count by pipe), or None
+    where no such function or loop is found."""
+    names, marks = loops[source]
     funcs = sass_functions(sass)
     ins = next((v for name in names for k, v in funcs.items() if name in k), None)
     if ins is None:
@@ -1252,14 +1289,14 @@ def rollout_loop_count(sass: str, source: str):
     return len(path), best[1] - best[0] + 1, pipe_counts(path)
 
 
-def sass_loop(library: Path, source: str):
+def sass_loop(library: Path, source: str, loops: dict = SASS_LOOPS):
     """``rollout_loop_count`` of a built library of ``source`` (cuobjdump),
     or None where the toolkit has no cuobjdump or no loop is found."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         return None
     dump = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True)
-    return rollout_loop_count(dump.stdout, source) if dump.returncode == 0 else None
+    return rollout_loop_count(dump.stdout, source, loops) if dump.returncode == 0 else None
 
 
 def fail(msg: str):
@@ -1423,14 +1460,15 @@ def bound(bytes_, ops, chain_ms=None):
     return max(b.values()), max(b, key=b.get)
 
 
-def mppi_bound_for(model, B, K, T):
+def mppi_bound_for(model, B, K, T, split=None):
     """Kernel 1's bound at (B, K, T) on the model: the plans, states and
     goals moved once; a normal, a rollout step and the MPPI extras per (b,
-    k, t), the softmax per (b, k)."""
+    k, t), the softmax per (b, k); with the dummy form's ``split``, the
+    leading run per (b, t) and the tail per step."""
     S, Z = model.state_size, model.goal_size
     return bound(4 * (2 * T * B + S * B + T * Z),
-                 B * K * T * (NOISE_OPS + step_ops(model) + PASS1_EXTRA + PASS2_EXTRA)
-                 + B * K * MPPI_WEIGHT_OPS)
+                 B * K * T * (NOISE_OPS + step_ops(model, split) + PASS1_EXTRA + PASS2_EXTRA)
+                 + B * K * MPPI_WEIGHT_OPS + lead_ops(B, T, split))
 
 
 def rollout_bound_for(model, N, T):
@@ -1439,15 +1477,17 @@ def rollout_bound_for(model, N, T):
     return bound(4 * (S * N + T * N + T * Z + N), N * T * step_ops(model))
 
 
-def cem_bound_for(model, B, K, T, n_elite, iters):
+def cem_bound_for(model, B, K, T, n_elite, iters, split=None):
     """Kernel 3's bound: the plans, states and goals moved once; a normal,
     a rollout step and the sample's clip per (b, k, t, it), the moments,
-    the update and the selection as the function needs them."""
+    the update and the selection as the function needs them; with the
+    dummy form's ``split``, the leading run once per (b, t) and the tail per
+    step."""
     S, Z = model.state_size, model.goal_size
     return bound(4 * (2 * T * B + S * B + T * Z),
-                 B * K * T * iters * (NOISE_OPS + step_ops(model) + CEM_SAMPLE_OPS)
+                 B * K * T * iters * (NOISE_OPS + step_ops(model, split) + CEM_SAMPLE_OPS)
                  + B * iters * (n_elite * T * CEM_MOMENT_OPS + T * CEM_UPDATE_OPS
-                                + K * n_elite * CEM_SELECT_OPS))
+                                + K * n_elite * CEM_SELECT_OPS) + lead_ops(B, T, split))
 
 
 def ls_bound_for(model, n_a, B, T, return_states=False):
@@ -1497,9 +1537,12 @@ def i2c_first_iteration_inputs_for(env_, T, B, seed, dev):
 # Phase (m): the repairs of kernels 1-3 (the dummy past S = 8) and 8a/8b (D, Z
 # above 6) on the card, then the benchmark suite's and bench's entry points.
 # The repairs: kernels 1, 2 and 3 on the dummy at S in REPAIR_DUMMY_S at a
-# small shape (T=17, B=1001, K=48, ragged blocks), once under dense weights,
-# and at REPAIR_WIDE_S at the MPPI bench width, the MPPI two-stage N and the
-# CEM sweep's width; kernels 8a/8b in their general form (and past D, Z =
+# small shape (T=17, B=1001, K=48, ragged blocks), once under dense weights
+# (and 1 and 3 under the mid-list weights: the identity and a symmetric
+# (8, S) term, state-only terms after an action term; and the off-square
+# weights, whose one action term is (S - 1, S)), and at REPAIR_WIDE_S
+# at the MPPI bench width, the MPPI two-stage N and the CEM sweep's width;
+# kernels 8a/8b in their general form (and past D, Z =
 # 16 the large form) at D = Z in REPAIR_I2C_DIMS, D != Z both ways, at the
 # edges of their 4-scenario blocks, T = 1, the large form's device-memory
 # workspace, and at the sweep row's B and T at D = Z in REPAIR_I2C_WIDE. The
@@ -1542,8 +1585,10 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
         fused_rollout_costs_tm, fused_rollout_costs_tm_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
         fused_cem_step, fused_cem_step_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_config
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
         fused_mppi_step, fused_mppi_step_reference, pick_lanes)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config as mppi_config
     from benchmarking_mpc_solvers_tpu_torch.scripts import bench, bench_suite
     from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, I2C, MPPI
     from benchmarking_mpc_solvers_tpu_torch.solvers import ilqr as ilqr_module
@@ -1574,26 +1619,41 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
         print(f"[{smi}] phase (m) {label}: launches {expect}", flush=True)
         return res
 
-    def entry(base, label, n, e, fn, plain_fn, bnd, cfg=None, plain_reps=3, chain=None):
+    def entry(base, label, n, e, fn, plain_fn, bnd, cfg=None, plain_reps=3, chain=None,
+              issue=None):
         """A kernels-line entry; plain_fn is the plain version, or its time
-        in ms where the check already took it."""
+        in ms where the check already took it. ``issue``: the rollout loop's
+        (SASS a trip, warp trips, the earlier form's bound) of the dummy
+        form, for its issue and pipe floors."""
         around, device = cuda_time_ms(fn), device_time_ms(fn)
         plain = (plain_fn if isinstance(plain_fn, float)
                  else cuda_time_ms(plain_fn, reps=plain_reps, warmup=min(plain_reps, 1)))
+        floors, floors_text = {}, ""
+        if issue is not None:
+            counted, trips, old_bound = issue
+            floor = None if counted is None else counted[0] * trips / (sms * 4 * clock * 1e3)
+            pipe = None if counted is None else pipe_floor_ms(counted[2], trips, sms, clock)[0]
+            floors = {"bound_ms_all_terms_a_step": old_bound[0], "issue_bound_ms": floor,
+                      "pipe_bound_ms": pipe, "sass_per_trip": counted}
+            floors_text = (f", every term a step {old_bound[0]:.5f} ms; rollout loop {counted} "
+                           f"(SASS a trip, in its body, by pipe; None: not counted), {trips} "
+                           f"warp trips: issue floor {floor} ms, pipe floor {pipe} ms")
         entries.append({"base": base, "name": f"{base}[{label}]", "route": "cuda",
                         "launches": n, "max_abs_err": e[0], "max_rel_err": e[1], "ms": around,
                         "device_ms": device, "plain_ms": plain, "bound_ms": bnd[0],
                         "bound_by": bnd[1], "library_ms": None, "launch": cfg, "pass": True,
-                        **({} if chain is None else {"chain_bound_ms": chain})})
+                        **({} if chain is None else {"chain_bound_ms": chain}), **floors})
         print(f"[{smi}] {base}[{label}]: around one call {around:.4f} ms, device {device:.4f} ms,"
               f" plain {plain:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})"
-              + ("" if chain is None else f", chain {chain:.5f} ms") + f"; launch {cfg}",
-              flush=True)
+              + ("" if chain is None else f", chain {chain:.5f} ms") + floors_text
+              + f"; launch {cfg}", flush=True)
 
     # (a) kernels 1, 2 and 3 on the dummy past S = 8: small shapes
-    def sampling(model, T, B, K, N, seed, tag, which=(1, 2, 3)):
+    def sampling(model, T, B, K, N, seed, tag, which=(1, 2, 3), form="one term"):
         """Kernels ``which`` of 1, 2 and 3 against their plain versions
-        (2 and 3 bit for bit); returns each one's arguments and errors."""
+        (2 and 3 bit for bit), 1 and 3 in the dummy form ``form``
+        (``_build.DUMMY_TAIL_FORMS``); returns each one's arguments and
+        errors."""
         S, Z = model.state_size, model.goal_size
         rng = np.random.default_rng(seed)
         plan = torch.from_numpy(rng.uniform(-1.5, 1.5, (T, B)).astype(np.float32)).to(dev)
@@ -1606,6 +1666,11 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             out[1] = a1, compare(f"fused_mppi_step[{tag}, B={B}, K={K}, T={T}]",
                                  fused_mppi_step(*a1), fused_mppi_step_reference(*a1))
             err("fused_mppi_step", out[1][1][0])
+            cfg = mppi_config(model, T, K, B)
+            print(f"[{smi}] fused_mppi_step[{tag}, B={B}, K={K}, T={T}] dummy form: {cfg}",
+                  flush=True)
+            if cfg["form"] != form:
+                fail(f"phase (m) fused_mppi_step[{tag}]: form {cfg['form']}, not {form}")
         if 2 in which:
             xn = torch.from_numpy(rng.uniform(-1, 1, (S, N)).astype(np.float32)).to(dev)
             us = torch.from_numpy(rng.uniform(-2, 2, (T, N)).astype(np.float32)).to(dev)
@@ -1623,6 +1688,11 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             exact_nan(f"fused_cem_step[{tag}, B={B}, K={K}, T={T}] plan", got, want)
             out[3] = a3, compare(f"fused_cem_step[{tag}] plan", got, want)
             err("fused_cem_step", out[3][1][0])
+            cfg = cem_config(model, T, K, B)
+            print(f"[{smi}] fused_cem_step[{tag}, B={B}, K={K}, T={T}] dummy form: {cfg}",
+                  flush=True)
+            if cfg["form"] != form:
+                fail(f"phase (m) fused_cem_step[{tag}]: form {cfg['form']}, not {form}")
         return out
 
     reset_counts()
@@ -1632,11 +1702,25 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
     Wm = np.random.default_rng(12).uniform(-0.5, 1.0, (Zd, Zd)).astype(np.float32)
     dense = dataclasses.replace(make_dummy_model(REPAIR_DENSE_S, 1),
                                 state_cost=quad_cost(Wm @ Wm.T))
-    sampling(dense, 17, 1001, 48, 4097, 13, f"dummy S={REPAIR_DENSE_S} dense weights")
+    sampling(dense, 17, 1001, 48, 4097, 13, f"dummy S={REPAIR_DENSE_S} dense weights",
+             form="whole list")
+    # the mid-list weights: a state-only term after an action term (kernels 1
+    # and 3 split the cost only where one action term ends the list); the
+    # off-square weights: the identity's action term moved to (S - 1, S)
+    Sw = REPAIR_WIDE_S
+    Wl = np.eye(Sw + 1, dtype=np.float32)
+    Wl[8, Sw] = Wl[Sw, 8] = 0.3
+    midlist = dataclasses.replace(make_dummy_model(Sw, 1), state_cost=quad_cost(Wl))
+    sampling(midlist, 17, 1001, 48, 0, 14, f"dummy S={Sw} mid-list weights", (1, 3),
+             "whole list")
+    Wo = np.eye(Sw + 1, dtype=np.float32)
+    Wo[Sw, Sw], Wo[Sw - 1, Sw], Wo[Sw, Sw - 1] = 0.0, 0.3, 0.3
+    offsquare = dataclasses.replace(make_dummy_model(Sw, 1), state_cost=quad_cost(Wo))
+    sampling(offsquare, 17, 1001, 48, 0, 15, f"dummy S={Sw} off-square weights", (1, 3))
     small = counts()
     n_small = len(REPAIR_DUMMY_S) + 1
-    if small != {**{fn.__name__: 0 for fn in counters}, "fused_mppi_step": n_small,
-                 "fused_rollout_costs_tm": n_small, "fused_cem_step": n_small}:
+    if small != {**{fn.__name__: 0 for fn in counters}, "fused_mppi_step": n_small + 2,
+                 "fused_rollout_costs_tm": n_small, "fused_cem_step": n_small + 2}:
         fail(f"phase (m) sampling kernels on the dummy past S = 8: launches {small}")
     repair["dummy past S = 8, small shapes"] = small
 
@@ -1668,9 +1752,17 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             device=dev), expect)
         if not bool(torch.isfinite(res.costs).all()):
             fail(f"phase (m) {label}: episode costs not finite")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = dummy_split(wide)
+    loops = {src: sass_loop(_build._target(src), src, DUMMY_SASS_LOOPS)
+             for src in DUMMY_SASS_LOOPS}
     entry("fused_mppi_step", f"dummy S={REPAIR_WIDE_S}, B={BATCH}, K={K_SAMPLES}, T={HORIZON}",
           REPAIR_EPISODE_STEPS, e1, lambda: fused_mppi_step(*a1),
-          lambda: fused_mppi_step_reference(*a1), mppi_bound_for(wide, BATCH, K_SAMPLES, HORIZON))
+          lambda: fused_mppi_step_reference(*a1),
+          mppi_bound_for(wide, BATCH, K_SAMPLES, HORIZON, split),
+          mppi_config(wide, HORIZON, K_SAMPLES, BATCH),
+          issue=(loops["fused_mppi.cu"], BATCH * -(-K_SAMPLES // 32) * HORIZON,
+                 mppi_bound_for(wide, BATCH, K_SAMPLES, HORIZON)))
     entry("fused_rollout_costs_tm", f"dummy S={REPAIR_WIDE_S}, N={BATCH * K_SAMPLES}, "
           f"T={HORIZON}", REPAIR_EPISODE_STEPS, e2, lambda: fused_rollout_costs_tm(*a2),
           lambda: fused_rollout_costs_tm_reference(*a2),
@@ -1678,7 +1770,10 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
     entry("fused_cem_step", f"dummy S={REPAIR_WIDE_S}, B={CEM_B}, K={CEM_K}, T={CEM_T}, "
           f"n_elite={CEM_ELITE}, max_iter={CEM_ITERS}", REPAIR_EPISODE_STEPS, e3,
           lambda: fused_cem_step(*a3), lambda: fused_cem_step_reference(*a3),
-          cem_bound_for(wide, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS), plain_reps=1)
+          cem_bound_for(wide, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS, split),
+          cem_config(wide, CEM_T, CEM_K, CEM_B), plain_reps=1,
+          issue=(loops["fused_cem.cu"], CEM_B * -(-CEM_K // 32) * CEM_T * CEM_ITERS,
+                 cem_bound_for(wide, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS)))
 
     # kernels 8a/8b in their general form
     def i2c_problem(B, T, S, A, Z, seed):

@@ -185,22 +185,57 @@ def linesearch_cases(dev):
 
 
 def _model(name):
-    """A registered plant, or ``dummy<S>``: make_dummy_model(S, 1)."""
-    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY, make_dummy_model
+    """A registered plant; ``dummy<S>``: make_dummy_model(S, 1); ``dense<S>``:
+    the dummy under dense weights drawn as chip_smoke.py's phase (m) draws
+    them (at S = 12 its own: 12 of its 91 terms leave out the action, and
+    the dummy form of kernels 1 and 3 takes the whole list); ``midlist16``:
+    the dummy at S = 16 under the identity with a symmetric (8, 16) term (9
+    terms from the first action term on, the whole list too)."""
+    import numpy as np
 
+    from benchmarking_mpc_solvers_tpu_torch.models import REGISTRY, make_dummy_model
+    from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
+
+    if name.startswith("dense"):
+        S = int(name[len("dense"):])
+        Wm = np.random.default_rng(12).uniform(-0.5, 1.0, (S + 1, S + 1)).astype(np.float32)
+        return dataclasses.replace(make_dummy_model(S, 1), state_cost=quad_cost(Wm @ Wm.T))
+    if name == "midlist16":
+        W = np.eye(17, dtype=np.float32)
+        W[8, 16] = W[16, 8] = 0.3
+        return dataclasses.replace(make_dummy_model(16, 1), state_cost=quad_cost(W))
     if name.startswith("dummy"):
         return make_dummy_model(int(name[len("dummy"):]), 1)
     return REGISTRY[name]
 
 
+def without_n_lead(lib: ctypes.CDLL, source: str) -> None:
+    """A build of ``source`` from before the dummy form split its cost takes
+    no n_lead: its dummy entry point, typed as it was, is called with the
+    wrappers' arguments less that one."""
+    name = {"fused_cem.cu": "fused_cem_dummy_launch",
+            "fused_mppi.cu": "fused_mppi_dummy_launch"}.get(source)
+    if name is None or not hasattr(lib, name) or hasattr(lib, f"{name}_config"):
+        return
+    fn = lib[name]
+    argtypes = _build.SIGNATURES[name][1]
+    fn.argtypes = argtypes[:-2] + argtypes[-1:]
+    fn.restype = ctypes.c_int
+    setattr(lib, name, lambda *a: fn(*a[:-2], a[-1]))
+
+
 def cem_cases(dev):
     """Kernel 3 at the CEM sweep's shape on each plant (cart-pole's is the
-    sweep's), with the elite masks, as chip_smoke.py checks it."""
+    sweep's), with the elite masks, as chip_smoke.py checks it; on the dummy
+    at S = 2 and 8 (its functors) and past 8 in its dummy form: S = 16 (one
+    action term), the dense S = 12 and the mid-list weights (the whole
+    list)."""
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import fused_cem_step
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import pick_lanes
 
     cases = []
-    for name in ("cartpole_swingup", "pendulum", "acrobot", "dummy2", "dummy8"):
+    for name in ("cartpole_swingup", "pendulum", "acrobot", "dummy2", "dummy8", "dummy16",
+                 "dense12", "midlist16"):
         model = _model(name)
         plan, x0, gz = cs.mppi_inputs(model, cs.CEM_B, cs.CEM_T, 3, dev)
         args = (model, cs.CEM_K, cs.CEM_ELITE, cs.CEM_ITERS, 0.2, 1.0, pick_lanes(cs.CEM_B),
@@ -213,7 +248,8 @@ def cem_cases(dev):
 
 
 def mppi_cases(dev):
-    """Kernel 1 at the bench shape (each plant) and at the sweep's MPPI row
+    """Kernel 1 at the bench shape (each plant; the dummy as kernel 3's
+    cases have it) and at the sweep's MPPI row
     (cart-pole), as chip_smoke.py times it; then at three K*T past its noise cache's
     budget (14,080, 17,280 and 32,768 bytes a scenario; with the cache an
     SM would hold 4, 3 and 1 blocks of 4 scenarios), where the two forms
@@ -228,6 +264,9 @@ def mppi_cases(dev):
             ("the bench shape", "acrobot", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
             ("the bench shape", "dummy2", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
             ("the bench shape", "dummy8", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
+            ("the bench shape", "dummy16", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
+            ("the bench shape", "dense12", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
+            ("the bench shape", "midlist16", cs.BATCH, cs.K_SAMPLES, cs.HORIZON),
             ("the sweep's MPPI row", "cartpole_swingup", cs.MPPI_SWEEP_B, cs.MPPI_SWEEP_K,
              cs.HORIZON),
             ("past the cache's budget", "cartpole_swingup", cs.BATCH, 32, 110),
@@ -401,20 +440,23 @@ EPISODES = {"fused_mppi.cu": mppi_episodes, "fused_rollout.cu": rollout_episodes
             "admm_iterate.cu": admm_episodes}
 
 
-def loop_count(path: Path, source: str) -> str:
-    """A build's cart-pole rollout loop (kernels 1, 2, 3), or each roofline
-    instantiation's chain loop (kernels 9, 10), as chip_smoke.py counts it."""
+def loop_count(path: Path, source: str, loops: dict = cs.SASS_LOOPS) -> str:
+    """A build's cart-pole rollout loop (kernels 1, 2, 3; with
+    ``cs.DUMMY_SASS_LOOPS`` the dummy form's one-term loop of 1 and 3), or
+    each roofline instantiation's chain loop (kernels 9, 10), as
+    chip_smoke.py counts it."""
     if source == "roofline.cu":
         counts = cs.roofline_loop_counts(path)
         if not counts:
             return "chain loops not counted"
         return "chain loops' SASS a trip (static; by pipe): " + "; ".join(
             f"{k} {c[0]} ({c[1]}; {c[2]})" for k, c in counts.items())
-    counted = cs.sass_loop(path, source)
+    counted = cs.sass_loop(path, source, loops)
+    what = "the cart-pole rollout loop" if loops is cs.SASS_LOOPS else "the dummy form's loop"
     if counted is None:
-        return "rollout loop not counted"
-    return (f"the cart-pole rollout loop issues {counted[0]} SASS instructions a trip on its "
-            f"fast path ({counted[1]} in its body; by pipe {counted[2]})")
+        return f"{what} not counted"
+    return (f"{what} issues {counted[0]} SASS instructions a trip on its fast path "
+            f"({counted[1]} in its body; by pipe {counted[2]})")
 
 
 def max_z_of(csrc: Path) -> int:
@@ -474,8 +516,12 @@ def main() -> int:
             print(f"FAIL: nvcc for {label}:\n{log}")
             return 1
         libs.append(_build.typed(ctypes.CDLL(str(path)), args.source))
+        without_n_lead(libs[-1], args.source)
         if args.source in cs.SASS_LOOPS or args.source == "roofline.cu":
             print(f"{label} source: {loop_count(path, args.source)}", flush=True)
+        if args.source in cs.DUMMY_SASS_LOOPS:
+            print(f"{label} source: {loop_count(path, args.source, cs.DUMMY_SASS_LOOPS)}",
+                  flush=True)
 
     max_z = [max_z_of(src.parent) for _, src, _ in variants]
 

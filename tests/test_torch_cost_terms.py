@@ -99,7 +99,7 @@ def test_functor_cost_terms_are_the_models_nonzero_weights(name):
         # past S = 8 the dummy form contracts the weights' own terms, in order
         from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
         cost = make_dummy_model(_build.DUMMY_STATES[-1] + 1, 1).state_cost
-        terms = _build.dummy_terms(cost, "cpu")
+        terms, _ = _build.dummy_terms(cost, "cpu")
         assert [(i, j) for i, j, _, _ in terms.tolist()] == [(i, j) for i, j, _ in cost.nz]
         return
     functor = _dispatch()[_build.DEVICE_MODELS.index(name)]

@@ -231,17 +231,40 @@ def _functor_model(case):
 FUNCTOR_CASES = ["dummy1", "dummy2", "dummy5", "dummy6", "dummy8", "cartpole_reweighted"]
 
 
-@pytest.mark.parametrize("S,weights", [(9, "identity"), (16, "identity"), (31, "identity"),
-                                       (12, "dense")])
-def test_sampling_kernels_take_the_dummy_past_eight(dev, S, weights):
+# (S, weights, T, the dummy form of kernel 1, of kernel 3): the identity's
+# one action term; the same one term (S - 1, S) off the diagonal; at T =
+# 3,000 kernel 3's step records pass the card's shared memory a block and it
+# takes the whole list, as at T = 3,700 kernel 1 does; the dense weights',
+# the mid-list's (a state-only term after an action term) and weights
+# without an action term, the whole list
+DUMMY_PAST_EIGHT = [
+    (9, "identity", 17, "one term", "one term"), (16, "identity", 17, "one term", "one term"),
+    (31, "identity", 17, "one term", "one term"), (12, "dense", 17, "whole list", "whole list"),
+    (16, "midlist", 17, "whole list", "whole list"),
+    (16, "identity", 50, "one term", "one term"),
+    (16, "noaction", 17, "whole list", "whole list"),
+    (16, "offsquare", 17, "one term", "one term"),
+    (16, "identity", 3000, "one term", "whole list"),
+    (16, "identity", 3700, "whole list", "whole list")]
+
+
+@pytest.mark.parametrize(
+    "S,weights,T,mppi_form,cem_form", DUMMY_PAST_EIGHT,
+    ids=[f"{S}-{w}" + ("" if T == 17 else f"-T{T}") for S, w, T, _, _ in DUMMY_PAST_EIGHT])
+def test_sampling_kernels_take_the_dummy_past_eight(dev, S, weights, T, mppi_form, cem_form):
     """Kernels 1, 2 and 3 on the dummy at S > 8 (their dummy form: S and
     the weights' terms as arguments) against their plain versions: 2 and 3
-    bit for bit, 1 within 1e-4; once under dense non-identity weights (every
-    term, off-diagonals included). Kernels 4 and 6 have no ``Dummy<S>`` past
-    8 and refuse it by name."""
+    bit for bit, 1 within 1e-4; under dense non-identity weights (every
+    term, off-diagonals included), the mid-list weights (the identity and a
+    symmetric (8, S) term), weights without the action's term and the
+    identity with its (S, S) term moved to (S - 1, S). Kernels 1 and 3 take
+    the forms ``mppi_form`` and ``cem_form`` (``launch_config``). Kernels 4
+    and 6 have no ``Dummy<S>`` past 8 and refuse it by name."""
     import dataclasses
 
     from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_config
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config as mppi_config
 
     model = _functor_model(f"dummy{S}")
     Z = S + 1
@@ -249,7 +272,18 @@ def test_sampling_kernels_take_the_dummy_past_eight(dev, S, weights):
     if weights == "dense":
         Wm = rng.uniform(-0.5, 1.0, (Z, Z)).astype(np.float32)
         model = dataclasses.replace(model, state_cost=quad_cost(Wm @ Wm.T))
-    T, B, K = 17, 1001, 48
+    elif weights != "identity":
+        W = np.eye(Z, dtype=np.float32)
+        if weights == "midlist":
+            W[8, S] = W[S, 8] = 0.3
+        else:
+            W[S, S] = 0.0
+        if weights == "offsquare":
+            W[S - 1, S] = W[S, S - 1] = 0.3
+        model = dataclasses.replace(model, state_cost=quad_cost(W))
+    B, K = 1001, 48
+    assert mppi_config(model, T, K, B)["form"] == mppi_form
+    assert cem_config(model, T, K, B)["form"] == cem_form
     plan = _t(rng.uniform(-1.5, 1.5, (T, B)), dev)
     x0 = _t(rng.uniform(-1, 1, (S, B)), dev)
     gz = _t(rng.uniform(-0.2, 0.2, (T, Z)), dev)

@@ -7,7 +7,8 @@ act element by element over the leading axes: the dummy family
 weights. The port's plain versions of those kernels are held here against
 the JAX kernels run in interpret mode on ``DummyModel``, the dummy at S = 1,
 8, 9, 16 and 31 (kernels 1, 2 and 3 take S > 8 in their dummy form, S an
-argument), and cart-pole with configuration 2's weights
+argument), the dummy at S = 16 under four other weights
+(``test_torch_dummy_split.py``), and cart-pole with configuration 2's weights
 (``scripts/bench_suite.py:184-185``), with actions beyond the dummy's ±1
 bounds (its transform sees u unclipped). The noise is the reference's
 interpret-mode stream, which the plain versions draw exactly. Tolerances
@@ -55,6 +56,7 @@ from benchmarking_mpc_solvers_tpu_torch.ops.fused_derivs import fused_derivs
 from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import fused_linesearch
 from benchmarking_mpc_solvers_tpu_torch.solvers import CEM, ILQR, MPPI, SQP
 from benchmarking_mpc_solvers_tpu_torch.solvers.base import check_device_functor
+from test_torch_dummy_split import _weights as dummy_weights
 from test_torch_episode import _reference_seeds
 
 # configuration 2's weights on cart-pole's features (scripts/bench_suite.py:184-185)
@@ -62,18 +64,27 @@ W_CART2 = np.diag(np.array([0.5, 0.1, 5.0, 0.5, 0.1], dtype=np.float32))
 
 
 def _pair(name):
-    """(JAX model, port model) of one case."""
+    """(JAX model, port model) of one case; ``dummy<S>-<weights>``: the
+    dummy under ``test_torch_dummy_split._weights``."""
     if name.startswith("dummy"):
-        S = int(name[len("dummy"):])
-        return jmodels.make_dummy_model(S, 1), tmodels.make_dummy_model(S, 1)
+        S, _, weights = name[len("dummy"):].partition("-")
+        pair = jmodels.make_dummy_model(int(S), 1), tmodels.make_dummy_model(int(S), 1)
+        if not weights:
+            return pair
+        W = dummy_weights(weights, int(S))
+        return (dataclasses.replace(pair[0], state_cost=jquad_cost(W)),
+                dataclasses.replace(pair[1], state_cost=tquad_cost(W)))
     return (dataclasses.replace(jmodels.CartPoleSwingUpModel, state_cost=jquad_cost(W_CART2)),
             dataclasses.replace(tmodels.CartPoleSwingUpModel, state_cost=tquad_cost(W_CART2)))
 
 
 # dummy9 to dummy31: kernels 1, 2 and 3 take the dummy at any S (their dummy
 # form, S an argument); kernels 4 and 6 stop at S = 8 (the Riccati kernel's
-# state bound keeps larger S off their tiers in both packages)
-MODELS = ["dummy2", "dummy1", "dummy8", "cartpole_reweighted", "dummy9", "dummy16", "dummy31"]
+# state bound keeps larger S off their tiers in both packages). dummy16-*:
+# the weights that send kernels 1 and 3's dummy form down its other paths
+# (test_torch_dummy_split.py)
+MODELS = ["dummy2", "dummy1", "dummy8", "cartpole_reweighted", "dummy9", "dummy16", "dummy31",
+          "dummy16-dense", "dummy16-midlist", "dummy16-noaction", "dummy16-offsquare"]
 # the reference's kernel 4 pushes a tangent per state: in interpret mode it
 # takes 38 s at S = 16 and 188 s at S = 31, so its test stops at S = 9
 DERIV_MODELS = MODELS[:5]
@@ -234,10 +245,11 @@ def test_dummy_family_maps_to_its_functor(S):
         assert _build.model_id(other) == _build.model_id(model)
     else:
         assert _build.dummy_size(model) == _build.dummy_size(other) == S
-        terms = _build.dummy_terms(other.state_cost, "cpu")
-        assert _build.dummy_terms(other.state_cost, "cpu") is terms  # built once
+        terms, n_lead = _build.dummy_terms(other.state_cost, "cpu")
+        assert _build.dummy_terms(other.state_cost, "cpu")[0] is terms  # built once
         assert terms.tolist() == [[i, i, int(np.float32(2.0).view(np.int32)), 0]
                                   for i in range(S + 1)]
+        assert n_lead == S  # the state's squares lead, the action's is the tail
     check_device_functor("test", model, "cuda")  # no CUDA needed: it only looks
 
 
