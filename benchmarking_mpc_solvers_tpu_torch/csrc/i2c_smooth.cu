@@ -522,23 +522,25 @@ i2c_rts_kernel(const float* __restrict__ mu_f, const float* __restrict__ sig_f,
   }
 }
 
-// --- the general form (D, Z up to 16) and the large form (past 16) ----------
+// --- the general form (D, Z up to 16), the wide form (up to 32) and the
+// large form (past 32) ------------------------------------------------------
 //
 // Sizes past the register instances (D or Z above 6, ops/i2c_smooth.py:
-// REG_DIM) take the general form (i2c_general.cuh) up to kGeneralMax, and
-// the large form past it: one kernel pair whose D and Z are runtime
-// arguments. A warp per scenario; every matrix of a step lives in a
-// per-warp workspace, in shared memory or, where a block's kLargeWarps
-// workspaces pass kMaxSharedBytes, in device memory; the inputs are read
-// from device memory where a step needs them. Each entry of each product is
-// one lane's sum in the reference order, the lanes taking the entries in
-// turn; the Cholesky factorisation runs in place column by column, row i on
-// lane i % 32, which also forms the next diagonal from its own row (so one
-// __syncwarp per column); each lane solves its own rows. Every value is
-// formed once, by one lane, with the operations of the plain version in its
-// order, so the large form keeps the plain version's bits at every size.
-// Warps past B return at once: no barrier spans warps.
+// REG_DIM) take the general form (i2c_general.cuh) up to kGeneralMax, the
+// wide form (i2c_wide.cuh) up to kWideMax, and the large form past it: one
+// kernel pair whose D and Z are runtime arguments. A warp per scenario;
+// every matrix of a step lives in a per-warp workspace, in shared memory or,
+// where a block's kLargeWarps workspaces pass kMaxSharedBytes, in device
+// memory; the inputs are read from device memory where a step needs them.
+// Each entry of each product is one lane's sum in the reference order, the
+// lanes taking the entries in turn; the Cholesky factorisation runs in place
+// column by column, row i on lane i % 32, which also forms the next diagonal
+// from its own row (so one __syncwarp per column); each lane solves its own
+// rows. Every value is formed once, by one lane, with the operations of the
+// plain version in its order, so the large form keeps the plain version's
+// bits at every size. Warps past B return at once: no barrier spans warps.
 #include "i2c_general.cuh"
+#include "i2c_wide.cuh"
 
 constexpr int kLargeWarps = 4;               // warps (scenarios) per block
 constexpr int kMaxSharedBytes = 227 * 1024;  // a block's shared memory on sm_90
@@ -902,8 +904,19 @@ int dispatch_general(int n, Fn&& fn) {
   return fn(std::integral_constant<int, 16>{});
 }
 
-// threads, scenarios, time steps per stage, shared bytes, registers and
-// resident blocks per SM of one kernel into out[0..5]
+// fn(integral_constant<N>) for the wide form's row length N: 20, 24, 28 or
+// 32, the smallest that holds n (kGeneralMax < n <= kWideMax)
+template <typename Fn>
+int dispatch_wide(int n, Fn&& fn) {
+  if (n <= 20) return fn(std::integral_constant<int, 20>{});
+  if (n <= 24) return fn(std::integral_constant<int, 24>{});
+  if (n <= 28) return fn(std::integral_constant<int, 28>{});
+  return fn(std::integral_constant<int, 32>{});
+}
+
+// threads, scenarios, time steps per stage, shared bytes, registers,
+// resident blocks per SM and local (stack and spill) bytes per thread of one
+// kernel into out[0..6]
 template <typename L, typename Kernel>
 int kernel_info(Kernel kernel, int* out) {
   out[0] = L::kThreads;
@@ -915,6 +928,7 @@ int kernel_info(Kernel kernel, int* out) {
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   out[4] = attr.numRegs;
+  out[6] = (int)attr.localSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], kernel, L::kThreads,
                                                             L::kBytes);
 }
@@ -950,10 +964,11 @@ extern "C" int i2c_rts_launch(const float* mu_f, const float* sig_f, const float
   });
 }
 
-// The launch shape for B scenarios at (D, Z) into out[13]: the stages of
+// The launch shape for B scenarios at (D, Z) into out[15]: the stages of
 // the ring, then for the filter and the smoother each: threads and scenarios
 // per block, time steps per stage, shared bytes per block, registers per
-// thread, resident blocks per SM. Returns a cudaError.
+// thread, resident blocks per SM, local bytes per thread. Returns a
+// cudaError.
 extern "C" int i2c_launch_config(int D, int Z, int B, int* out) {
   out[0] = kStages;
   bool wide;
@@ -962,16 +977,17 @@ extern "C" int i2c_launch_config(int D, int Z, int B, int* out) {
     constexpr int Dv = decltype(d)::value, Zv = decltype(z)::value;
     const int err = kernel_info<FilterLayout<Dv, Zv>>(i2c_filter_kernel<Dv, Zv>, out + 1);
     if (err) return err;
-    return wide ? kernel_info<RtsLayout<Dv, true>>(i2c_rts_kernel<Dv, true>, out + 7)
-                : kernel_info<RtsLayout<Dv, false>>(i2c_rts_kernel<Dv, false>, out + 7);
+    return wide ? kernel_info<RtsLayout<Dv, true>>(i2c_rts_kernel<Dv, true>, out + 8)
+                : kernel_info<RtsLayout<Dv, false>>(i2c_rts_kernel<Dv, false>, out + 8);
   });
 }
 
-// The general form (D and Z up to kGeneralMax) and past it the large form;
-// the wrapper takes this entry point where D or Z passes 6: the arguments of
-// i2c_filter_launch, and ws, null except for the large form where
-// kLargeWarps workspaces of large_filter_floats(D, Z) floats pass a block's
-// shared memory: then B times that many floats of device memory.
+// The general form (D and Z up to kGeneralMax), the wide form (up to
+// kWideMax) and past it the large form; the wrapper takes this entry point
+// where D or Z passes 6: the arguments of i2c_filter_launch, and ws, null
+// except for the large form where kLargeWarps workspaces of
+// large_filter_floats(D, Z) floats pass a block's shared memory: then B
+// times that many floats of device memory.
 extern "C" int i2c_filter_general_launch(const float* F, const float* m, const float* J,
                                          const float* z0, const float* R, const float* mu0,
                                          const float* sig0, const float* Qproc,
@@ -988,12 +1004,19 @@ extern "C" int i2c_filter_general_launch(const float* F, const float* m, const f
                                             r_stride, mu0, sig0, Qproc, g_z, mu_f, sig_f,
                                             mu_pred, sig_pred, B, T, D, Z);
     });
+  if (D <= kWideMax && Z <= kWideMax)
+    return dispatch_wide(D > Z ? D : Z, [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      return launch<WideFilterLayout<N>>(i2c_filter_wide<N>, B, stream, F, m, J, z0, R, r_stride,
+                                         mu0, sig0, Qproc, g_z, mu_f, sig_f, mu_pred, sig_pred,
+                                         B, T, D, Z);
+    });
   return launch_large(i2c_filter_large, large_filter_floats(D, Z), ws, B, stream, F, m, J, z0,
                       R, r_stride, mu0, sig0, Qproc, g_z, mu_f, sig_f, mu_pred, sig_pred, B, T,
                       D, Z, ws);
 }
 
-// The smoother's general and large forms, by D: the arguments of
+// The smoother's general, wide and large forms, by D: the arguments of
 // i2c_rts_launch and ws, null or B * large_rts_floats(D) floats by the same
 // test.
 extern "C" int i2c_rts_general_launch(const float* mu_f, const float* sig_f,
@@ -1007,40 +1030,53 @@ extern "C" int i2c_rts_general_launch(const float* mu_f, const float* sig_f,
       return launch<GeneralRtsLayout<N>>(i2c_rts_general<N>, B, stream, mu_f, sig_f, mu_pred,
                                          sig_pred, F, mu_s, B, T, D);
     });
+  if (D <= kWideMax)
+    return dispatch_wide(D, [&](auto n) {
+      constexpr int N = decltype(n)::value;
+      return launch<WideRtsLayout<N>>(i2c_rts_wide<N>, B, stream, mu_f, sig_f, mu_pred,
+                                      sig_pred, F, mu_s, B, T, D);
+    });
   return launch_large(i2c_rts_large, large_rts_floats(D), ws, B, stream, mu_f, sig_f, mu_pred,
                       sig_pred, F, mu_s, B, T, D, ws);
 }
 
-// The launch shape at (D, Z) for B scenarios into out[13], laid out as
+// The launch shape at (D, Z) for B scenarios into out[15], laid out as
 // i2c_launch_config's, of the filter's form at (D, Z) and the smoother's at
-// D: the general form's as the register form's (stages of one time step);
-// the large form's with 0 time steps per stage (nothing is staged; out[0]
-// is 0 where the filter takes it) and 0 shared bytes where its workspace is
-// in device memory.
+// D: the general form's as the register form's (a ring of two one-step
+// slots), the wide form's with one slot (out[0] is 1 where the filter takes
+// it); the large form's with 0 time steps per stage (nothing is staged;
+// out[0] is 0 where the filter takes it) and 0 shared bytes where its
+// workspace is in device memory.
 extern "C" int i2c_general_launch_config(int D, int Z, int B, int* out) {
   if (D < 1 || Z < 1) return (int)cudaErrorInvalidValue;
   (void)B;
-  const bool general[2] = {D <= kGeneralMax && Z <= kGeneralMax, D <= kGeneralMax};
-  out[0] = general[0] ? kStages : 0;
-  if (general[0]) {
-    const int err = dispatch_general(D > Z ? D : Z, [&](auto n) {
-      constexpr int N = decltype(n)::value;
-      return kernel_info<GeneralFilterLayout<N>>(i2c_filter_general<N>, out + 1);
-    });
-    if (err) return err;
-  }
-  if (general[1]) {
-    const int err = dispatch_general(D, [&](auto n) {
-      constexpr int N = decltype(n)::value;
-      return kernel_info<GeneralRtsLayout<N>>(i2c_rts_general<N>, out + 7);
-    });
+  const int n[2] = {D > Z ? D : Z, D};
+  // 0: general, 1: wide, 2: large, for the filter and the smoother
+  int form[2];
+  for (int k = 0; k < 2; ++k) form[k] = n[k] <= kGeneralMax ? 0 : n[k] <= kWideMax ? 1 : 2;
+  out[0] = form[0] == 0 ? kStages : form[0] == 1 ? 1 : 0;
+  for (int k = 0; k < 2; ++k) {
+    int* o = out + 1 + 7 * k;
+    int err = 0;
+    if (form[k] == 0)
+      err = dispatch_general(n[k], [&](auto c) {
+        constexpr int N = decltype(c)::value;
+        return k == 0 ? kernel_info<GeneralFilterLayout<N>>(i2c_filter_general<N>, o)
+                      : kernel_info<GeneralRtsLayout<N>>(i2c_rts_general<N>, o);
+      });
+    else if (form[k] == 1)
+      err = dispatch_wide(n[k], [&](auto c) {
+        constexpr int N = decltype(c)::value;
+        return k == 0 ? kernel_info<WideFilterLayout<N>>(i2c_filter_wide<N>, o)
+                      : kernel_info<WideRtsLayout<N>>(i2c_rts_wide<N>, o);
+      });
     if (err) return err;
   }
   const int per[2] = {large_filter_floats(D, Z), large_rts_floats(D)};
   const void* kernels[2] = {(const void*)i2c_filter_large, (const void*)i2c_rts_large};
   for (int k = 0; k < 2; ++k) {
-    if (general[k]) continue;
-    int* o = out + 1 + 6 * k;
+    if (form[k] != 2) continue;
+    int* o = out + 1 + 7 * k;
     const int bytes = kLargeWarps * per[k] * (int)sizeof(float);
     o[0] = 32 * kLargeWarps;
     o[1] = kLargeWarps;
@@ -1055,6 +1091,7 @@ extern "C" int i2c_general_launch_config(int D, int Z, int B, int* out) {
     cudaError_t e = cudaFuncGetAttributes(&attr, kernels[k]);
     if (e != cudaSuccess) return (int)e;
     o[4] = attr.numRegs;
+    o[6] = (int)attr.localSizeBytes;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[5], kernels[k], 32 * kLargeWarps,
                                                       o[3]);
     if (e != cudaSuccess) return (int)e;

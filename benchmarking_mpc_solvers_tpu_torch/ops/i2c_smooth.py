@@ -27,9 +27,16 @@ a few steps ahead of the chain. Up to ``GENERAL_MAX`` the general form
 (``csrc/i2c_general.cuh``): D and Z as arguments, rows of 12 or 16 entries,
 a group of 16 lanes a scenario, lane r's rows in registers, the Cholesky
 factorisation across the group by shuffles, each step's inputs staged a step
-ahead. Past it the large form: a warp a scenario, every matrix in a
-per-warp workspace in shared memory, or in device memory where a block's
-workspaces pass the card's shared memory (``large_workspace``).
+ahead. Up to ``WIDE_MAX`` the wide form (``csrc/i2c_wide.cuh``): a warp a
+scenario, rows of 20, 24, 28 or 32 entries, only the row being formed in
+registers and the finished ones in shared memory, each product's loop over
+its summed index reading the shared factor's rows four floats a load, the
+Cholesky factorisation across the warp by shuffles with each lane's forward
+solve in the same loop, each step's inputs staged into one slot while the
+step runs. Past it the large form: a warp a scenario,
+every matrix in a per-warp workspace in shared memory, or in device memory
+where a block's workspaces pass the card's shared memory
+(``large_workspace``).
 ``launch_config`` reports the launch shape. ``i2c_filter.launches`` and
 ``i2c_rts_smooth.launches`` count kernel launches.
 
@@ -49,17 +56,21 @@ from .. import _build
 # Edit these with csrc/i2c_smooth.cu and csrc/i2c_general.cuh.
 REG_DIM = 6  # the register form's largest D and Z (its template instances)
 GENERAL_MAX = 16  # the general form's largest D and Z (kGeneralMax)
+WIDE_MAX = 32  # the wide form's largest D and Z (kWideMax)
 LARGE_WARPS = 4  # the large form's scenarios (warps) per block
 MAX_SHARED_BYTES = 227 * 1024  # a block's shared memory on the H100
 
 
 def kernel_form(D: int, Z: int) -> str:
     """The kernels' form at (D, Z), by size: ``"register"`` up to
-    ``REG_DIM``, ``"general"`` up to ``GENERAL_MAX``, else ``"large"``. The
-    filter takes the form of its (D, Z), the smoother that of (D, D). Every
-    form takes any B and T and keeps the plain version's bits."""
+    ``REG_DIM``, ``"general"`` up to ``GENERAL_MAX``, ``"wide"`` up to
+    ``WIDE_MAX``, else ``"large"``. The filter takes the form of its (D, Z),
+    the smoother that of (D, D). Every form takes any B and T and keeps the
+    plain version's bits."""
     n = max(D, Z)
-    return "register" if n <= REG_DIM else "general" if n <= GENERAL_MAX else "large"
+    if n <= REG_DIM:
+        return "register"
+    return "general" if n <= GENERAL_MAX else "wide" if n <= WIDE_MAX else "large"
 
 
 def large_floats(D: int, Z: int) -> tuple:
@@ -236,29 +247,31 @@ def i2c_smooth_batch_reference(F, m, J, z0, R, mu0, sig0, Qproc, g_z):
 def launch_config(D: int, Z: int, B: int) -> dict:
     """The kernels' launch shape for B scenarios at (D, Z) on the current
     card: the filter's ``form`` (``kernel_form``), the stages of its
-    shared-memory ring (0 in the large form, which stages nothing) and, for
-    ``filter`` and ``rts`` each, its form, threads and scenarios per block,
-    time steps per stage (0 in the large form), shared bytes per block (0
-    where the large form's workspace is in device memory), registers per
-    thread, resident blocks per SM and blocks in the grid. The register
-    form's smoother takes wider blocks where B fills the SMs."""
+    shared-memory ring (one slot in the wide form, 0 in the large form, which
+    stages nothing) and, for ``filter`` and ``rts`` each, its form, threads
+    and scenarios per block, time steps per stage (0 in the large form),
+    shared bytes per block (0 where the large form's workspace is in device
+    memory), registers per thread, resident blocks per SM, local (stack and
+    spill) bytes per thread and blocks in the grid. The register form's
+    smoother takes wider blocks where B fills the SMs."""
     forms = {"filter": kernel_form(D, Z), "rts": kernel_form(D, D)}
     keys = ("threads", "scenarios_per_block", "chunk", "shared_bytes", "registers",
-            "blocks_per_sm")
+            "blocks_per_sm", "local_bytes")
     outs, asked = {}, {}
     for form in forms.values():
-        # the register form's entry point holds D, Z <= 6: the smoother asks at (D, D)
+        # the register form's entry point holds D, Z <= 6: the smoother asks at (D, D);
+        # the general, wide and large forms share the other one
         key = (("i2c_launch_config", Z if forms["filter"] == "register" else D)
                if form == "register" else ("i2c_general_launch_config", Z))
         if key not in asked:
-            out = (ctypes.c_int * 13)()
+            out = (ctypes.c_int * 15)()
             _build.check_rc("launch_config", _build.kernel_fn(key[0])(
                 D, key[1], B, ctypes.cast(out, ctypes.c_void_p)))
             asked[key] = list(out)
         outs[form] = asked[key]
     cfg = {"form": forms["filter"], "stages": outs[forms["filter"]][0]}
     for k, (name, form) in enumerate(forms.items()):
-        cfg[name] = {"form": form, **dict(zip(keys, outs[form][1 + 6 * k:7 + 6 * k]))}
+        cfg[name] = {"form": form, **dict(zip(keys, outs[form][1 + 7 * k:8 + 7 * k]))}
         spb = cfg[name]["scenarios_per_block"]
         cfg[name]["blocks"] = -(-B // spb) if spb else 0
     return cfg

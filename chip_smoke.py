@@ -96,11 +96,13 @@ Phases (any failure exits non-zero before the result line):
      MPPI bench, MPPI two-stage and CEM sweep widths, 1 and 3 there beside
      the SASS issue and pipe floors of their one-term loop
      (``DUMMY_SASS_LOOPS``), and on the MPPI and CEM tiers), kernels
-     8a/8b in their general form (D, Z from 7 to 16, block edges, T = 1,
-     the sweep row's B and T at D = Z = 9 and 16, and
-     ``I2C.solve_batch(use_fused=True)`` on make_dummy_model(8, 1) and
-     (15, 1)) and their large form (D = Z = 17, its device-memory
-     workspace), each against its plain version; then
+     8a/8b in their general form (D, Z from 7 to 16, block edges, T = 1)
+     and their wide form (D, Z from 17 to 32), timed at the sweep row's B
+     and T at D = Z = 9, 16, 17 and 32 and held there on the horizon's
+     first steps, ``I2C.solve_batch(use_fused=True)`` on
+     make_dummy_model(S, 1) at S = 8, 15, 16 and 31, and their large form
+     (D = Z = 33, its device-memory workspace), each against its plain
+     version; then
      ``scripts/bench_suite.py``'s main()
      through its six configurations at full widths, cut to 1 step and one
      timing repetition (``SUITE_ARGS``), each configuration's launches by
@@ -1404,7 +1406,8 @@ def exact(name, got, want):
 
 def exact_nan(name, got, want):
     """``exact`` for float32 outputs that may hold NaN: NaN at the same
-    places in both, every other entry the same bits (a zero's sign too)."""
+    places in both, every other entry the same bits (a zero's sign too).
+    Returns the largest absolute and relative differences off the NaN."""
     torch.cuda.synchronize()
     nan = torch.isnan(want)
     if not torch.equal(torch.isnan(got), nan) or not torch.equal(
@@ -1412,6 +1415,11 @@ def exact_nan(name, got, want):
         fail(f"{name}: kernel and plain version differ")
     print(f"{name}: identical{f' ({int(nan.sum())} NaN alike)' if bool(nan.any()) else ''}",
           flush=True)
+    g, w = got[~nan].double(), want[~nan].double()
+    if g.numel() == 0:
+        return 0.0, 0.0
+    diff = (g - w).abs()
+    return float(diff.max()), float((diff / w.abs().clamp_min(1e-30)).max())
 
 
 def profile_window(label, smi, fn):
@@ -1534,6 +1542,38 @@ def i2c_first_iteration_inputs_for(env_, T, B, seed, dev):
                                      mu0, *solver._prior_covs(dev), gz)]
 
 
+def i2c_random_problem(B, T, S, A, Z, seed, dev):
+    """The filter's arguments at D = S + A (S states, A actions) and Z
+    features, drawn on the card from ``seed``: F near the identity on the
+    states, J ignoring the actions (its action columns negative zeros), R
+    per scenario and positive definite, the priors of ``I2C._prior_covs``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    D = S + A
+    F = torch.zeros((B, T, D, D), device=dev)
+    F[:, :, :S, :S] = torch.eye(S, device=dev) * 0.9 + 0.05 * randn(B, T, S, S)
+    F[:, :, :S, S:] = 0.3 * randn(B, T, S, A)
+    Rm = randn(B, Z, Z)
+    R = Rm @ Rm.transpose(1, 2) * 0.1 + 0.5 * torch.eye(Z, device=dev)
+    sig0, Q = torch.zeros((D, D), device=dev), torch.zeros((D, D), device=dev)
+    sig0[:S, :S], sig0[S:, S:] = 1e-8 * torch.eye(S, device=dev), 0.25 * torch.eye(A, device=dev)
+    Q[:S, :S], Q[S:, S:] = 1e-6 * torch.eye(S, device=dev), 0.25 * torch.eye(A, device=dev)
+    J = randn(B, T, Z, D)
+    J[:, :, :, S:] = -0.0  # features that ignore the action: structural zeros
+    mu0 = torch.cat([randn(B, S), torch.zeros((B, A), device=dev)], dim=1)
+    return [t.contiguous() for t in (F, 0.1 * randn(B, T, D), J, 0.2 * randn(B, T, Z), R, mu0,
+                                     sig0, Q, 0.1 * randn(T, Z))]
+
+
+def i2c_first_steps(p, n):
+    """The filter's arguments ``p`` cut to the horizon's first n steps."""
+    return [t[:, :n].contiguous() if k < 4 else t[:n].contiguous() if k == 8 else t
+            for k, t in enumerate(p)]
+
+
 # Phase (m): the repairs of kernels 1-3 (the dummy past S = 8) and 8a/8b (D, Z
 # above 6) on the card, then the benchmark suite's and bench's entry points.
 # The repairs: kernels 1, 2 and 3 on the dummy at S in REPAIR_DUMMY_S at a
@@ -1542,15 +1582,20 @@ def i2c_first_iteration_inputs_for(env_, T, B, seed, dev):
 # (8, S) term, state-only terms after an action term; and the off-square
 # weights, whose one action term is (S - 1, S)), and at REPAIR_WIDE_S
 # at the MPPI bench width, the MPPI two-stage N and the CEM sweep's width;
-# kernels 8a/8b in their general form (and past D, Z =
-# 16 the large form) at D = Z in REPAIR_I2C_DIMS, D != Z both ways, at the
-# edges of their 4-scenario blocks, T = 1, the large form's device-memory
-# workspace, and at the sweep row's B and T at D = Z in REPAIR_I2C_WIDE. The
-# suite at its full widths, cut to SUITE_ARGS' steps and timing repetitions.
+# kernels 8a/8b in their general form (D, Z up to 16) and wide form (up to
+# 32) at (S, A, Z) in REPAIR_I2C_DIMS (D = S + A), D != Z both ways, at the
+# edges of the general form's 4-scenario blocks, T = 1, the large form
+# past 32 (both its workspaces), and at the sweep row's B and T at D = Z in
+# REPAIR_I2C_WIDE, held there on the first REPAIR_I2C_HELD steps of each
+# kernel's run (the filter's first, the smoother's last): the plain
+# versions take about 5 s a step at D = Z = 32 whatever B (each entry of
+# each matrix is a PyTorch call). The suite at its full
+# widths, cut to SUITE_ARGS' steps and timing repetitions.
 REPAIR_DUMMY_S, REPAIR_WIDE_S, REPAIR_DENSE_S = (9, 16, 31), 16, 12
 REPAIR_I2C_DIMS = ((6, 1, 7), (8, 1, 9), (11, 1, 12), (15, 1, 16), (6, 1, 10), (8, 1, 3),
-                   (12, 1, 13), (16, 1, 17))
-REPAIR_I2C_WIDE = (9, 16)
+                   (12, 1, 13), (16, 1, 17), (16, 1, 5), (4, 1, 20))
+REPAIR_I2C_WIDE = (9, 16, 17, 32)
+REPAIR_I2C_HELD = 3
 REPAIR_I2C_EDGES = ((1, 3), (4, 5), (5, 2), (33, 4), (6, 1))  # (B, T) at D = Z = 9
 REPAIR_EPISODE_STEPS = 3
 SUITE_ARGS = ["--steps", "1", "--inner", "2", "--outer", "1", "--samples", "2", "--min-chains"]
@@ -1775,25 +1820,6 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
           issue=(loops["fused_cem.cu"], CEM_B * -(-CEM_K // 32) * CEM_T * CEM_ITERS,
                  cem_bound_for(wide, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS)))
 
-    # kernels 8a/8b in their general form
-    def i2c_problem(B, T, S, A, Z, seed):
-        rng = np.random.default_rng(seed)
-        D = S + A
-        F = np.zeros((B, T, D, D))
-        F[:, :, :S, :S] = np.eye(S) * 0.9 + 0.05 * rng.standard_normal((B, T, S, S))
-        F[:, :, :S, S:] = 0.3 * rng.standard_normal((B, T, S, A))
-        Rm = rng.standard_normal((B, Z, Z))
-        R = np.einsum("bij,bkj->bik", Rm, Rm) * 0.1 + 0.5 * np.eye(Z)
-        sig0, Q = np.zeros((D, D)), np.zeros((D, D))
-        sig0[:S, :S], sig0[S:, S:] = 1e-8 * np.eye(S), 0.25 * np.eye(A)
-        Q[:S, :S], Q[S:, S:] = 1e-6 * np.eye(S), 0.25 * np.eye(A)
-        J = rng.standard_normal((B, T, Z, D))
-        J[:, :, :, S:] = -0.0  # features that ignore the action: structural zeros
-        mu0 = np.concatenate([rng.standard_normal((B, S)), np.zeros((B, A))], axis=1)
-        arrays = (F, 0.1 * rng.standard_normal((B, T, D)), J, 0.2 * rng.standard_normal((B, T, Z)),
-                  R, mu0, sig0, Q, 0.1 * rng.standard_normal((T, Z)))
-        return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in arrays]
-
     def timed(fn):
         """fn's result and its ms on the card (CUDA events around one call)."""
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1819,23 +1845,24 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
     reset_counts()
     n_rts = 0
     for i, (S, A, Z) in enumerate(REPAIR_I2C_DIMS):
-        p = i2c_problem(17, 6, S, A, Z, 60 + i)
-        i2c_held(f"general, D={S + A}, Z={Z}, B=17, T=6", p)
+        p = i2c_random_problem(17, 6, S, A, Z, 60 + i, dev)
+        i2c_held(f"{ts.kernel_form(S + A, Z)}, D={S + A}, Z={Z}, B=17, T=6", p)
         n_rts += 1
     for i, (B, T) in enumerate(REPAIR_I2C_EDGES):
-        p = i2c_problem(B, T, 8, 1, 9, 70 + i)
+        p = i2c_random_problem(B, T, 8, 1, 9, 70 + i, dev)
         i2c_held(f"general, D=Z=9, B={B}, T={T}", p)
         n_rts += T > 1
     got = counts()
     n_filter = len(REPAIR_I2C_DIMS) + len(REPAIR_I2C_EDGES)
     if (got["i2c_filter"], got["i2c_rts_smooth"]) != (n_filter, n_rts) or sum(got.values()) != (
             n_filter + n_rts):
-        fail(f"phase (m) general-form I2C checks: launches {got}")
-    repair["i2c general form, small shapes"] = got
-    # the large form's device-memory workspace against shared memory, bit
-    # for bit, just past the general form
-    B, T, D = 6, 5, 17
-    p = i2c_problem(B, T, 16, 1, 17, 80)
+        fail(f"phase (m) general- and wide-form I2C checks: launches {got}")
+    repair["i2c general and wide forms, small shapes"] = got
+    # the large form just past the wide form: its shared-memory workspace
+    # against the plain versions and its device-memory workspace against
+    # the shared one, bit for bit (3 steps: ~5 s a step of plain versions)
+    B, T, D = 6, 3, 33
+    p = i2c_random_problem(B, T, 32, 1, 33, 80, dev)
     fl, rl = ts.large_floats(D, D)
     outs = []
     for ws in (None, torch.empty(B * max(fl, rl), device=dev)):
@@ -1850,11 +1877,18 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             *(_build.ptr(t) for t in (*o, p[0], mu_s)), B, T, D,
             None if ws is None else _build.ptr(ws), _build.stream_ptr(dev)))
         outs.append(o + [mu_s])
+    want = ts.i2c_filter_reference(*p)
+    for key, g, w in zip(("mu_f", "sig_f", "mu_pred", "sig_pred"), outs[0], want):
+        exact_nan(f"i2c_filter[large, D=Z={D}, B={B}, T={T}] {key}", g, w)
+    exact_nan(f"i2c_rts_smooth[large, D={D}, B={B}, T={T}]", outs[0][4],
+              ts.i2c_rts_smooth_reference(*outs[0][:4], p[0]))
     for a, b in zip(*outs):
         exact_nan("i2c large form, device-memory workspace against shared memory", a, b)
     # I2C.solve_batch(use_fused=True) on make_dummy_model(S, 1), D = Z = S + 1
     # at REPAIR_I2C_WIDE: 3 iterations, a launch of each kernel an iteration
     for D in REPAIR_I2C_WIDE:
+        if ts.kernel_form(D, D) not in ("general", "wide"):
+            fail(f"phase (m): D = Z = {D} takes the {ts.kernel_form(D, D)} form")
         S = D - 1
         solver = I2C(model=make_dummy_model(S, 1), T=I2C6_T, max_iter=3)
         st = solver.init_state_batch(I2C6_B, torch.Generator(device=dev).manual_seed(0), dev)
@@ -1870,19 +1904,41 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
         print(f"[{smi}] phase (m) I2C.solve_batch(use_fused=True) on the dummy at S = {S} "
               f"(D = Z = {D}, B={I2C6_B}, T={I2C6_T}, 3 iterations): launches {got}", flush=True)
     # the sweep row's B and T at D = Z in REPAIR_I2C_WIDE: bytes and chain
-    # bounds, launch shape with its waves on this card
+    # bounds, launch shape with its waves on this card, no local memory;
+    # the timed launches' outputs held against the plain versions bit for
+    # bit on the first REPAIR_I2C_HELD steps of each kernel's run (the
+    # filter is causal: its first steps hang on the inputs' first steps
+    # alone; the smoother starts at the horizon's end: its last steps hang
+    # on the filter's outputs and F at those steps alone), whose time is
+    # the entries' plain_ms
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = REPAIR_I2C_HELD
     for D in REPAIR_I2C_WIDE:
-        p = i2c_problem(I2CS_B, I2CS_T, D - 1, 1, D, 90 + D)
-        outs, plain_f, plain_r = i2c_held(f"general, D=Z={D}, B={I2CS_B}, T={I2CS_T}", p)
+        form = ts.kernel_form(D, D)
+        p = i2c_random_problem(I2CS_B, I2CS_T, D - 1, 1, D, 90 + D, dev)
+        outs = ts.i2c_filter(*p)
+        mu_s = ts.i2c_rts_smooth(*outs, p[0])
+        want, plain_f = timed(lambda: ts.i2c_filter_reference(*i2c_first_steps(p, n)))
+        e_f = [exact_nan(f"i2c_filter[{form}, D=Z={D}, B={I2CS_B}, T={I2CS_T}, steps 0-{n - 1}]"
+                         f" {key}", g[:, :n], w) for key, g, w in
+               zip(("mu_f", "sig_f", "mu_pred", "sig_pred"), outs, want)]
+        want, plain_r = timed(lambda: ts.i2c_rts_smooth_reference(
+            *(t[:, -n:].contiguous() for t in (*outs, p[0]))))
+        e_r = exact_nan(f"i2c_rts_smooth[{form}, D={D}, B={I2CS_B}, T={I2CS_T}, steps "
+                        f"{I2CS_T - n}-{I2CS_T - 1}]", mu_s[:, -n:], want)
         work = i2c_work(p, clock)
         cfg = ts.launch_config(D, D, I2CS_B)
-        for k in ("filter", "rts"):
+        if (cfg["filter"]["form"], cfg["rts"]["form"]) != (form, form):
+            fail(f"phase (m) I2C at D = Z = {D}: launch config {cfg}, not the {form} form")
+        if cfg["filter"]["local_bytes"] or cfg["rts"]["local_bytes"]:
+            fail(f"phase (m) I2C at D = Z = {D}: the {form} form keeps local memory: {cfg}")
+        for k, first in (("filter", "first"), ("rts", "last")):
             cfg[k]["waves"] = cfg[k]["blocks"] / (cfg[k]["blocks_per_sm"] * sms)
-        entry("i2c_filter", f"general form, D=Z={D}, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
-              lambda p=p: ts.i2c_filter(*p), plain_f, bound(*work[0][:2]), cfg,
-              chain=work[0][2])
-        entry("i2c_rts_smooth", f"general form, D={D}, B={I2CS_B}, T={I2CS_T}", 3, (0.0, 0.0),
+            cfg[k]["plain_ms_at"] = f"B={I2CS_B}, the {first} {n} of T={I2CS_T} steps"
+        entry("i2c_filter", f"{form} form, D=Z={D}, B={I2CS_B}, T={I2CS_T}", 3,
+              tuple(max(e[i] for e in e_f) for i in (0, 1)), lambda p=p: ts.i2c_filter(*p),
+              plain_f, bound(*work[0][:2]), cfg, chain=work[0][2])
+        entry("i2c_rts_smooth", f"{form} form, D={D}, B={I2CS_B}, T={I2CS_T}", 3, e_r,
               lambda p=p, o=outs: ts.i2c_rts_smooth(*o, p[0]), plain_r, bound(*work[1][:2]),
               cfg, chain=work[1][2])
 

@@ -69,28 +69,38 @@ from benchmarking_mpc_solvers_tpu_torch import _build
 def i2c_cases(dev):
     """Kernels 8a and 8b on a first iteration's matrices at configuration
     6's shape and at the sweep row's, as chip_smoke.py times them, on the
-    dummy at S = 5 (D = Z = 6, the register form's largest instance), and
-    in the general form on the dummy at S = 8 and 15 (D = Z = 9 and 16) at
-    the sweep row's B and T."""
+    dummy at S = 5 (D = Z = 6, the register form's largest instance), in
+    the general form on the dummy at S = 8 and 15 (D = Z = 9 and 16), in
+    the wide form on the dummy at S = 16, 23 and 31 (D = Z = 17, 24 and 32)
+    and on a random problem at D = 20, Z = 28, and in the large form on the
+    dummy at S = 32 (D = Z = 33), each at the sweep row's B and T."""
     from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv, PendulumEnv
     from benchmarking_mpc_solvers_tpu_torch.models import make_dummy_model
-    from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import i2c_filter, i2c_rts_smooth
+    from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import (
+        i2c_filter, i2c_rts_smooth, kernel_form)
 
     def dummy_env(S):
         return dataclasses.replace(PendulumEnv, name="dummy", model=make_dummy_model(S, 1),
                                    default_start=(0.5,) * S)
 
+    problems = [
+        (f"configuration 6 (pendulum, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=3)",
+         lambda: cs.i2c_first_iteration_inputs_for(PendulumEnv, cs.I2C6_T, cs.I2C6_B, 26, dev)),
+        (f"the sweep's shape (cart-pole, B={cs.I2CS_B}, T={cs.I2CS_T}, D=Z=5)",
+         lambda: cs.i2c_first_iteration_inputs_for(CartPoleSwingUpEnv, cs.I2CS_T, cs.I2CS_B, 26,
+                                                   dev)),
+        (f"the register form's largest (dummy S=5, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=6)",
+         lambda: cs.i2c_first_iteration_inputs_for(dummy_env(5), cs.I2C6_T, cs.I2C6_B, 26, dev))]
+    for S in (8, 15, 16, 23, 31, 32):
+        problems.append((f"the {kernel_form(S + 1, S + 1)} form (dummy S={S}, B={cs.I2CS_B}, "
+                         f"T={cs.I2CS_T}, D=Z={S + 1})",
+                         lambda S=S: cs.i2c_first_iteration_inputs_for(
+                             dummy_env(S), cs.I2CS_T, cs.I2CS_B, 26, dev)))
+    problems.append((f"the wide form, D != Z (random, B={cs.I2CS_B}, T={cs.I2CS_T}, D=20, Z=28)",
+                     lambda: cs.i2c_random_problem(cs.I2CS_B, cs.I2CS_T, 19, 1, 28, 27, dev)))
     cases = []
-    for label, env_, T, B in (
-            (f"configuration 6 (pendulum, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=3)", PendulumEnv,
-             cs.I2C6_T, cs.I2C6_B),
-            (f"the sweep's shape (cart-pole, B={cs.I2CS_B}, T={cs.I2CS_T}, D=Z=5)",
-             CartPoleSwingUpEnv, cs.I2CS_T, cs.I2CS_B),
-            (f"the register form's largest (dummy S=5, B={cs.I2C6_B}, T={cs.I2C6_T}, D=Z=6)",
-             dummy_env(5), cs.I2C6_T, cs.I2C6_B),
-            *((f"the general form (dummy S={S}, B={cs.I2CS_B}, T={cs.I2CS_T}, D=Z={S + 1})",
-               dummy_env(S), cs.I2CS_T, cs.I2CS_B) for S in (8, 15))):
-        p = cs.i2c_first_iteration_inputs_for(env_, T, B, 26, dev)
+    for label, make in problems:
+        p = make()
         outs = i2c_filter(*p)
         cases.append((label, [("i2c_filter", lambda p=p: i2c_filter(*p)),
                               ("i2c_rts_smooth", lambda p=p, o=outs: i2c_rts_smooth(*o, p[0]))]))

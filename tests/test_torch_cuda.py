@@ -854,44 +854,60 @@ def test_i2c_filter_and_smoother_match_plain_bit_for_bit(dev, B, T, S, A, Z, sha
 
 # The general form gives a scenario 16 lanes, a block 4 scenarios and rows
 # of 12 or 16 entries (the smaller that holds max(D, Z)), with a ring of two
-# one-step slots; past D, Z = 16 the large form. The cases reach D and Z at
-# the row lengths' edges (7, 8, 12, 13, 16) and just past the cap (17), D !=
-# Z both ways (the smoother in the register form where D <= 6, the filter
-# alone in the large form at Z = 17), B off the 4-scenario blocks, T = 1, 2
-# and odd T (the ring's two slots end on either), inputs as views into
-# larger buffers, negative zeros and a NaN scenario.
+# one-step slots; up to D, Z = 32 the wide form gives a scenario a warp, a
+# block one scenario, rows of 24 or 32 entries and one slot; past it the
+# large form. The cases reach D and Z at the row lengths' edges (7, 8, 12,
+# 13, 16; 17, 24, 25, 32) and just past the wide form (33), D != Z both
+# ways (the smoother in the register form where D <= 6, in the general form
+# beside a wide or a large filter), B off the
+# 4-scenario blocks and B = 1, T = 1, 2 and odd T (the general form's two
+# slots end on either), inputs as views into larger buffers, negative zeros
+# and a NaN scenario. The plain versions take about 5 s a step at D = Z = 32
+# on the card, so the largest cases are short. The general and wide forms
+# keep no local memory (no stack, no spills): their speed rests on it.
 @pytest.mark.parametrize("B,T,S,A,Z,variant", [
     (5, 7, 6, 1, 7, None), (4, 5, 7, 1, 8, "zeros"), (9, 4, 11, 1, 12, None),
     (6, 3, 12, 1, 13, None), (1, 3, 15, 1, 16, None), (5, 4, 16, 1, 17, None),
     (33, 6, 6, 2, 11, "offset"), (6, 1, 8, 1, 9, None), (7, 5, 4, 1, 9, None),
     (3, 4, 8, 1, 3, None), (5, 3, 15, 1, 7, None), (6, 4, 2, 1, 16, None),
     (3, 3, 15, 1, 17, None), (3, 3, 16, 1, 16, None), (10, 11, 8, 1, 9, None),
-    (2, 2, 12, 1, 16, "zeros"), (6, 5, 8, 1, 9, "nan"), (7, 6, 14, 2, 13, "nan")],
-    ids=["D7", "D8-signed-zeros", "D12", "D13", "D16", "D17-large", "D8-Z11-offset", "T1",
+    (2, 2, 12, 1, 16, "zeros"), (6, 5, 8, 1, 9, "nan"), (7, 6, 14, 2, 13, "nan"),
+    (3, 4, 16, 1, 17, "zeros"), (7, 3, 23, 1, 24, None), (4, 3, 24, 1, 25, None),
+    (3, 2, 31, 1, 32, None), (2, 1, 31, 1, 32, None), (33, 3, 16, 1, 5, "offset"),
+    (5, 4, 4, 1, 20, None), (6, 3, 10, 1, 30, None), (3, 3, 29, 2, 20, None),
+    (6, 5, 18, 1, 19, "nan"), (1, 6, 20, 1, 23, None), (2, 2, 23, 1, 24, "zeros"),
+    (2, 2, 12, 1, 33, None), (2, 2, 32, 1, 33, None)],
+    ids=["D7", "D8-signed-zeros", "D12", "D13", "D16", "D17", "D8-Z11-offset", "T1",
          "D5-Z9", "D9-Z3", "D16-Z7", "D3-Z16", "D16-Z17", "D17-Z16", "B10-T11", "D13-Z16-T2",
-         "D9-nan", "D16-Z13-nan"])
+         "D9-nan", "D16-Z13-nan", "D17-signed-zeros", "D24", "D25", "D32-T2", "D32-T1",
+         "D17-Z5-offset", "D5-Z20", "D11-Z30", "D31-Z20", "D19-nan", "B1-D21-Z23-T6",
+         "D24-T2-signed-zeros", "D13-Z33-large", "D33-large"])
 def test_i2c_general_form_matches_plain(dev, B, T, S, A, Z, variant):
-    """The general form (D or Z above 6, up to 16) and the large form past
-    it, every output bit for bit with the plain versions, a zero's sign
-    included, NaN where the plain version has NaN."""
+    """The general form (D or Z above 6, up to 16), the wide form past it
+    (up to 32) and the large form past that, every output bit for bit with
+    the plain versions, a zero's sign included, NaN where the plain version
+    has NaN; the launch shape of each kernel's form."""
     from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
 
     D = S + A
     p = _i2c_problem(dev, B * 100 + Z, B, T, S, A, Z, variant=None if variant == "nan" else variant)
-    assert ts.kernel_form(D, Z) == ("general" if max(D, Z) <= 16 else "large")
+    assert ts.kernel_form(D, Z) == ("general" if max(D, Z) <= 16 else "wide"
+                                    if max(D, Z) <= 32 else "large")
     clean = ts.i2c_smooth_batch(*p)
     if variant == "nan":
         p[0][2, T // 2, 0, 0] = float("nan")
-    got = ts.i2c_filter(*p)
-    for g, w in zip(got, ts.i2c_filter_reference(*p)):
+    got, want = ts.i2c_filter(*p), ts.i2c_filter_reference(*p)
+    for g, w in zip(got, want):
         _bits(g, w)
+    want_s = want[0]
     if T > 1:
-        _bits(ts.i2c_rts_smooth(*got, p[0]), ts.i2c_rts_smooth_reference(*got, p[0]))
+        want_s = ts.i2c_rts_smooth_reference(*want, p[0])
+        _bits(ts.i2c_rts_smooth(*got, p[0]), want_s)
     if variant == "zeros" and T > 1:
         neg = [torch.where(t == 0, torch.full_like(t, -0.0), t) for t in got]
         _bits(ts.i2c_rts_smooth(*neg, p[0]), ts.i2c_rts_smooth_reference(*neg, p[0]))
     out = ts.i2c_smooth_batch(*p)
-    _bits(out, ts.i2c_smooth_batch_reference(*p))
+    _bits(out, want_s)  # i2c_smooth_batch_reference: the two plain versions in turn
     if variant == "nan":
         others = torch.arange(B, device=dev) != 2
         assert torch.isnan(out[2]).all()
@@ -899,21 +915,30 @@ def test_i2c_general_form_matches_plain(dev, B, T, S, A, Z, variant):
     cfg = ts.launch_config(D, Z, B)
     assert cfg["filter"]["form"] == ts.kernel_form(D, Z)
     assert cfg["rts"]["form"] == ts.kernel_form(D, D)
+    assert cfg["stages"] == {"general": 2, "wide": 1, "large": 0}[cfg["form"]]
     for k in ("filter", "rts"):
         assert cfg[k]["blocks_per_sm"] >= 1
         assert cfg[k]["blocks"] * cfg[k]["scenarios_per_block"] >= B
+        if cfg[k]["form"] == "wide":
+            assert (cfg[k]["threads"], cfg[k]["scenarios_per_block"], cfg[k]["chunk"]) == (32, 1, 1)
+            assert 0 < cfg[k]["shared_bytes"] <= 48 * 1024 and cfg[k]["registers"] <= 255
+        if cfg[k]["form"] == "large":
+            assert cfg[k]["threads"] == 128 and cfg[k]["scenarios_per_block"] == 4
+            assert cfg[k]["chunk"] == 0
+        else:
+            assert cfg[k]["local_bytes"] == 0
 
 
 def test_i2c_general_form_device_workspace(dev):
     """The large form's device-memory workspace (taken where a block's four
     shared-memory workspaces pass 227 KB) gives the bits of the
-    shared-memory one: both entry points called at D = Z = 17, just past the
-    general form, with and without a workspace."""
+    shared-memory one: both entry points called at D = Z = 33, just past the
+    wide form, with and without a workspace."""
     from benchmarking_mpc_solvers_tpu_torch import _build
     from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
 
-    B, T, D, Z = 6, 5, 17, 17
-    p = _i2c_problem(dev, 77, B, T, 16, 1, Z)
+    B, T, D, Z = 3, 3, 33, 33
+    p = _i2c_problem(dev, 77, B, T, 32, 1, Z)
     assert ts.kernel_form(D, Z) == "large"
     fl, rl = ts.large_floats(D, Z)
     outs = []

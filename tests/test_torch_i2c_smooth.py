@@ -99,10 +99,11 @@ def test_plain_smoother_matches_reference_kernel_past_six(S, A, Z):
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
 
 
-@pytest.mark.parametrize("S", [8, 11, 15, 16])
+@pytest.mark.parametrize("S", [8, 11, 15, 16, 23, 31])
 def test_plain_smoother_matches_reference_scans_past_six(S):
-    """The dummy's D = Z = S + 1 (9, 12 and 16, the general form's edges,
-    and 17, past them) against the vmapped scans of the reference's I2C on
+    """The dummy's D = Z = S + 1 (9, 12 and 16, the general form's edges;
+    17, 24 and 32, the wide form's first size and its two row lengths)
+    against the vmapped scans of the reference's I2C on
     ``make_dummy_model(S, 1)``."""
     from benchmarking_mpc_solvers_tpu.models import make_dummy_model
 
@@ -168,6 +169,24 @@ def test_single_step_horizon_returns_filtered_mean():
                                atol=TOL_SCAN)
 
 
+@pytest.mark.parametrize("S,A,Z", [(2, 1, 3), (8, 1, 9)], ids=["D3", "D9"])
+def test_plain_versions_hold_on_windows_of_the_horizon(S, A, Z):
+    """The filter's first n steps are its run on the inputs' first n steps,
+    and the smoother's last n steps its run on the last n steps of its
+    inputs, bit for bit: a long horizon's outputs can be held against the
+    plain versions on a few steps at either end."""
+    T, n = 7, 3
+    args = i2c_problem_from_numpy(*_problem(11, 3, T, S, A, Z), device="cpu")
+    full = ts.i2c_filter(*args)
+    first = ts.i2c_filter(*(t[:, :n] if k < 4 else t[:n] if k == 8 else t
+                            for k, t in enumerate(args)))
+    for f, w in zip(full, first):
+        np.testing.assert_array_equal(f[:, :n].numpy(), w.numpy())
+    last = ts.i2c_rts_smooth(*(t[:, -n:] for t in (*full, args[0])))
+    np.testing.assert_array_equal(ts.i2c_rts_smooth(*full, args[0])[:, -n:].numpy(),
+                                  last.numpy())
+
+
 def test_nan_scenario_stays_nan_and_leaves_the_others():
     """A NaN passes the Cholesky floor and reaches that scenario's output;
     the other scenarios' rows are what they are without it."""
@@ -185,9 +204,10 @@ def test_nan_scenario_stays_nan_and_leaves_the_others():
 
 def test_shape_errors_and_kernel_size_limit():
     """Shapes are checked; no size is refused: the kernels' register form
-    holds D, Z <= 6, their general form D, Z <= 16 and their large form
-    every larger size, its workspace in shared memory while a block's four
-    fit the card's 227 KB, else in device memory (B workspaces)."""
+    holds D, Z <= 6, their general form D, Z <= 16, their wide form D, Z <=
+    32 and their large form every larger size, its workspace in shared
+    memory while a block's four fit the card's 227 KB, else in device memory
+    (B workspaces)."""
     p = _problem(8, 2, 4, 2, 1, 3)
     args = list(i2c_problem_from_numpy(*p, device="cpu"))
     bad = list(args)
@@ -205,35 +225,42 @@ def test_shape_errors_and_kernel_size_limit():
 
 @pytest.mark.parametrize("D,Z,form", [
     (1, 1, "register"), (6, 6, "register"), (7, 3, "general"), (3, 7, "general"),
-    (12, 12, "general"), (13, 1, "general"), (16, 16, "general"), (17, 16, "large"),
-    (16, 17, "large"), (64, 64, "large")])
+    (12, 12, "general"), (13, 1, "general"), (16, 16, "general"), (17, 16, "wide"),
+    (16, 17, "wide"), (17, 17, "wide"), (17, 5, "wide"), (24, 24, "wide"), (25, 3, "wide"),
+    (32, 32, "wide"), (33, 32, "large"), (32, 33, "large"), (64, 64, "large")])
 def test_kernel_form_by_size(D, Z, form):
     """The kernels' form by size, at each class's edges: the register form
-    up to REG_DIM, the general form up to GENERAL_MAX, the large form past
-    it; the smoother takes the form of (D, D)."""
-    assert (ts.REG_DIM, ts.GENERAL_MAX) == (6, 16)
+    up to REG_DIM, the general form up to GENERAL_MAX, the wide form up to
+    WIDE_MAX, the large form past it; the smoother takes the form of (D, D)."""
+    assert (ts.REG_DIM, ts.GENERAL_MAX, ts.WIDE_MAX) == (6, 16, 32)
     assert ts.kernel_form(D, Z) == form
-    assert ts.kernel_form(D, D) == ("register" if D <= 6 else "general" if D <= 16 else "large")
+    assert ts.kernel_form(D, D) == ("register" if D <= 6 else "general" if D <= 16
+                                    else "wide" if D <= 32 else "large")
 
 
 # (D, Z, the filter's form, the entry points asked with (D, Z) in order): a
 # smoother in the register form beside a larger filter asks its own entry
-# point at (D, D) (it holds D, Z <= 6); the general and the large form share
-# one, which reports each kernel's form by size
+# point at (D, D) (it holds D, Z <= 6); the general, the wide and the large
+# form share one, which reports each kernel's form by size
 @pytest.mark.parametrize("D,Z,form,asks", [
     (7, 3, "general", [("i2c_general_launch_config", 7, 3)]),
     (3, 3, "register", [("i2c_launch_config", 3, 3)]),
     (12, 12, "general", [("i2c_general_launch_config", 12, 12)]),
     (16, 16, "general", [("i2c_general_launch_config", 16, 16)]),
-    (17, 16, "large", [("i2c_general_launch_config", 17, 16)]),
-    (16, 17, "large", [("i2c_general_launch_config", 16, 17)]),
+    (17, 16, "wide", [("i2c_general_launch_config", 17, 16)]),
+    (16, 17, "wide", [("i2c_general_launch_config", 16, 17)]),
     (3, 9, "general", [("i2c_general_launch_config", 3, 9), ("i2c_launch_config", 3, 3)]),
-    (5, 17, "large", [("i2c_general_launch_config", 5, 17), ("i2c_launch_config", 5, 5)]),
+    (5, 17, "wide", [("i2c_general_launch_config", 5, 17), ("i2c_launch_config", 5, 5)]),
+    (17, 17, "wide", [("i2c_general_launch_config", 17, 17)]),
+    (32, 32, "wide", [("i2c_general_launch_config", 32, 32)]),
+    (33, 32, "large", [("i2c_general_launch_config", 33, 32)]),
+    (12, 33, "large", [("i2c_general_launch_config", 12, 33)]),
     (64, 64, "large", [("i2c_general_launch_config", 64, 64)])])
 def test_launch_config_refuses_sizes_above_six(monkeypatch, D, Z, form, asks):
-    """Sizes above six, once refused, report the general or the large form's
-    launch shape (their own entry point); the register form's stay as they
-    were. Read from the entry point each asks for, without a card."""
+    """Sizes above six, once refused, report the general, the wide or the
+    large form's launch shape (their own entry point); the register form's
+    stay as they were. Read from the entry point each asks for, without a
+    card."""
     asked = []
 
     def fake(name):
@@ -247,3 +274,4 @@ def test_launch_config_refuses_sizes_above_six(monkeypatch, D, Z, form, asks):
     assert asked == [(*a, 16) for a in asks] and cfg["form"] == form
     assert set(cfg) == {"form", "stages", "filter", "rts"}
     assert cfg["filter"]["form"] == form and cfg["rts"]["form"] == ts.kernel_form(D, D)
+    assert "local_bytes" in cfg["filter"] and "local_bytes" in cfg["rts"]
