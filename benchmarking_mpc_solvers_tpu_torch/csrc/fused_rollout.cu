@@ -23,6 +23,16 @@
 // - step t+1's action is loaded while step t computes (one register), so the
 //   load's latency stays off the state's dependent chain.
 // Neither changes an operation of the sum, so the costs keep their bits.
+//
+// The dummy family past Dummy<8> (make_dummy_model(S, 1), identity
+// dynamics: the state stays x0) takes one of two forms, picked on the host
+// by ops/fused.py: dummy_plan. The rows form, for S up to 32 and a list of
+// every state square with or without action terms (the identity's among
+// them): the state in registers, the weights as kernel parameters, the
+// goals staged in shared memory; a step is the float operations of its
+// terms and a few loads (5.4x the list form at S = 16). The list form for
+// every other list and S: the term list, the state and the goals from
+// device memory at every term of every step (models.cuh: dummy_cost).
 #include <cuda_runtime.h>
 
 #include "models.cuh"
@@ -62,8 +72,9 @@ fused_rollout_kernel(const float* __restrict__ x0, const float* __restrict__ us,
   out[n] = acc;
 }
 
-// The dummy family at any S (models.cuh: dummy_cost): the state stays x0,
-// x_i of rollout n at x0[i * N + n].
+// The dummy family at any S, the list form (models.cuh: dummy_cost): the
+// whole term list from device memory at every step, x_i of rollout n at
+// x0[i * N + n] (the state stays x0). It takes every list and every S.
 __global__ void __launch_bounds__(kThreads)
 fused_rollout_dummy_kernel(const float* __restrict__ x0, const float* __restrict__ us,
                            const float* __restrict__ gz, float* __restrict__ out, int T,
@@ -79,6 +90,134 @@ fused_rollout_dummy_kernel(const float* __restrict__ x0, const float* __restrict
     acc = acc + c;
   }
   out[n] = acc;
+}
+
+// The rows form of the dummy (ops/fused.py: dummy_plan): a list that is
+// every state square (r, r), r < S, in order, each followed or not by its
+// action term (r, S), then the action's square (S, S) or not; the
+// identity's is the squares alone. Its weights are a kernel parameter, so a
+// term's weight is an operand of its multiplication, not a load; d past S
+// is -0.0f, and with x and g padded with +0 there the row adds -0.0f * (+0
+// * +0) = -0.0f, which leaves every float as it is (NaN included): the rows
+// compiled past S change no bit.
+constexpr int kRowMax = 32;
+struct DummyRows {
+  float d[kRowMax];  // (r, r)
+  float a[kRowMax];  // (r, S), where bit r of acts is set
+  float s;           // (S, S), where square
+  uint32_t acts;
+  int square;
+};
+
+// Floats of a staged step of goals in the rows form at row width ROW:
+// g_t[0..ROW) (zeros past S), then g_t[S] and three pad floats.
+__host__ __device__ constexpr int rows_step_floats(int row) { return row + 4; }
+
+// The most shared bytes a block of the rows form stages goals in: 24 KB
+// leaves the SM's blocks to its registers (9 blocks of 256 threads fit 227
+// KB); a longer horizon is staged in chunks of steps.
+constexpr int kGoalBytes = 24 * 1024;
+
+// The steps of goals a block of the rows form at row width `row` stages at
+// a time over T steps (at least 1), and its shared bytes (fused_rollout_
+// dummy_launch_config reports both).
+int rows_chunk(int row, int T) {
+  const int fit = kGoalBytes / (int)(sizeof(float) * rows_step_floats(row));
+  return T < 1 ? 1 : (T < fit ? T : fit);
+}
+size_t rows_bytes(int row, int T) {
+  return sizeof(float) * rows_step_floats(row) * rows_chunk(row, T);
+}
+
+// The rows form at S <= ROW: one thread a rollout, its state in ROW
+// registers for the whole horizon (x_r at a compiled index: no local
+// memory), the goals staged in shared memory a chunk of steps at a time
+// (rows_chunk) and read as float4 broadcasts, step t+1's action loaded
+// while step t computes. Each step
+// adds the terms in quad_cost's order with dummy_cost's roundings, c = c +
+// w * (zi * zj) from 0, then the clip: the same bits. kActs compiles the
+// (r, S) terms' tests (the identity's list has none).
+template <int ROW, bool kActs>
+__global__ void __launch_bounds__(kThreads)
+fused_rollout_dummy_rows_kernel(const float* __restrict__ x0, const float* __restrict__ us,
+                                const float* __restrict__ gz, float* __restrict__ out, int T,
+                                int N, int S, int chunk, const DummyRows w) {
+  constexpr int kStep = rows_step_floats(ROW);
+  extern __shared__ float4 goal4[];
+  float* goal = reinterpret_cast<float*>(goal4);
+  const int Z = S + 1;
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  // a thread past N runs rollout N - 1 and stores nothing: every thread
+  // stages and meets the barriers
+  const int nr = min(n, N - 1);
+  float x[ROW];
+#pragma unroll
+  for (int r = 0; r < ROW; ++r) x[r] = r < S ? x0[(size_t)r * N + nr] : 0.0f;
+  const float* un = us + nr;  // this rollout's action of step t + 1
+  float u_next = T > 0 ? *un : 0.0f;
+  float acc = 0.0f;
+  for (int t0 = 0; t0 < T; t0 += chunk) {
+    const int steps = min(chunk, T - t0);
+    __syncthreads();  // the previous chunk's goals are read
+    for (int e = threadIdx.x; e < steps * kStep; e += kThreads) {
+      const int k = e % kStep;
+      const float* g = gz + (size_t)(t0 + e / kStep) * Z;
+      goal[e] = k < S ? g[k] : (k == ROW ? g[S] : 0.0f);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int i = 0; i < steps; ++i) {
+      const float u = u_next;
+      if (t0 + i + 1 < T) {
+        un += N;
+        u_next = *un;
+      }
+      const float4* rec = goal4 + i * (kStep / 4);
+      float g[kStep];
+#pragma unroll
+      for (int q = 0; q < kStep / 4; ++q) {
+        const float4 v = rec[q];
+        g[4 * q] = v.x;
+        g[4 * q + 1] = v.y;
+        g[4 * q + 2] = v.z;
+        g[4 * q + 3] = v.w;
+      }
+      const float za = u - g[ROW];
+      float c = 0.0f;
+#pragma unroll
+      for (int r = 0; r < ROW; ++r) {
+        const float zr = x[r] - g[r];
+        c = c + w.d[r] * (zr * zr);
+        if (kActs && ((w.acts >> r) & 1u)) c = c + w.a[r] * (zr * za);
+      }
+      if (w.square) c = c + w.s * (za * za);
+      acc = acc + bmpc::clampf(c, -1e30f, 1e30f);
+    }
+  }
+  if (n < N) out[n] = acc;
+}
+
+using RowsFn = void (*)(const float*, const float*, const float*, float*, int, int, int, int,
+                        const DummyRows);
+
+// The rows form's instance at a row width of 12 to 32 (a multiple of 4),
+// or null.
+RowsFn rows_kernel(int row, bool acts) {
+#define BMPC_ROWS(R)                                                                      \
+  case R:                                                                                 \
+    return acts ? fused_rollout_dummy_rows_kernel<R, true>                                \
+                : fused_rollout_dummy_rows_kernel<R, false>;
+  switch (row) {
+    BMPC_ROWS(12)
+    BMPC_ROWS(16)
+    BMPC_ROWS(20)
+    BMPC_ROWS(24)
+    BMPC_ROWS(28)
+    BMPC_ROWS(32)
+    default:
+      return nullptr;
+  }
+#undef BMPC_ROWS
 }
 
 template <class M>
@@ -128,9 +267,10 @@ extern "C" int fused_rollout_launch_config(int model_id, int N, const float* w, 
   });
 }
 
-// The dummy family at any S: the arguments of fused_rollout_costs_launch
-// with S and the device array of n_terms weight terms (_build.dummy_terms)
-// in place of the model id and the host weights.
+// The dummy's list form, at any S and list (ops/fused.py: dummy_plan): the
+// arguments of fused_rollout_costs_launch with S and the device array of
+// n_terms weight terms (_build.dummy_terms) in place of the model id and
+// the host weights.
 extern "C" int fused_rollout_dummy_launch(int S, const float* x0, const float* us,
                                           const float* gz, float* out, int T, int N,
                                           const int4* terms, int n_terms,
@@ -138,4 +278,51 @@ extern "C" int fused_rollout_dummy_launch(int S, const float* x0, const float* u
   fused_rollout_dummy_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       x0, us, gz, out, T, N, S, terms, n_terms);
   return (int)cudaGetLastError();
+}
+
+// The dummy's rows form (ops/fused.py: dummy_plan): the arguments of
+// fused_rollout_dummy_launch with the plan's row width (12 to 32), whether
+// the list has (r, S) terms (acts) and the host struct of the rows' weights
+// (DummyRows, void here: a parameter of a type in the unnamed namespace
+// would give the entry point internal linkage) in place of the term list.
+extern "C" int fused_rollout_dummy_rows_launch(int row, int acts, const float* x0,
+                                               const float* us, const float* gz, float* out,
+                                               int T, int N, int S, const void* w,
+                                               cudaStream_t stream) {
+  const RowsFn kernel = rows_kernel(row, acts != 0);
+  if (kernel == nullptr || S > row) return (int)cudaErrorInvalidValue;
+  kernel<<<(N + kThreads - 1) / kThreads, kThreads, rows_bytes(row, T), stream>>>(
+      x0, us, gz, out, T, N, S, rows_chunk(row, T), *(const DummyRows*)w);
+  return (int)cudaGetLastError();
+}
+
+// The dummy form's launch shape on the current card over T steps, into
+// out[7]: threads (rollouts) per block, blocks, shared bytes per block,
+// registers per thread, resident blocks per SM, local (stack and spill)
+// bytes per thread and the steps of goals a block stages at a time (0:
+// none). form 0: the rows form at (row, acts); 1: the list form. Returns a
+// cudaError.
+extern "C" int fused_rollout_dummy_launch_config(int form, int row, int acts, int T, int N,
+                                                 int* out) {
+  const void* kernel = nullptr;
+  size_t smem = 0;
+  int chunk = 0;
+  if (form == 0) {
+    kernel = (const void*)rows_kernel(row, acts != 0);
+    smem = rows_bytes(row, T);
+    chunk = rows_chunk(row, T);
+  } else if (form == 1) {
+    kernel = (const void*)fused_rollout_dummy_kernel;
+  }
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vals[7] = {kThreads, (N + kThreads - 1) / kThreads, (int)smem, attr.numRegs,
+                       per_sm, (int)attr.localSizeBytes, chunk};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
 }

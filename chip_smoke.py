@@ -93,9 +93,10 @@ Phases (any failure exits non-zero before the result line):
      small shape, S = 12 under dense weights, 1 and 3 at S = 16 under the
      mid-list and off-square weights, each with its launch configuration and
      the dummy form it must take, S = 16 at the
-     MPPI bench, MPPI two-stage and CEM sweep widths, 1 and 3 there beside
-     the SASS issue and pipe floors of their one-term loop
-     (``DUMMY_SASS_LOOPS``), and on the MPPI and CEM tiers), kernels
+     MPPI bench, MPPI two-stage and CEM sweep widths, 1, 3 and 2 there beside
+     the SASS issue and pipe floors of their one-term or rows-form loop
+     (``DUMMY_SASS_LOOPS``), and on the MPPI and CEM tiers), kernel 7's
+     shared-memory form (per problem, n = 120, B = 256, 60 iterations), kernels
      8a/8b in their general form (D, Z from 7 to 16, block edges, T = 1)
      and their wide form (D, Z from 17 to 32), timed at the sweep row's B
      and T at D = Z = 9, 16, 17 and 32 and held there on the horizon's
@@ -675,6 +676,8 @@ ADMM_ROW_OPS = lambda n: 2 * n + 9  # noqa: E731
 # kernel 7 at a problem of n > 240 (the streaming form), timed beside its
 # shapes of the suite: the shared layout, as QP-MPC at linearize_at="goal"
 ADMM_BIG_N, ADMM_BIG_B, ADMM_BIG_ITERS = 300, 512, 20
+# kernel 7's shared-memory form (64 < n <= 240) as kernel_ab.py times it, (B, n, iterations)
+ADMM_SHARED_SHAPE = (256, 120, 60)
 PEAK_FP32 = 67e12  # H100 SXM FP32 (non-tensor) FLOP/s, published, at 700 W
 # a dependent FP32 operation's latency in cycles, the least the card's
 # pipeline takes (a square root or a division takes many more)
@@ -1258,9 +1261,14 @@ SASS_LOOPS = {
 # divisions. Kernel 3's is the loop with the draw's MUFU.RSQ and the loads of
 # mean, std and the step's staged record (pass 2's loop over the elites loads
 # two words); kernel 1's is the only loop of its cache form that draws.
+# Kernel 2's rows form at rows of 16 without action terms (the identity's at
+# S = 13 to 16): the step loop, with its five float4 loads of the staged
+# goals and the next step's action (the staging loop stores, not loads,
+# shared memory).
 DUMMY_SASS_LOOPS = {
     "fused_cem.cu": (("fused_cem_dummy_kernelILi0E",), {"MUFU.RSQ": 1, "LDS": 3}),
     "fused_mppi.cu": (("fused_mppi_dummy_kernelILb1ELi0E",), {"MUFU.RSQ": 1}),
+    "fused_rollout.cu": (("fused_rollout_dummy_rows_kernelILi16ELb0E",), {"LDS": 5, "LDG": 1}),
 }
 
 
@@ -1580,8 +1588,11 @@ def i2c_first_steps(p, n):
 # small shape (T=17, B=1001, K=48, ragged blocks), once under dense weights
 # (and 1 and 3 under the mid-list weights: the identity and a symmetric
 # (8, S) term, state-only terms after an action term; and the off-square
-# weights, whose one action term is (S - 1, S)), and at REPAIR_WIDE_S
-# at the MPPI bench width, the MPPI two-stage N and the CEM sweep's width;
+# weights, whose one action term is (S - 1, S)), each kernel's form
+# asserted, and at REPAIR_WIDE_S at the MPPI bench width, the MPPI
+# two-stage N (kernel 2's rows form with its step loop's SASS issue floor)
+# and the CEM sweep's width;
+# kernel 7's shared-memory form at ADMM_SHARED_SHAPE;
 # kernels 8a/8b in their general form (D, Z up to 16) and wide form (up to
 # 32) at (S, A, Z) in REPAIR_I2C_DIMS (D = S + A), D != Z both ways, at the
 # edges of the general form's 4-scenario blocks, T = 1, the large form
@@ -1626,8 +1637,12 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
     from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
     from benchmarking_mpc_solvers_tpu_torch.ops import i2c_smooth as ts
     from benchmarking_mpc_solvers_tpu_torch.ops import riccati_backward as riccati_module
+    from benchmarking_mpc_solvers_tpu_torch.ops import qp_admm
     from benchmarking_mpc_solvers_tpu_torch.ops.fused import (
         fused_rollout_costs_tm, fused_rollout_costs_tm_reference)
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_config
+    from benchmarking_mpc_solvers_tpu_torch.ops.qp_admm import (
+        admm_iterate, admm_iterate_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import (
         fused_cem_step, fused_cem_step_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_config
@@ -1678,11 +1693,13 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             counted, trips, old_bound = issue
             floor = None if counted is None else counted[0] * trips / (sms * 4 * clock * 1e3)
             pipe = None if counted is None else pipe_floor_ms(counted[2], trips, sms, clock)[0]
-            floors = {"bound_ms_all_terms_a_step": old_bound[0], "issue_bound_ms": floor,
-                      "pipe_bound_ms": pipe, "sass_per_trip": counted}
-            floors_text = (f", every term a step {old_bound[0]:.5f} ms; rollout loop {counted} "
-                           f"(SASS a trip, in its body, by pipe; None: not counted), {trips} "
-                           f"warp trips: issue floor {floor} ms, pipe floor {pipe} ms")
+            floors = {"issue_bound_ms": floor, "pipe_bound_ms": pipe, "sass_per_trip": counted}
+            if old_bound is not None:
+                floors["bound_ms_all_terms_a_step"] = old_bound[0]
+                floors_text = f", every term a step {old_bound[0]:.5f} ms"
+            floors_text += (f"; rollout loop {counted} (SASS a trip, in its body, by pipe; None: "
+                            f"not counted), {trips} warp trips: issue floor {floor} ms, pipe "
+                            f"floor {pipe} ms")
         entries.append({"base": base, "name": f"{base}[{label}]", "route": "cuda",
                         "launches": n, "max_abs_err": e[0], "max_rel_err": e[1], "ms": around,
                         "device_ms": device, "plain_ms": plain, "bound_ms": bnd[0],
@@ -1693,12 +1710,23 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
               + ("" if chain is None else f", chain {chain:.5f} ms") + floors_text
               + f"; launch {cfg}", flush=True)
 
+    def timed(fn):
+        """fn's result and its ms on the card (CUDA events around one call)."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
     # (a) kernels 1, 2 and 3 on the dummy past S = 8: small shapes
-    def sampling(model, T, B, K, N, seed, tag, which=(1, 2, 3), form="one term"):
+    def sampling(model, T, B, K, N, seed, tag, which=(1, 2, 3), form="one term",
+                 rollout_form="rows"):
         """Kernels ``which`` of 1, 2 and 3 against their plain versions
         (2 and 3 bit for bit), 1 and 3 in the dummy form ``form``
-        (``_build.DUMMY_TAIL_FORMS``); returns each one's arguments and
-        errors."""
+        (``_build.DUMMY_TAIL_FORMS``), 2 in ``rollout_form``
+        (``ops.fused.DUMMY_FORMS``) without local memory; returns each
+        one's arguments and errors."""
         S, Z = model.state_size, model.goal_size
         rng = np.random.default_rng(seed)
         plan = torch.from_numpy(rng.uniform(-1.5, 1.5, (T, B)).astype(np.float32)).to(dev)
@@ -1724,6 +1752,12 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
             exact_nan(f"fused_rollout_costs_tm[{tag}, N={N}, T={T}]", got, want)
             out[2] = a2, compare(f"fused_rollout_costs_tm[{tag}, N={N}, T={T}]", got, want)
             err("fused_rollout_costs_tm", out[2][1][0])
+            cfg = rollout_config(model, N, T)
+            print(f"[{smi}] fused_rollout_costs_tm[{tag}, N={N}, T={T}] dummy form: {cfg}",
+                  flush=True)
+            if (cfg["form"], cfg["local_bytes"]) != (rollout_form, 0):
+                fail(f"phase (m) fused_rollout_costs_tm[{tag}]: form {cfg['form']} with "
+                     f"{cfg['local_bytes']} local bytes, not {rollout_form} with none")
         if 3 in which:
             a3 = (model, K, CEM_ELITE if K >= 64 else 5, CEM_ITERS, 0.2, 1.5, lanes, plan, x0,
                   gz, 7)
@@ -1748,7 +1782,7 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
     dense = dataclasses.replace(make_dummy_model(REPAIR_DENSE_S, 1),
                                 state_cost=quad_cost(Wm @ Wm.T))
     sampling(dense, 17, 1001, 48, 4097, 13, f"dummy S={REPAIR_DENSE_S} dense weights",
-             form="whole list")
+             form="whole list", rollout_form="list")
     # the mid-list weights: a state-only term after an action term (kernels 1
     # and 3 split the cost only where one action term ends the list); the
     # off-square weights: the identity's action term moved to (S - 1, S)
@@ -1808,10 +1842,31 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
           mppi_config(wide, HORIZON, K_SAMPLES, BATCH),
           issue=(loops["fused_mppi.cu"], BATCH * -(-K_SAMPLES // 32) * HORIZON,
                  mppi_bound_for(wide, BATCH, K_SAMPLES, HORIZON)))
-    entry("fused_rollout_costs_tm", f"dummy S={REPAIR_WIDE_S}, N={BATCH * K_SAMPLES}, "
-          f"T={HORIZON}", REPAIR_EPISODE_STEPS, e2, lambda: fused_rollout_costs_tm(*a2),
+    N2 = BATCH * K_SAMPLES
+    entry("fused_rollout_costs_tm", f"dummy S={REPAIR_WIDE_S}, N={N2}, T={HORIZON}",
+          REPAIR_EPISODE_STEPS, e2, lambda: fused_rollout_costs_tm(*a2),
           lambda: fused_rollout_costs_tm_reference(*a2),
-          rollout_bound_for(wide, BATCH * K_SAMPLES, HORIZON))
+          rollout_bound_for(wide, N2, HORIZON), rollout_config(wide, N2, HORIZON),
+          issue=(loops["fused_rollout.cu"], -(-N2 // 32) * HORIZON, None))
+
+    # kernel 7's shared-memory form at kernel_ab.py's shape: one launch with
+    # the counts at 0, its iterate held against the plain version's bits
+    B7, n7, it7 = ADMM_SHARED_SHAPE
+    plan7 = qp_admm.block_plan(B7, n7, True, sms)
+    if plan7.form != "shared":
+        fail(f"phase (m) admm_iterate at per problem n={n7}, B={B7}: plan {plan7}, not shared")
+    a7 = random_qps_for(B7, n7, True, False, 28, dev)
+    got7 = drive(f"admm_iterate shared-memory form (per problem, n={n7}, B={B7}, {it7} "
+                 f"iterations)", lambda: admm_iterate(*a7, iters=it7), {"admm_iterate": 1})
+    want7, plain7 = timed(lambda: admm_iterate_reference(*a7, iters=it7))
+    exact(f"admm_iterate[shared-memory form, per problem, n={n7}, B={B7}, {it7} iterations]",
+          got7, want7)
+    e7 = compare(f"admm_iterate[shared-memory form, n={n7}, B={B7}]", got7, want7)
+    err("admm_iterate", e7[0])
+    entry("admm_iterate", f"shared-memory form, per problem, n={n7}, B={B7}, {it7} iterations",
+          1, e7, lambda: admm_iterate(*a7, iters=it7), plain7,
+          bound(4 * (B7 * n7 * n7 + 2 * B7 * n7 + 2 * n7), B7 * it7 * n7 * ADMM_ROW_OPS(n7)),
+          qp_admm.launch_config(B7, n7, True), chain=chain_ms(it7, admm_chain(n7), clock))
     entry("fused_cem_step", f"dummy S={REPAIR_WIDE_S}, B={CEM_B}, K={CEM_K}, T={CEM_T}, "
           f"n_elite={CEM_ELITE}, max_iter={CEM_ITERS}", REPAIR_EPISODE_STEPS, e3,
           lambda: fused_cem_step(*a3), lambda: fused_cem_step_reference(*a3),
@@ -1819,15 +1874,6 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
           cem_config(wide, CEM_T, CEM_K, CEM_B), plain_reps=1,
           issue=(loops["fused_cem.cu"], CEM_B * -(-CEM_K // 32) * CEM_T * CEM_ITERS,
                  cem_bound_for(wide, CEM_B, CEM_K, CEM_T, CEM_ELITE, CEM_ITERS)))
-
-    def timed(fn):
-        """fn's result and its ms on the card (CUDA events around one call)."""
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
 
     def i2c_held(tag, p):
         """Both kernels against their plain versions, bit for bit; the

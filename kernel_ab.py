@@ -33,7 +33,9 @@ kernels 8a and 8b, 5, 4, 6, 3, 1, 2 and 7; kernels 1, 2, 3, 4 and 6 on the
 three plants; kernels 9 and 10 at the roofline rows' shapes); a source with
 no cases here is refused. A variant whose
 ``models.cuh`` has another kMaxZ (a build from before the dummy family's
-functors: 5) is handed its weights in that layout. For
+functors: 5) is handed its weights in that layout, and a build of
+fused_rollout.cu from before the dummy's rows form runs that form's
+launches in its list form (``rows_as_list``). For
 fused_mppi.cu, fused_rollout.cu and admm_iterate.cu the variants also take
 turns on whole episodes of the paths that launch them (``EPISODES``: the
 MPPI kernel tier; the MPPI and CEM two-stage tiers; QP-MPC configuration
@@ -291,18 +293,21 @@ def mppi_cases(dev):
 
 
 def rollout_cases(dev):
-    """Kernel 2 at the MPPI two-stage tier's shape (each plant) and the CEM
-    two-stage tier's (cart-pole), as chip_smoke.py times it."""
+    """Kernel 2 at the MPPI two-stage tier's shape (each plant; the dummy
+    through its functors at S = 2 and 8 and in its dummy form: the rows
+    form at S = 9, 16 and 31, the list form under the dense S = 12 weights)
+    and the CEM two-stage tier's (cart-pole; the dummy's rows form and the
+    dense S = 12), as chip_smoke.py times it."""
     from benchmarking_mpc_solvers_tpu_torch.ops.fused import fused_rollout_costs_tm
 
+    mppi, cem = cs.BATCH * cs.K_SAMPLES, cs.CEM_B * cs.CEM_K
+    shapes = [("the MPPI two-stage shape", name, mppi, cs.HORIZON)
+              for name in ("cartpole_swingup", "pendulum", "acrobot", "dummy2", "dummy8",
+                           "dummy9", "dummy16", "dummy31", "dense12")]
+    shapes += [("the CEM two-stage shape", name, cem, cs.CEM_T)
+               for name in ("cartpole_swingup", "dummy9", "dummy16", "dummy31", "dense12")]
     cases = []
-    for label, name, N, T in (
-            ("the MPPI two-stage shape", "cartpole_swingup", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
-            ("the MPPI two-stage shape", "pendulum", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
-            ("the MPPI two-stage shape", "acrobot", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
-            ("the MPPI two-stage shape", "dummy2", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
-            ("the MPPI two-stage shape", "dummy8", cs.BATCH * cs.K_SAMPLES, cs.HORIZON),
-            ("the CEM two-stage shape", "cartpole_swingup", cs.CEM_B * cs.CEM_K, cs.CEM_T)):
+    for label, name, N, T in shapes:
         model = _model(name)
         gen = torch.Generator(device=dev).manual_seed(N)
         x0 = torch.rand((model.state_size, N), generator=gen, device=dev) * 2 - 1
@@ -312,6 +317,44 @@ def rollout_cases(dev):
                       [("fused_rollout_costs_tm",
                         lambda m=model, i=(x0, us, gz): fused_rollout_costs_tm(m, *i))]))
     return cases
+
+
+def rows_terms(rows, S: int) -> list:
+    """The term list (i, j, the bits of the float32 w, 0) in ``quad_cost``'s
+    order that the rows form's weights ``rows`` (``ops.fused.DummyRows``) at
+    state size S stand for: ``_build.dummy_terms``' of the same cost."""
+    import numpy as np
+
+    terms = []
+    for r in range(S):
+        terms.append((r, r, rows.d[r]))
+        if (rows.acts >> r) & 1:
+            terms.append((r, S, rows.a[r]))
+    if rows.square:
+        terms.append((S, S, rows.s))
+    return [(i, j, int(np.float32(w).view(np.int32)), 0) for i, j, w in terms]
+
+
+def rows_as_list(lib: ctypes.CDLL, source: str) -> None:
+    """A build of fused_rollout.cu from before the dummy's rows form has
+    only the list form: its library is given the rows form's entry point,
+    which runs the list kernel on the term list the rows' weights stand for
+    (``rows_terms``, kept on the device per weights and S)."""
+    if source != "fused_rollout.cu" or hasattr(lib, "fused_rollout_dummy_rows_launch"):
+        return
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import DummyRows
+
+    lists = {}
+
+    def launch(row, acts, x0, us, gz, out, T, N, S, w, stream):
+        if (w, S) not in lists:
+            lists[w, S] = torch.tensor(rows_terms(DummyRows.from_address(w), S),
+                                       dtype=torch.int32, device="cuda").reshape(-1, 4)
+        terms = lists[w, S]
+        return lib.fused_rollout_dummy_launch(S, x0, us, gz, out, T, N, _build.ptr(terms),
+                                              terms.shape[0], stream)
+
+    lib.fused_rollout_dummy_rows_launch = launch
 
 
 def roofline_cases(dev):
@@ -527,6 +570,7 @@ def main() -> int:
             return 1
         libs.append(_build.typed(ctypes.CDLL(str(path)), args.source))
         without_n_lead(libs[-1], args.source)
+        rows_as_list(libs[-1], args.source)
         if args.source in cs.SASS_LOOPS or args.source == "roofline.cu":
             print(f"{label} source: {loop_count(path, args.source)}", flush=True)
         if args.source in cs.DUMMY_SASS_LOOPS:

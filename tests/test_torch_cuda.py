@@ -231,56 +231,75 @@ def _functor_model(case):
 FUNCTOR_CASES = ["dummy1", "dummy2", "dummy5", "dummy6", "dummy8", "cartpole_reweighted"]
 
 
-# (S, weights, T, the dummy form of kernel 1, of kernel 3): the identity's
-# one action term; the same one term (S - 1, S) off the diagonal; at T =
-# 3,000 kernel 3's step records pass the card's shared memory a block and it
-# takes the whole list, as at T = 3,700 kernel 1 does; the dense weights',
-# the mid-list's (a state-only term after an action term) and weights
-# without an action term, the whole list
+# (S, weights, T, the dummy form of kernel 1, of kernel 3, of kernel 2):
+# the identity's one action term; the same one term (S - 1, S) off the
+# diagonal; at T = 3,000 kernel 3's step records pass the card's shared
+# memory a block and it takes the whole list, as at T = 3,700 kernel 1 does;
+# the dense weights', the mid-list's (a state-only term after an action
+# term) and weights without an action term, the whole list. Kernel 2 takes
+# its rows form wherever the list is every state square with or without
+# action terms (the dense weights' off-diagonal state terms take its list
+# form), staging the goals of T = 3,000 and 3,700 steps in chunks
 DUMMY_PAST_EIGHT = [
-    (9, "identity", 17, "one term", "one term"), (16, "identity", 17, "one term", "one term"),
-    (31, "identity", 17, "one term", "one term"), (12, "dense", 17, "whole list", "whole list"),
-    (16, "midlist", 17, "whole list", "whole list"),
-    (16, "identity", 50, "one term", "one term"),
-    (16, "noaction", 17, "whole list", "whole list"),
-    (16, "offsquare", 17, "one term", "one term"),
-    (16, "identity", 3000, "one term", "whole list"),
-    (16, "identity", 3700, "whole list", "whole list")]
+    (9, "identity", 17, "one term", "one term", "rows"),
+    (16, "identity", 17, "one term", "one term", "rows"),
+    (31, "identity", 17, "one term", "one term", "rows"),
+    (12, "dense", 17, "whole list", "whole list", "list"),
+    (16, "midlist", 17, "whole list", "whole list", "rows"),
+    (16, "identity", 50, "one term", "one term", "rows"),
+    (16, "noaction", 17, "whole list", "whole list", "rows"),
+    (16, "offsquare", 17, "one term", "one term", "rows"),
+    (16, "identity", 3000, "one term", "whole list", "rows"),
+    (16, "identity", 3700, "whole list", "whole list", "rows")]
 
 
-@pytest.mark.parametrize(
-    "S,weights,T,mppi_form,cem_form", DUMMY_PAST_EIGHT,
-    ids=[f"{S}-{w}" + ("" if T == 17 else f"-T{T}") for S, w, T, _, _ in DUMMY_PAST_EIGHT])
-def test_sampling_kernels_take_the_dummy_past_eight(dev, S, weights, T, mppi_form, cem_form):
-    """Kernels 1, 2 and 3 on the dummy at S > 8 (their dummy form: S and
-    the weights' terms as arguments) against their plain versions: 2 and 3
-    bit for bit, 1 within 1e-4; under dense non-identity weights (every
-    term, off-diagonals included), the mid-list weights (the identity and a
-    symmetric (8, S) term), weights without the action's term and the
-    identity with its (S, S) term moved to (S - 1, S). Kernels 1 and 3 take
-    the forms ``mppi_form`` and ``cem_form`` (``launch_config``). Kernels 4
-    and 6 have no ``Dummy<S>`` past 8 and refuse it by name."""
+def _dummy_weights(model, weights, rng):
+    """The dummy ``model`` under the card tests' ``weights``: the identity,
+    dense non-identity weights (every term, off-diagonals included; drawn
+    from ``rng``), the mid-list weights (the identity and a symmetric (8, S)
+    term), weights without the action's square (``noaction``) and the
+    identity with that term moved to (S - 1, S) (``offsquare``)."""
     import dataclasses
 
     from benchmarking_mpc_solvers_tpu_torch.models.base import quad_cost
+
+    S = model.state_size
+    Z = S + 1
+    if weights == "dense":
+        Wm = rng.uniform(-0.5, 1.0, (Z, Z)).astype(np.float32)
+        return dataclasses.replace(model, state_cost=quad_cost(Wm @ Wm.T))
+    if weights == "identity":
+        return model
+    W = np.eye(Z, dtype=np.float32)
+    if weights == "midlist":
+        W[8, S] = W[S, 8] = 0.3
+    else:
+        W[S, S] = 0.0
+    if weights == "offsquare":
+        W[S - 1, S] = W[S, S - 1] = 0.3
+    return dataclasses.replace(model, state_cost=quad_cost(W))
+
+
+@pytest.mark.parametrize(
+    "S,weights,T,mppi_form,cem_form,rollout_form", DUMMY_PAST_EIGHT,
+    ids=[f"{S}-{w}" + ("" if T == 17 else f"-T{T}") for S, w, T, _, _, _ in DUMMY_PAST_EIGHT])
+def test_sampling_kernels_take_the_dummy_past_eight(dev, S, weights, T, mppi_form, cem_form,
+                                                    rollout_form):
+    """Kernels 1, 2 and 3 on the dummy at S > 8 (their dummy form: S and
+    the weights' terms as arguments) against their plain versions: 2 and 3
+    bit for bit, 1 within 1e-4; under ``_dummy_weights``' weights. Kernels
+    1, 3 and 2 take the forms ``mppi_form``, ``cem_form`` and
+    ``rollout_form`` (``launch_config``; kernel 2's without local memory).
+    Kernels 4 and 6 have no ``Dummy<S>`` past 8 and refuse it by name."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_config
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_cem import launch_config as cem_config
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config as mppi_config
 
-    model = _functor_model(f"dummy{S}")
     Z = S + 1
     rng = np.random.default_rng(S)
-    if weights == "dense":
-        Wm = rng.uniform(-0.5, 1.0, (Z, Z)).astype(np.float32)
-        model = dataclasses.replace(model, state_cost=quad_cost(Wm @ Wm.T))
-    elif weights != "identity":
-        W = np.eye(Z, dtype=np.float32)
-        if weights == "midlist":
-            W[8, S] = W[S, 8] = 0.3
-        else:
-            W[S, S] = 0.0
-        if weights == "offsquare":
-            W[S - 1, S] = W[S, S - 1] = 0.3
-        model = dataclasses.replace(model, state_cost=quad_cost(W))
+    model = _dummy_weights(_functor_model(f"dummy{S}"), weights, rng)
+    rc = rollout_config(model, 4097, T)
+    assert (rc["form"], rc["local_bytes"]) == (rollout_form, 0)
     B, K = 1001, 48
     assert mppi_config(model, T, K, B)["form"] == mppi_form
     assert cem_config(model, T, K, B)["form"] == cem_form
@@ -311,6 +330,90 @@ def test_sampling_kernels_take_the_dummy_past_eight(dev, S, weights, T, mppi_for
                          plan.T[..., None].contiguous(),
                          torch.zeros((B, T, 1, S), device=dev),
                          torch.zeros((B, T + 1, S), device=dev), gz)
+
+
+# (S, weights, N, T, kernel 2's dummy form): the rows form's widths past 16
+# (17: rows of 20; 32, its widest), the list form past them (33, 64); every
+# compiled row (12 to 32) with and without action terms; ragged N about a
+# block of 256 rollouts (1, 255, 257) and one step; the dense, mid-list,
+# no-action and off-square weights at other widths
+ROLLOUT_DUMMY_EDGES = [
+    (17, "identity", 4097, 17, "rows"), (32, "identity", 4097, 17, "rows"),
+    (33, "identity", 4097, 17, "list"), (64, "identity", 1000, 17, "list"),
+    (16, "identity", 1, 17, "rows"), (16, "identity", 255, 17, "rows"),
+    (16, "identity", 257, 17, "rows"), (16, "identity", 300, 1, "rows"),
+    (20, "dense", 300, 9, "list"), (24, "midlist", 1000, 17, "rows"),
+    (12, "noaction", 1000, 17, "rows"), (32, "offsquare", 1000, 17, "rows"),
+    (9, "offsquare", 257, 17, "rows"), (20, "offsquare", 1000, 17, "rows"),
+    (24, "identity", 1000, 17, "rows"), (26, "identity", 1000, 17, "rows"),
+    (28, "offsquare", 1000, 17, "rows")]
+
+
+@pytest.mark.parametrize(
+    "S,weights,N,T,form", ROLLOUT_DUMMY_EDGES,
+    ids=[f"{S}-{w}-N{N}-T{T}" for S, w, N, T, _ in ROLLOUT_DUMMY_EDGES])
+def test_rollout_kernel_dummy_form_edges(dev, S, weights, N, T, form):
+    """Kernel 2's dummy form at its edges against the plain version, bit
+    for bit: goals that differ at every step (a step of -0.0 goals among
+    them), and NaN, ±inf, saturating and negative-zero states and actions
+    in some rollouts; ``launch_config`` names the form, without local
+    memory."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_config
+
+    rng = np.random.default_rng(1000 + S + N + T)
+    model = _dummy_weights(_functor_model(f"dummy{S}"), weights, rng)
+    cfg = rollout_config(model, N, T)
+    assert (cfg["form"], cfg["local_bytes"]) == (form, 0)
+    x0 = rng.uniform(-1, 1, (S, N)).astype(np.float32)
+    us = rng.uniform(-2.0, 2.0, (T, N)).astype(np.float32)
+    gz = rng.uniform(-0.3, 0.3, (T, S + 1)).astype(np.float32)
+    gz[T // 2] = -0.0
+    specials = [(x0, (0, N - 1), np.nan), (us, (T - 1, N // 2), np.nan),
+                (x0, (S - 1, N // 3), np.inf), (us, (0, N // 4), -np.inf),
+                (x0, (S // 2, N // 5), 3e19), (us, (T // 2, N // 6), -4e19),
+                (x0, (slice(None), N // 7), -0.0), (us, (slice(None), N // 7), -0.0)]
+    for a, at, v in specials:
+        a[at] = v
+    before = fused_rollout_costs_tm.launches
+    got = fused_rollout_costs_tm(model, _t(x0, dev), _t(us, dev), _t(gz, dev))
+    torch.cuda.synchronize()
+    assert fused_rollout_costs_tm.launches == before + 1
+    _bits(got, fused_rollout_costs_tm_reference(model, _t(x0, dev), _t(us, dev), _t(gz, dev)))
+
+
+# (S, weights, T, form, row, chunk, shared bytes): the steps of goals a
+# block of the rows form stages at a time (row + 4 floats a step, the whole
+# horizon where it fits 24 KB, chunks of the steps that fit past it: T =
+# 3,000 and 3,700 at S = 16) at every compiled row with and without action
+# terms; the list form stages nothing
+ROLLOUT_DUMMY_LAUNCHES = [
+    (9, "identity", 17, "rows", 12, 17, 1088), (9, "offsquare", 17, "rows", 12, 17, 1088),
+    (16, "identity", 50, "rows", 16, 50, 4000), (16, "identity", 1, "rows", 16, 1, 80),
+    (16, "identity", 307, "rows", 16, 307, 24560), (16, "identity", 308, "rows", 16, 307, 24560),
+    (16, "identity", 3700, "rows", 16, 307, 24560), (16, "midlist", 3000, "rows", 16, 307, 24560),
+    (20, "identity", 0, "rows", 20, 1, 96), (20, "offsquare", 50, "rows", 20, 50, 4800),
+    (24, "identity", 50, "rows", 24, 50, 5600), (24, "midlist", 50, "rows", 24, 50, 5600),
+    (28, "identity", 50, "rows", 28, 50, 6400), (28, "offsquare", 50, "rows", 28, 50, 6400),
+    (31, "identity", 50, "rows", 32, 50, 7200), (31, "identity", 3000, "rows", 32, 170, 24480),
+    (32, "offsquare", 50, "rows", 32, 50, 7200), (12, "dense", 50, "list", 0, 0, 0),
+    (40, "identity", 50, "list", 0, 0, 0)]
+
+
+@pytest.mark.parametrize(
+    "S,weights,T,form,row,chunk,shared", ROLLOUT_DUMMY_LAUNCHES,
+    ids=[f"{S}-{w}-T{T}" for S, w, T, *_ in ROLLOUT_DUMMY_LAUNCHES])
+def test_rollout_kernel_dummy_launch_config(dev, S, weights, T, form, row, chunk, shared):
+    """Kernel 2's dummy form: the form, row, chunk of goals and shared
+    bytes its entry points launch with, and no local memory in any
+    instance."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused import launch_config as rollout_config
+
+    model = _dummy_weights(_functor_model(f"dummy{S}"), weights, np.random.default_rng(S))
+    cfg = rollout_config(model, 4097, T)
+    assert (cfg["form"], cfg["row"], cfg["chunk"], cfg["shared_bytes"]) == (form, row, chunk,
+                                                                              shared)
+    assert (cfg["threads"], cfg["blocks"], cfg["local_bytes"]) == (256, 17, 0)
+    assert cfg["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("case", FUNCTOR_CASES)

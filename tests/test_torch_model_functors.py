@@ -6,8 +6,8 @@ act element by element over the leading axes: the dummy family
 (``make_dummy_model(S, 1)``) and the plants under other ``quad_cost``
 weights. The port's plain versions of those kernels are held here against
 the JAX kernels run in interpret mode on ``DummyModel``, the dummy at S = 1,
-8, 9, 16 and 31 (kernels 1, 2 and 3 take S > 8 in their dummy form, S an
-argument), the dummy at S = 16 under four other weights
+8, 9, 16, 31 and 33 (kernels 1, 2 and 3 take S > 8 in their dummy form, S an
+argument; kernel 2 holds S up to 32 in registers), the dummy at S = 16 under four other weights
 (``test_torch_dummy_split.py``), and cart-pole with configuration 2's weights
 (``scripts/bench_suite.py:184-185``), with actions beyond the dummy's ±1
 bounds (its transform sees u unclipped). The noise is the reference's
@@ -82,9 +82,11 @@ def _pair(name):
 # form, S an argument); kernels 4 and 6 stop at S = 8 (the Riccati kernel's
 # state bound keeps larger S off their tiers in both packages). dummy16-*:
 # the weights that send kernels 1 and 3's dummy form down its other paths
-# (test_torch_dummy_split.py)
+# (test_torch_dummy_split.py); dummy33: past kernel 2's widest row of
+# registers (its list form, ops/fused.py: dummy_plan)
 MODELS = ["dummy2", "dummy1", "dummy8", "cartpole_reweighted", "dummy9", "dummy16", "dummy31",
-          "dummy16-dense", "dummy16-midlist", "dummy16-noaction", "dummy16-offsquare"]
+          "dummy16-dense", "dummy16-midlist", "dummy16-noaction", "dummy16-offsquare",
+          "dummy33"]
 # the reference's kernel 4 pushes a tangent per state: in interpret mode it
 # takes 38 s at S = 16 and 188 s at S = 31, so its test stops at S = 9
 DERIV_MODELS = MODELS[:5]
