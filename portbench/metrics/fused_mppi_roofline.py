@@ -1,0 +1,16 @@
+"""Kernel 1 (the single-kernel MPPI step): the least time its work takes on
+the card (``counts.mppi_work`` at the cell's B, K, T) over its mean device
+time in the traced stretch, in %."""
+
+from portbench import counts
+from portbench.trace import hand_written
+
+
+def read(ctx):
+    times = ctx.trace.kernel_times(hand_written()["fused_mppi"]) if ctx.trace else []
+    if not times:
+        return None
+    a = ctx.config["solver_args"]
+    least, _ = counts.least_time_s(counts.mppi_work(counts.plant(ctx.config["env"]),
+                                                    ctx.batch, a["K"], a["T"]))
+    return 100.0 * least / (sum(times) / len(times))
