@@ -10,6 +10,13 @@ Recorded history (the reference result schema): observations, true states
 (with x0), actuated and commanded actions, plant costs, done flags, and with
 ``record_plans`` the per-step plans, their simulated states and costs, and
 the warm-start plans.
+
+Each runner marks its stages with ``utils.profiling.span`` (no-ops unless
+the profiler runs): ``episode.batch`` the whole call, ``episode.warmstart``
+the warm-start solver calls, ``episode.step`` each MPC step and, inside it,
+``episode.solve`` (the solver call and the runner's clip and shift of the
+plan) and ``episode.plant`` (the action's clip, the plant step and the
+step's record).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from ..envs.env import Env, NoiseConfig, env_step
 from ..ops.rollout import simulate_trajectory
 from ..solvers.base import (
     Solver, check_device_functor, predict_action, shift_plan, warm_start)
+from ..utils.profiling import span
 
 
 class EpisodeResult(NamedTuple):
@@ -96,25 +104,30 @@ def run_episode(env: Env, solver: Solver, cfg: EpisodeConfig, x0=None,
                 device="cuda") -> EpisodeResult:
     """One closed-loop episode through ``solver.solve`` (per-scenario tier)."""
     device = resolve_device(device)
-    gen = default_generator(generator, device)
-    x0 = env.start_state(device) if x0 is None else torch.as_tensor(
-        x0, dtype=torch.float32, device=device)
-    g_z = _goal(cfg, solver, device)
-    sstate = solver.init_state(gen, device)
-    ws = None
-    if cfg.warmstart > 0:
-        sstate, ws = warm_start(solver, sstate, x0, g_z, cfg.warmstart)
-    x_true = obs = x0
-    recs = []
-    for _ in range(cfg.n_steps):
-        out = predict_action(solver, sstate, obs, g_z, shift=cfg.record_plans)
-        es = env_step(env, x_true, out.action, cfg.noise, gen)
-        plans = ((out.planned_xs, out.planned_us, out.planned_cost)
-                 if cfg.record_plans else (None, None, None))
-        recs.append((es.observation, es.true_state, es.action, es.true_action,
-                     es.cost, es.done) + plans)
-        sstate, x_true, obs = out.state, es.true_state, es.observation
-    return _result(x0, recs, ws, batch_first=False)
+    with span("episode.batch"):
+        gen = default_generator(generator, device)
+        x0 = env.start_state(device) if x0 is None else torch.as_tensor(
+            x0, dtype=torch.float32, device=device)
+        g_z = _goal(cfg, solver, device)
+        sstate = solver.init_state(gen, device)
+        ws = None
+        if cfg.warmstart > 0:
+            with span("episode.warmstart"):
+                sstate, ws = warm_start(solver, sstate, x0, g_z, cfg.warmstart)
+        x_true = obs = x0
+        recs = []
+        for _ in range(cfg.n_steps):
+            with span("episode.step"):
+                with span("episode.solve"):
+                    out = predict_action(solver, sstate, obs, g_z, shift=cfg.record_plans)
+                with span("episode.plant"):
+                    es = env_step(env, x_true, out.action, cfg.noise, gen)
+                    plans = ((out.planned_xs, out.planned_us, out.planned_cost)
+                             if cfg.record_plans else (None, None, None))
+                    recs.append((es.observation, es.true_state, es.action, es.true_action,
+                                 es.cost, es.done) + plans)
+                sstate, x_true, obs = out.state, es.true_state, es.observation
+        return _result(x0, recs, ws, batch_first=False)
 
 
 def _initial_plans(init_plans, B: int, T: int, A: int, device):
@@ -132,39 +145,45 @@ def _run_episodes_two_stage(env: Env, solver, cfg: EpisodeConfig, x0s, gen,
     (B, T, A) replaces the solver's initial plans."""
     model = env.model
     device = x0s.device
-    g_z = _goal(cfg, solver, device)
-    sstates = solver.init_state_batch(x0s.shape[0], gen, device)
-    if init_plans is not None:
-        sstates = sstates._replace(planned_us=_initial_plans(
-            init_plans, x0s.shape[0], solver.T, model.action_size, device))
+    with span("episode.batch"):
+        g_z = _goal(cfg, solver, device)
+        sstates = solver.init_state_batch(x0s.shape[0], gen, device)
+        if init_plans is not None:
+            sstates = sstates._replace(planned_us=_initial_plans(
+                init_plans, x0s.shape[0], solver.T, model.action_size, device))
 
-    ws = None
-    if cfg.warmstart > 0:
-        trajs = []
-        for _ in range(cfg.warmstart):
-            sstates, _, _ = solver.solve_batch(sstates, x0s, g_z, use_fused=use_fused)
-            sstates = sstates._replace(planned_us=model.clip_action(sstates.planned_us))
-            trajs.append(sstates.planned_us)
-        if cfg.record_plans:
-            ws = torch.stack(trajs, dim=1)  # (B, W, T, A)
+        ws = None
+        if cfg.warmstart > 0:
+            with span("episode.warmstart"):
+                trajs = []
+                for _ in range(cfg.warmstart):
+                    sstates, _, _ = solver.solve_batch(sstates, x0s, g_z, use_fused=use_fused)
+                    sstates = sstates._replace(
+                        planned_us=model.clip_action(sstates.planned_us))
+                    trajs.append(sstates.planned_us)
+                if cfg.record_plans:
+                    ws = torch.stack(trajs, dim=1)  # (B, W, T, A)
 
-    x_true = obs = x0s
-    recs = []
-    for _ in range(cfg.n_steps):
-        sstates, u0s, _ = solver.solve_batch(sstates, obs, g_z, use_fused=use_fused)
-        planned = model.clip_action(sstates.planned_us)
-        if cfg.record_plans:
-            pxs, pcs = simulate_trajectory(model, obs, planned, g_z)
-            sstates = sstates._replace(planned_us=shift_plan(planned))
-            plans = (pxs, planned, pcs)
-        else:
-            sstates = sstates._replace(planned_us=planned)
-            plans = (None, None, None)
-        es = env_step(env, x_true, model.clip_action(u0s), cfg.noise, gen)
-        recs.append((es.observation, es.true_state, es.action, es.true_action,
-                     es.cost, es.done) + plans)
-        x_true, obs = es.true_state, es.observation
-    return _result(x0s, recs, ws, batch_first=True)
+        x_true = obs = x0s
+        recs = []
+        for _ in range(cfg.n_steps):
+            with span("episode.step"):
+                with span("episode.solve"):
+                    sstates, u0s, _ = solver.solve_batch(sstates, obs, g_z, use_fused=use_fused)
+                    planned = model.clip_action(sstates.planned_us)
+                    if cfg.record_plans:
+                        pxs, pcs = simulate_trajectory(model, obs, planned, g_z)
+                        sstates = sstates._replace(planned_us=shift_plan(planned))
+                        plans = (pxs, planned, pcs)
+                    else:
+                        sstates = sstates._replace(planned_us=planned)
+                        plans = (None, None, None)
+                with span("episode.plant"):
+                    es = env_step(env, x_true, model.clip_action(u0s), cfg.noise, gen)
+                    recs.append((es.observation, es.true_state, es.action, es.true_action,
+                                 es.cost, es.done) + plans)
+                x_true, obs = es.true_state, es.observation
+        return _result(x0s, recs, ws, batch_first=True)
 
 
 def run_episodes_batch(env: Env, solver, cfg: EpisodeConfig, x0s,
@@ -226,51 +245,59 @@ def _run_episodes_kernel(env: Env, solver, cfg: EpisodeConfig, x0s, seeds=None,
     allocated or launched."""
     device = resolve_device(device)
     check_device_functor(f"{type(solver).__name__}.solve_batch_tm", solver.model, device)
-    x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)
-    gen = default_generator(generator, device)
-    model = env.model
-    B = x0s.shape[0]
-    n_calls = cfg.warmstart + cfg.n_steps
-    if seeds is None:
-        seeds = torch.randint(-(2**31), 2**31 - 1, (n_calls,), generator=gen,
-                              device=device, dtype=torch.int64)
-    if torch.is_tensor(seeds):
-        seeds = seeds.cpu()
-    seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
-    if len(seeds) != n_calls:
-        raise ValueError(f"need {n_calls} seeds (warmstart + n_steps), got {len(seeds)}")
-    g_z = _goal(cfg, solver, device)
-    lo, hi = float(model.bounds_low[0]), float(model.bounds_high[0])
+    with span("episode.batch"):
+        x0s = torch.as_tensor(x0s, dtype=torch.float32, device=device)
+        gen = default_generator(generator, device)
+        model = env.model
+        B = x0s.shape[0]
+        n_calls = cfg.warmstart + cfg.n_steps
+        if seeds is None:
+            seeds = torch.randint(-(2**31), 2**31 - 1, (n_calls,), generator=gen,
+                                  device=device, dtype=torch.int64)
+        if torch.is_tensor(seeds):
+            seeds = seeds.cpu()
+        seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
+        if len(seeds) != n_calls:
+            raise ValueError(f"need {n_calls} seeds (warmstart + n_steps), got {len(seeds)}")
+        g_z = _goal(cfg, solver, device)
+        lo, hi = float(model.bounds_low[0]), float(model.bounds_high[0])
 
-    if init_plans is None:
-        planned_tm = torch.zeros((solver.T, B), dtype=torch.float32, device=device)
-    else:
-        planned_tm = _initial_plans(init_plans, B, solver.T, 1, device)[..., 0].T.contiguous()
-    x0s_tm = x0s.T.contiguous()
-    ws = []
-    for seed in seeds[: cfg.warmstart]:
-        planned_tm, _ = solver.solve_batch_tm(planned_tm, x0s_tm, g_z, seed)
-        planned_tm = torch.clamp(planned_tm, lo, hi)
-        ws.append(planned_tm.T[..., None])
-
-    x_true = obs = x0s
-    recs = []
-    for seed in seeds[cfg.warmstart:]:
-        planned_tm, u0s = solver.solve_batch_tm(planned_tm, obs.T.contiguous(), g_z, seed)
-        planned_tm = torch.clamp(planned_tm, lo, hi)
-        if cfg.record_plans:
-            planned = planned_tm.T[..., None]  # (B, T, 1)
-            pxs, pcs = simulate_trajectory(model, obs, planned, g_z)
-            plans = (pxs, planned, pcs)
-            planned_next = torch.roll(planned_tm, -1, dims=0)
-            planned_next[-1] = 0.0
+        if init_plans is None:
+            planned_tm = torch.zeros((solver.T, B), dtype=torch.float32, device=device)
         else:
-            plans = (None, None, None)
-            planned_next = planned_tm
-        actions = torch.clamp(u0s, lo, hi)[:, None]  # (B, A=1)
-        es = env_step(env, x_true, actions, cfg.noise, gen)
-        recs.append((es.observation, es.true_state, es.action, es.true_action,
-                     es.cost, es.done) + plans)
-        planned_tm, x_true, obs = planned_next, es.true_state, es.observation
-    ws = torch.stack(ws, dim=1) if (ws and cfg.record_plans) else None
-    return _result(x0s, recs, ws, batch_first=True)
+            planned_tm = _initial_plans(init_plans, B, solver.T, 1,
+                                        device)[..., 0].T.contiguous()
+        x0s_tm = x0s.T.contiguous()
+        ws = []
+        if cfg.warmstart > 0:
+            with span("episode.warmstart"):
+                for seed in seeds[: cfg.warmstart]:
+                    planned_tm, _ = solver.solve_batch_tm(planned_tm, x0s_tm, g_z, seed)
+                    planned_tm = torch.clamp(planned_tm, lo, hi)
+                    ws.append(planned_tm.T[..., None])
+
+        x_true = obs = x0s
+        recs = []
+        for seed in seeds[cfg.warmstart:]:
+            with span("episode.step"):
+                with span("episode.solve"):
+                    planned_tm, u0s = solver.solve_batch_tm(planned_tm, obs.T.contiguous(), g_z,
+                                                            seed)
+                    planned_tm = torch.clamp(planned_tm, lo, hi)
+                    if cfg.record_plans:
+                        planned = planned_tm.T[..., None]  # (B, T, 1)
+                        pxs, pcs = simulate_trajectory(model, obs, planned, g_z)
+                        plans = (pxs, planned, pcs)
+                        planned_next = torch.roll(planned_tm, -1, dims=0)
+                        planned_next[-1] = 0.0
+                    else:
+                        plans = (None, None, None)
+                        planned_next = planned_tm
+                with span("episode.plant"):
+                    actions = torch.clamp(u0s, lo, hi)[:, None]  # (B, A=1)
+                    es = env_step(env, x_true, actions, cfg.noise, gen)
+                    recs.append((es.observation, es.true_state, es.action, es.true_action,
+                                 es.cost, es.done) + plans)
+                planned_tm, x_true, obs = planned_next, es.true_state, es.observation
+        ws = torch.stack(ws, dim=1) if (ws and cfg.record_plans) else None
+        return _result(x0s, recs, ws, batch_first=True)

@@ -21,7 +21,9 @@ scenario's noise does not depend on its batch slot. The parity tests inject
 the reference's draws instead. ``solve_batch(use_fused=False)`` runs the
 same lock-step iterations with the plain rollout in place of the kernel and
 ``solve``'s elite statistics, for any action size and with planning-model
-noise.
+noise. ``solve_batch`` marks each iteration's stages with
+``utils.profiling.span``: ``cem.draw``, ``cem.rollout`` and ``cem.refit``
+(the elite moments and the blend).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..ops.fused import fused_rollout_costs_tm
 from ..ops.fused_cem import fused_cem_step
 from ..ops.fused_mppi import pick_lanes, scenario_normals, scenario_seeds
 from ..ops.rollout import rollout_cost, rollout_cost_noisy
+from ..utils.profiling import span
 from .base import Solver
 
 
@@ -151,58 +154,70 @@ class CEM(Solver):
         else:
             box = (model.lo(xs.device), model.hi(xs.device))
         for i in range(self.max_iter):
-            draws = None
-            if noise is None or draw_x:
-                draws = scenario_normals(state.seeds, state.calls + i, K, width)  # (B, K, width)
-            d = (noise[i] if noise is not None else draws[..., :T * A]).reshape(B, K, T, A)
-            if use_fused:
-                e_mean, e_std = self._fused_iteration(model, x0_tm, g_z, mean[..., 0],
-                                                      std[..., 0], d[..., 0])
-                e_mean, e_std = e_mean[..., None], e_std[..., None]
-            else:
+            with span("cem.draw"):
+                draws = None
+                if noise is None or draw_x:
+                    draws = scenario_normals(state.seeds, state.calls + i, K,
+                                             width)  # (B, K, width)
+                d = (noise[i] if noise is not None else draws[..., :T * A]).reshape(B, K, T, A)
                 xn = None
                 if noisy:
                     xn = xnoise[i] if xnoise is not None else (
                         self.model_noise_std * draws[..., T * A:].reshape(B, K, T, S))
-                e_mean, e_std = self._plain_iteration(model, xs, g_z, box, mean, std, d, xn)
-            new_mean = self.alpha * mean + (1.0 - self.alpha) * e_mean
-            new_std = self.alpha * std + (1.0 - self.alpha) * e_std
-            mean = torch.where(done[:, None, None], mean, new_mean)
-            std = torch.where(done[:, None, None], std, new_std)
-            done = done | (std < self.epsilon).flatten(1).all(dim=1)
+            with span("cem.rollout"):
+                if use_fused:
+                    samples, costs = self._fused_rollout(model, x0_tm, g_z, mean[..., 0],
+                                                         std[..., 0], d[..., 0])
+                else:
+                    samples, costs = self._plain_rollout(model, xs, g_z, box, mean, std, d, xn)
+            with span("cem.refit"):
+                elites = self._fused_elites if use_fused else self._plain_elites
+                e_mean, e_std = elites(samples, costs)
+                new_mean = self.alpha * mean + (1.0 - self.alpha) * e_mean
+                new_std = self.alpha * std + (1.0 - self.alpha) * e_std
+                mean = torch.where(done[:, None, None], mean, new_mean)
+                std = torch.where(done[:, None, None], std, new_std)
+                done = done | (std < self.epsilon).flatten(1).all(dim=1)
         calls = None if state.calls is None else state.calls + self.max_iter
         return state._replace(planned_us=mean, calls=calls), mean[:, 0], {}
 
-    def _fused_iteration(self, model, x0_tm, g_z, mean, std, d):
-        """Elite mean and std (B, T) of one iteration of the fused tier from
-        starts x0_tm (S, B·K): samples time-major (T, B, K), as the kernel
-        reads them, and one-hot moments over K."""
+    def _fused_rollout(self, model, x0_tm, g_z, mean, std, d):
+        """One iteration's samples of the fused tier, time-major (T, B, K) as
+        the kernel reads them, from mean and std (B, T) and normals d
+        (B, K, T), and their costs (B, K) from starts x0_tm (S, B·K)."""
         B, T = mean.shape
-        K = self.K
-        N = B * K
         lo, hi = float(model.bounds_low[0]), float(model.bounds_high[0])
         samples_tm = torch.clamp(mean.T[:, :, None] + std.T[:, :, None] * d.permute(2, 0, 1),
                                  lo, hi).contiguous()  # (T, B, K)
-        costs = _guard(fused_rollout_costs_tm(model, x0_tm, samples_tm.reshape(T, N), g_z)
-                       .reshape(B, K))
-        elite = torch.topk(-costs, self.n_elite, dim=1).indices  # (B, n_elite)
-        mask = torch.zeros((B, K), dtype=torch.float32, device=mean.device).scatter(
+        costs = fused_rollout_costs_tm(model, x0_tm, samples_tm.reshape(T, B * self.K), g_z)
+        return samples_tm, costs.reshape(B, self.K)
+
+    def _fused_elites(self, samples_tm, costs):
+        """Elite mean and std (B, T, 1) of the fused tier's samples
+        (T, B, K): one-hot moments over K."""
+        elite = torch.topk(-_guard(costs), self.n_elite, dim=1).indices  # (B, n_elite)
+        mask = torch.zeros(costs.shape, dtype=torch.float32, device=costs.device).scatter(
             1, elite, 1.0 / self.n_elite)
         e_mean = (mask[None] * samples_tm).sum(dim=-1).T
         e_sq = (mask[None] * samples_tm**2).sum(dim=-1).T
-        return e_mean, torch.sqrt(torch.clamp(e_sq - e_mean**2, min=0.0))
+        e_std = torch.sqrt(torch.clamp(e_sq - e_mean**2, min=0.0))
+        return e_mean[..., None], e_std[..., None]
 
-    def _plain_iteration(self, model, xs, g_z, box, mean, std, d, xn):
-        """Elite mean and std (B, T, A) of one iteration of the plain tier,
-        as ``solve`` takes them: samples clipped to ``box`` (lo, hi), state
-        noise ``xn`` (B, K, T, S) or None."""
+    def _plain_rollout(self, model, xs, g_z, box, mean, std, d, xn):
+        """One iteration's samples (B, K, T, A) of the plain tier, as
+        ``solve`` takes them: clipped to ``box`` (lo, hi); and their costs
+        (B, K) under state noise ``xn`` (B, K, T, S) or None."""
         samples = torch.clamp(mean[:, None] + std[:, None] * d, *box)
         if xn is None:
             costs, _ = rollout_cost(model, xs[:, None], samples, g_z)
         else:
             costs, _ = rollout_cost_noisy(model, xs[:, None], samples, g_z, xn)
+        return samples, costs
+
+    def _plain_elites(self, samples, costs):
+        """Elite mean and std (B, T, A) of the plain tier's samples."""
         elite = torch.topk(-_guard(costs), self.n_elite, dim=1).indices  # (B, n_elite)
-        elites = samples[torch.arange(xs.shape[0], device=xs.device)[:, None], elite]
+        elites = samples[torch.arange(samples.shape[0], device=samples.device)[:, None], elite]
         e_mean = elites.mean(dim=1)
         return e_mean, torch.sqrt(((elites - e_mean[:, None]) ** 2).mean(dim=1))
 

@@ -15,7 +15,9 @@ on its plain tier its planning-model noise, from its own counter-based stream
 (``scenario_normals``: the scenario's seed, its draw count, k, t), so they do
 not depend on the batch slot, as the reference's per-scenario keys do not.
 The kernel tier draws its own counter-based noise from one seed per call.
-The parity tests inject the reference's draws instead.
+The parity tests inject the reference's draws instead. ``solve_batch``
+marks its stages with ``utils.profiling.span``: ``mppi.draw``,
+``mppi.rollout`` and ``mppi.update``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..device import resolve_device
 from ..ops.fused import fused_rollout_costs_tm
 from ..ops.fused_mppi import fused_mppi_step, pick_lanes, scenario_normals, scenario_seeds
 from ..ops.rollout import rollout_cost, rollout_cost_noisy
+from ..utils.profiling import span
 from .base import Solver
 
 
@@ -129,37 +132,43 @@ class MPPI(Solver):
             raise ValueError("solve_batch: the fused tier plans without model noise; "
                              "pass xnoise with use_fused=False")
         noisy = not use_fused and self.model_noise_std > 0.0
-        draws = None
-        if delta_tm is None or (noisy and xnoise is None):
-            draws = scenario_normals(state.seeds, state.calls, K, T * (A + S) if noisy else T * A)
-        if delta_tm is None:
-            delta = self.std * draws[..., :T * A].reshape(B, K, T, A)
-            if A == 1:
-                delta_tm = delta[..., 0].permute(2, 0, 1).reshape(T, N)
-        else:
-            delta = delta_tm.reshape(T, B, K).permute(1, 2, 0)[..., None]
-        if noisy and xnoise is None:
-            xnoise = self.model_noise_std * draws[..., T * A:].reshape(B, K, T, S)
-        state = state._replace(calls=state.calls + 1)
+        with span("mppi.draw"):
+            draws = None
+            if delta_tm is None or (noisy and xnoise is None):
+                draws = scenario_normals(state.seeds, state.calls, K,
+                                         T * (A + S) if noisy else T * A)
+            if delta_tm is None:
+                delta = self.std * draws[..., :T * A].reshape(B, K, T, A)
+                if A == 1:
+                    delta_tm = delta[..., 0].permute(2, 0, 1).reshape(T, N)
+            else:
+                delta = delta_tm.reshape(T, B, K).permute(1, 2, 0)[..., None]
+            if noisy and xnoise is None:
+                xnoise = self.model_noise_std * draws[..., T * A:].reshape(B, K, T, S)
+            state = state._replace(calls=state.calls + 1)
 
         if use_fused and A == 1:
-            planned_tm = state.planned_us[..., 0].T  # (T, B)
-            us_tm = planned_tm[:, :, None].expand(T, B, K).reshape(T, N) + delta_tm
-            x0_tm = xs.T[:, :, None].expand(S, B, K).reshape(S, N)
-            roll = fused_rollout_costs_tm(model, x0_tm, us_tm, g_z).reshape(B, K)
-            ctrl = self.lam * (us_tm * delta_tm).sum(dim=0).reshape(B, K) / self.std**2
-            costs, w = _weights(roll + ctrl, self.lam, dim=1)
-            upd = (w[None] * delta_tm.reshape(T, B, K)).sum(dim=-1).T
-            planned = state.planned_us + upd[:, :, None]
+            with span("mppi.rollout"):
+                planned_tm = state.planned_us[..., 0].T  # (T, B)
+                us_tm = planned_tm[:, :, None].expand(T, B, K).reshape(T, N) + delta_tm
+                x0_tm = xs.T[:, :, None].expand(S, B, K).reshape(S, N)
+                roll = fused_rollout_costs_tm(model, x0_tm, us_tm, g_z).reshape(B, K)
+            with span("mppi.update"):
+                ctrl = self.lam * (us_tm * delta_tm).sum(dim=0).reshape(B, K) / self.std**2
+                costs, w = _weights(roll + ctrl, self.lam, dim=1)
+                upd = (w[None] * delta_tm.reshape(T, B, K)).sum(dim=-1).T
+                planned = state.planned_us + upd[:, :, None]
         else:
-            samples = state.planned_us[:, None] + delta  # (B, K, T, A)
-            if noisy:
-                roll, _ = rollout_cost_noisy(model, xs[:, None], samples, g_z, xnoise)
-            else:
-                roll, _ = rollout_cost(model, xs[:, None], samples, g_z)
-            ctrl = self.lam * (samples * delta).sum(dim=(2, 3)) / self.std**2
-            costs, w = _weights(roll + ctrl, self.lam, dim=1)
-            planned = state.planned_us + (w[:, :, None, None] * delta).sum(dim=1)
+            with span("mppi.rollout"):
+                samples = state.planned_us[:, None] + delta  # (B, K, T, A)
+                if noisy:
+                    roll, _ = rollout_cost_noisy(model, xs[:, None], samples, g_z, xnoise)
+                else:
+                    roll, _ = rollout_cost(model, xs[:, None], samples, g_z)
+            with span("mppi.update"):
+                ctrl = self.lam * (samples * delta).sum(dim=(2, 3)) / self.std**2
+                costs, w = _weights(roll + ctrl, self.lam, dim=1)
+                planned = state.planned_us + (w[:, :, None, None] * delta).sum(dim=1)
         return state._replace(planned_us=planned), planned[:, 0], {"sample_costs": costs}
 
     def calls_model_kernels(self) -> bool:

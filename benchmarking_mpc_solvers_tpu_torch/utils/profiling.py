@@ -3,7 +3,16 @@
 Counterpart of ``benchmarking_mpc_solvers_tpu/utils/profiling.py``:
 
 - ``trace`` wraps ``torch.profiler`` around a block and writes a Chrome
-  trace into its directory;
+  trace and the per-stage totals of the program's spans into its
+  directory;
+- ``span`` marks a stage of the program (the episode runners' batch, step,
+  solve and plant; the batched MPPI and CEM solves' draw, rollout and
+  update or refit). With the profiler off it is one flag read and a
+  shared no-op context. Under the profiler it is a ``record_function``
+  range in the trace, on the clock of the device's operations, and a pair
+  of timing marks (CUDA events on the current stream; the host's clock
+  where CUDA is not in use) kept in memory; ``span_totals`` sums them by
+  name, ``clear_spans`` forgets them;
 - ``device_step_latency`` and ``slope_timer`` estimate device time per step
   or per call from chains of two lengths, so that a chain's constant cost
   (the host's launches before the first step, the synchronization after the
@@ -19,6 +28,7 @@ without CUDA); a CPU run times the CPU and is no device measurement.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import tempfile
 import time
@@ -26,24 +36,103 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..device import resolve_device
+
+_SPANS: list = []  # (name, enclosing span's name or None, (start mark, end mark))
+_OPEN: list = []  # names of the spans entered and not yet left, innermost last
+_OFF = contextlib.nullcontext()
+
+
+def _mark():
+    """A timing mark: a CUDA event recorded on the current stream where CUDA
+    is in use, else the host's clock in ns (the host is the device)."""
+    if torch.cuda.is_initialized():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+    return time.perf_counter_ns()
+
+
+class _Span:
+    """A span under the profiler: a ``record_function`` range with a pair
+    of timing marks inside it, appended to the recorded spans on exit."""
+
+    __slots__ = ("name", "parent", "start", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.parent = _OPEN[-1] if _OPEN else None
+        _OPEN.append(self.name)
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.start = _mark()
+        return self
+
+    def __exit__(self, *exc):
+        end = _mark()
+        self.range.__exit__(*exc)
+        _OPEN.pop()
+        _SPANS.append((self.name, self.parent, (self.start, end)))
+        return False
+
+
+def span(name: str):
+    """A context that marks a stage of the program. With the profiler off
+    (the flag is read first) it is a shared no-op: nothing is allocated or
+    recorded. Under ``torch.profiler`` it enters ``record_function(name)``
+    and records a pair of timing marks with the enclosing span's name."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def span_totals(under: Optional[str] = None) -> dict:
+    """``{name: {"count": n, "device_ms": total}}`` over the recorded spans,
+    or over those whose enclosing span is named ``under``. Waits once for
+    the recorded CUDA events; a span's ``device_ms`` is the time between
+    its marks on the device's stream (the host's clock on the CPU)."""
+    picked = [(name, marks) for name, parent, marks in _SPANS
+              if under is None or parent == under]
+    if any(isinstance(marks[0], torch.cuda.Event) for _, marks in picked):
+        torch.cuda.synchronize()
+    out = {}
+    for name, (start, end) in picked:
+        ms = (start.elapsed_time(end) if isinstance(start, torch.cuda.Event)
+              else (end - start) * 1e-6)
+        total = out.setdefault(name, {"count": 0, "device_ms": 0.0})
+        total["count"] += 1
+        total["device_ms"] += ms
+    return out
+
+
+def clear_spans():
+    """Forget the recorded spans."""
+    _SPANS.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Profile a block with ``torch.profiler`` (CPU activity, and CUDA
     activity where a card is present) and write the Chrome trace
-    ``trace.json`` into ``log_dir`` (default: ``torch-trace`` in the
-    temporary directory). Yields ``log_dir``."""
+    ``trace.json`` (the program's spans are ``user_annotation`` ranges in
+    it) and ``spans.json`` (``span_totals()`` of the block) into ``log_dir``
+    (default: ``torch-trace`` in the temporary directory). Yields
+    ``log_dir``."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "torch-trace")
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    clear_spans()
     with torch.profiler.profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump(span_totals(), f, indent=1, sort_keys=True)
 
 
 class Timer:
