@@ -165,6 +165,8 @@ SIGNATURES = {
     "fused_rollout_dummy_rows_launch": (
         "fused_rollout.cu", [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "fused_rollout_dummy_launch_config": ("fused_rollout.cu", [_I] * 5 + [_P]),
+    "scenario_normals_launch": ("fused_rollout.cu", [_P, _P, _P, _I, _I, _I, _F, _P]),
+    "scenario_normals_launch_config": ("fused_rollout.cu", [_I, _P]),
     "fused_cem_dummy_launch": (
         "fused_cem.cu",
         [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _U, _I, _I, _P, _I, _I,

@@ -33,6 +33,27 @@
 // terms and a few loads (5.4x the list form at S = 16). The list form for
 // every other list and S: the term list, the state and the goals from
 // device memory at every term of every step (models.cuh: dummy_cost).
+//
+// The two-stage tiers' noise draw, scenario_normals_kernel, replaces no TPU
+// kernel: the JAX package's batched tiers draw from per-scenario jax.random
+// keys in XLA, which has no counterpart here. It draws the port's
+// per-scenario stream (ops/fused_mppi.py:scenario_normals_reference, a uint32
+// hash emulated in int64 by some hundred PyTorch launches over (B, K, W)):
+// entry (b, k, w) of its (B, K, W) output is the normal of counters 2k,
+// 2k + 1 at step w of scenario b's stream, the hash of its seed's low word,
+// draw count and seed's high word. It rounds as that version does on the
+// card, bit for bit: the draw functions of models.cuh, then one product by
+// the scale.
+// Bound on the H100: at the noise cell's shape (B*K = 655,360, W = 50) the
+// 131 MB of stores take 0.039 ms at 3.35 TB/s; the 32.8 M normals' ~10 float
+// ops each take 0.005 ms at 67 TFLOP/s; a normal is some hundred instructions
+// of hash, libm forms and integer bookkeeping, so the rate at which the SMs
+// issue them comes first (chip_smoke.py counts the loop and prints that floor).
+// Design: a warp per 32 columns (b, k), whose W-long rows are one run of
+// 32 * W floats in memory: each lane hashes one column's stream once, and the
+// warp walks the run, lanes on neighbouring elements so that every store is
+// one whole line, each lane taking its element's column base and sample index
+// from the lane that hashed it (a shuffle). No shared memory.
 #include <cuda_runtime.h>
 
 #include "models.cuh"
@@ -226,6 +247,56 @@ auto kernel_for(bool generic) {
   return generic ? fused_rollout_kernel<M, 0> : fused_rollout_kernel<M, kTerms>;
 }
 
+// --- the two-stage tiers' noise draw -----------------------------------------
+
+// The counter base of scenario b's stream at step 0: the stream is the hash
+// of (the seed's low word, the draw count's low word, the seed's high word),
+// the words of the int64 two's complement, as the int64 masks take them.
+__device__ __forceinline__ uint32_t stream_base(const long long* __restrict__ seeds,
+                                                const long long* __restrict__ calls, int b) {
+  const uint64_t s = (uint64_t)seeds[b];
+  const uint32_t c = (uint32_t)(uint64_t)calls[b];
+  const uint32_t stream =
+      bmpc::fmix32((uint32_t)s * bmpc::kSeedMul + c * bmpc::kStepMul + (uint32_t)(s >> 32));
+  return stream * bmpc::kSeedMul;
+}
+
+// out (N, W), N = B*K: each warp draws 32 columns, n0 = its first, whose
+// 32 * W floats are one run: lane j hashes column n0 + j's stream, then the
+// lanes walk the run, lane l at elements c * W + w = l, l + 32, ..., each
+// taking column c's counter base and sample index from lane c. A trip moves
+// an element 32 on: dc columns and dw steps, and one column more where the
+// step passes W.
+__global__ void __launch_bounds__(kThreads)
+scenario_normals_kernel(const long long* __restrict__ seeds,
+                        const long long* __restrict__ calls, float* __restrict__ out, int N,
+                        int K, int W, float scale) {
+  const int lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * kThreads + (threadIdx.x & ~31);
+  if (n0 >= N) return;  // the whole warp
+  const int cols = min(32, N - n0);
+  const int n = n0 + min(lane, cols - 1);
+  const int b = n / K;
+  const uint32_t col_base = stream_base(seeds, calls, b);
+  const uint32_t col_i1 = 2u * (uint32_t)(n - b * K);
+  const int dc = 32 / W, dw = 32 - dc * W;
+  float* o = out + (size_t)n0 * W;
+  const int end = cols * W;
+  int c = lane / W, w = lane - c * W;  // element e = c * W + w
+  for (int e = lane; e - lane < end; e += 32) {  // every lane takes each trip's shuffles
+    const uint32_t base = __shfl_sync(0xFFFFFFFFu, col_base, c & 31) +
+                          (uint32_t)w * bmpc::kStepMul;
+    const uint32_t i1 = __shfl_sync(0xFFFFFFFFu, col_i1, c & 31);
+    if (e < end) o[e] = scale * bmpc::normal_at(base + i1, base + i1 + 1u);
+    c += dc;
+    w += dw;
+    if (w >= W) {
+      w -= W;
+      ++c;
+    }
+  }
+}
+
 }  // namespace
 
 // x0 (S, N), us (T, N), gz (T, S+1), out (N,): float32, contiguous, on the
@@ -324,5 +395,34 @@ extern "C" int fused_rollout_dummy_launch_config(int form, int row, int acts, in
   const int vals[7] = {kThreads, (N + kThreads - 1) / kThreads, (int)smem, attr.numRegs,
                        per_sm, (int)attr.localSizeBytes, chunk};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// seeds, calls (B,) int64 and out (N, W) float32, contiguous, on the device;
+// N = B*K, every normal multiplied by scale. Returns the launch's
+// cudaGetLastError().
+extern "C" int scenario_normals_launch(const long long* seeds, const long long* calls,
+                                       float* out, int N, int K, int W, float scale,
+                                       cudaStream_t stream) {
+  if (N <= 0 || K <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  scenario_normals_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      seeds, calls, out, N, K, W, scale);
+  return (int)cudaGetLastError();
+}
+
+// The draw's launch shape over N columns on the current card, into out[5]:
+// threads per block, blocks, registers per thread, resident blocks per SM and
+// local (stack and spill) bytes per thread. Returns a cudaError.
+extern "C" int scenario_normals_launch_config(int N, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, scenario_normals_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scenario_normals_kernel, kThreads,
+                                                    0);
+  if (e != cudaSuccess) return (int)e;
+  const int vals[5] = {kThreads, (N + kThreads - 1) / kThreads, attr.numRegs, per_sm,
+                       (int)attr.localSizeBytes};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
   return 0;
 }

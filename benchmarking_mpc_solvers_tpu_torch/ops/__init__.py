@@ -19,6 +19,7 @@ from .fused_mppi import (  # noqa: F401
     interp_normals,
     pick_lanes,
     scenario_normals,
+    scenario_normals_reference,
 )
 from .i2c_smooth import (  # noqa: F401
     i2c_filter,

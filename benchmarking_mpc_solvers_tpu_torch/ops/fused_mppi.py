@@ -18,6 +18,12 @@ kernel in interpret mode all draw the same delta for (scenario, k, t). The
 uint32 hash is emulated here in int64 with a mask after every operation.
 Scenario b takes the noise of the slot the reference's padded
 (T, 8, Bp/8) tiling gives it (``noise_layout``).
+
+The two-stage tiers draw each scenario's noise from its own stream
+(``scenario_normals``, (B, K, W), scaled): on a CUDA tensor one launch of
+the draw kernel in ``csrc/fused_rollout.cu`` (``scenario_normals.launches``
+counts them), on a CPU tensor ``scenario_normals_reference``, the int64
+emulation.
 """
 
 from __future__ import annotations
@@ -106,19 +112,71 @@ def scenario_seeds(batch: int, generator: torch.Generator, device) -> torch.Tens
                          device=generator.device).to(device)
 
 
-def scenario_normals(seeds, calls, K: int, T: int):
-    """(B, K, T) standard normals of the batched tiers' per-scenario streams.
+def scenario_normals_reference(seeds, calls, K: int, T: int):
+    """Plain version of ``scenario_normals``: the uint32 hash emulated in
+    int64 over (B, K, T)."""
+    stream = _hash(seeds & _MASK, calls & _MASK, (seeds >> 32) & _MASK)
+    k = torch.arange(K, dtype=torch.int64, device=seeds.device)[None, :, None]
+    t = torch.arange(T, dtype=torch.int64, device=seeds.device)[None, None, :]
+    return _normals(stream[:, None, None], t, 2 * k, 2 * k + 1)
+
+
+def _draw(seeds, calls, K: int, W: int, scale: float):
+    """One launch of the draw kernel: (B, K, W), every normal times
+    ``scale``."""
+    B = seeds.shape[0]
+    dev = seeds.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if seeds.dtype != torch.int64 or calls.dtype != torch.int64:
+        raise TypeError(f"scenario_normals: seeds and calls must be int64, got {seeds.dtype}, "
+                        f"{calls.dtype}")
+    if seeds.dim() != 1 or calls.shape != seeds.shape or calls.device != dev:
+        raise ValueError(f"scenario_normals: seeds {tuple(seeds.shape)} on {dev} and calls "
+                         f"{tuple(calls.shape)} on {calls.device} must be one (B,) pair")
+    if B * K >= 2**31 or 32 * W >= 2**31:
+        raise ValueError(f"scenario_normals: B·K = {B * K}, W = {W} past the kernel's indices")
+    out = torch.empty((B, K, W), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    seeds, calls = seeds.contiguous(), calls.contiguous()
+    _build.check_rc("scenario_normals", _build.kernel_fn("scenario_normals_launch")(
+        _build.ptr(seeds), _build.ptr(calls), _build.ptr(out), B * K, K, W, scale,
+        _build.stream_ptr(dev)))
+    scenario_normals.launches += 1
+    return out
+
+
+def scenario_normals(seeds, calls, K: int, T: int, scale: float = 1.0):
+    """(B, K, T) standard normals of the batched tiers' per-scenario streams,
+    each times ``scale``.
 
     Entry [b, k, t] is a function of (seeds[b], calls[b], k, t) alone: the
     stream of a (scenario, draw) pair is the hash of the seed's low word,
     the draw count and the seed's high word, and within it (k, t) takes the
     uniforms at counter indices 2k and 2k+1 of timestep t. So a scenario's
     draws do not depend on its batch slot or on B, and permuting the
-    scenarios (with their seeds and counts) permutes the draws."""
-    stream = _hash(seeds & _MASK, calls & _MASK, (seeds >> 32) & _MASK)
-    k = torch.arange(K, dtype=torch.int64, device=seeds.device)[None, :, None]
-    t = torch.arange(T, dtype=torch.int64, device=seeds.device)[None, None, :]
-    return _normals(stream[:, None, None], t, 2 * k, 2 * k + 1)
+    scenarios (with their seeds and counts) permutes the draws. On CUDA
+    tensors one launch of the draw kernel; on CPU tensors the plain version,
+    then the product by ``scale``: the same values either way, bit for bit."""
+    if seeds.device.type != "cpu":
+        return _draw(seeds, calls, K, T, scale)
+    draws = scenario_normals_reference(seeds, calls, K, T)
+    return draws if scale == 1.0 else scale * draws
+
+
+def scenario_normals_launch_config(N: int) -> dict:
+    """The draw kernel's launch shape over N = B·K columns on the current
+    card: threads per block, blocks, registers per thread, resident blocks
+    per SM, local bytes per thread."""
+    out = (ctypes.c_int * 5)()
+    _build.check_rc("scenario_normals_launch_config", _build.kernel_fn(
+        "scenario_normals_launch_config")(N, ctypes.cast(out, ctypes.c_void_p)))
+    keys = ("threads", "blocks", "registers", "blocks_per_sm", "local_bytes")
+    return dict(zip(keys, out))
+
+
+scenario_normals.launches = 0
 
 
 def _seeds(seed: int, K: int, pid):

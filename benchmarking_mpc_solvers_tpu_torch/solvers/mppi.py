@@ -108,7 +108,8 @@ class MPPI(Solver):
 
         Perturbations are time-major (T, B·K), column b·K + k, std-scaled:
         ``delta_tm`` injects them (action_size == 1), else each scenario's
-        are drawn from its own stream (``scenario_normals``). With
+        are drawn from its own stream (``scenario_normals``: without model
+        noise already scaled, (B, K, T) viewed time-major). With
         ``use_fused`` (and a scalar action) the B·K rollouts go through
         ``fused_rollout_costs_tm``, else through the plain batched rollout;
         both apply the same update law.
@@ -135,10 +136,12 @@ class MPPI(Solver):
         with span("mppi.draw"):
             draws = None
             if delta_tm is None or (noisy and xnoise is None):
+                # the draw scales by std where it holds the perturbations alone
                 draws = scenario_normals(state.seeds, state.calls, K,
-                                         T * (A + S) if noisy else T * A)
+                                         T * (A + S) if noisy else T * A,
+                                         scale=1.0 if noisy else self.std)
             if delta_tm is None:
-                delta = self.std * draws[..., :T * A].reshape(B, K, T, A)
+                delta = (self.std * draws[..., :T * A] if noisy else draws).reshape(B, K, T, A)
                 if A == 1:
                     delta_tm = delta[..., 0].permute(2, 0, 1).reshape(T, N)
             else:

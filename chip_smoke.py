@@ -13,11 +13,16 @@ Phases (any failure exits non-zero before the result line):
    lane groups, blocks and shared-memory stages; kernel 1 also at the
    sweep's MPPI row and in the form that redraws its noise, kernel 2 also at
    the CEM two-stage shape, kernel 7 at the edges of its three forms and
-   past a block's shared memory, n up to 1,100).
+   past a block's shared memory, n up to 1,100; the two-stage tiers' noise
+   draw, ``scenario_normals``, bit for bit with its int64 emulation at the
+   noise cell's and CEM two-stage shape, the MPPI two-stage tier's, the
+   plain tier's width and ragged ones).
 4. main paths, each with the launch counters set to 0 just before its run
    and read just after:
    - MPPI, the bench configuration (cart-pole swing-up, K=32, T=50,
-     B=8192, 20 MPC steps) on the kernel tier and the two-stage tier;
+     B=8192, 20 MPC steps) on the kernel tier and the two-stage tier (the
+     latter also one draw launch a step; CEM's two-stage tier one an
+     iteration, the plain batched tiers one a solve or an iteration);
    - CEM, the sweep configuration (cart-pole swing-up, K=64, n_elite=8,
      max_iter=3, T=50, B=10240, 10 MPC steps) on both tiers;
    - iLQR, the batched configuration (cart-pole swing-up, T=100,
@@ -117,8 +122,8 @@ Phases (any failure exits non-zero before the result line):
    time (calls queued behind a sleeping kernel, ``device_time_ms``), its
    plain version and its bound (for kernels 5, 6, 7, 8a and 8b also with the
    dependent chain of the horizon or of the iterations; for kernels 1, 2
-   and 3 also the instruction-issue floor of the rollout loop, counted in
-   its SASS, and its pipe floor, the busiest pipe's time for the same
+   and 3 and the draw also the instruction-issue floor of the rollout (or
+   draw) loop, counted in its SASS, and its pipe floor, the busiest pipe's time for the same
    instructions (``pipe_counts``); the launch shape of 1, 2, 3, 6 and 7;
    kernels 1, 2 and 7 at
    further shapes too); host-clock
@@ -219,7 +224,8 @@ def experiment_keys(sensor: bool, actuation: bool, per_step: bool) -> list:
 # own recursion), exact-Hessian iLQR the Riccati pass and the line search,
 # each held bit for bit on one solve's calls at the configuration; CEM,
 # MPPI and QP-MPC take the plain batched tier, as the reference's vmapped
-# solves reach no kernel
+# solves reach no kernel, but for the noise draw: one launch a solve of MPPI
+# and an iteration of CEM
 STUDY_STEPS, STUDY_WARM = 5, 5
 STUDY_ROUTES = {
     "experiment_test": (), "sample_test": (), "mppi_temperature": (),
@@ -260,8 +266,10 @@ def study_paths(counters, reset_counts, smi: str, launches: dict) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = {fn.__name__: fn.launches for fn in counters}
-            n = 2 * (STUDY_WARM + STUDY_STEPS) * params["agent_config"].get("max_iter", 0)
+            solves = 2 * (STUDY_WARM + STUDY_STEPS)
+            n = solves * params["agent_config"].get("max_iter", 0)
             want = {fn.__name__: n if fn.__name__ in route else 0 for fn in counters}
+            want["scenario_normals"] = {"MPPI": solves, "CEM": n}.get(params["agent"], 0)
             if res is None or got != want:
                 fail(f"study {name}: launches {got}, expected {want}")
             keys = experiment_keys(res["sensor_noise"], res["actuation_noise"], False)
@@ -326,7 +334,7 @@ MEASURE_SAMPLES, RICCATI_REPS = 2, 2
 MEASURE_ROUTES = {
     "roofline": ((), ("roofline_op", "roofline_noise")),
     "profile_cem": (("--samples", str(MEASURE_SAMPLES)),
-                    ("fused_rollout_costs_tm", "fused_cem_step")),
+                    ("fused_rollout_costs_tm", "fused_cem_step", "scenario_normals")),
     "profile_ilqr": (("--samples", str(MEASURE_SAMPLES), "--min-chains"),
                      ("riccati_backward_batch", "fused_linesearch")),
     "profile_sqp": (("--samples", str(MEASURE_SAMPLES), "--min-chains"),
@@ -658,6 +666,9 @@ def lead_ops(B, T, split) -> int:
 # /lam, exp, the weight sum and w/sum, once per sample as the function
 # needs them.
 NOISE_OPS, PASS1_EXTRA, PASS2_EXTRA, MPPI_WEIGHT_OPS = 9, 5, 2, 6
+# the two-stage tiers' draw (csrc/fused_rollout.cu:scenario_normals_kernel):
+# a normal is NOISE_OPS and the product by the scale
+DRAW_OPS = NOISE_OPS + 1
 # CEM, from csrc/fused_cem.cu: per (b, k, t, it) the sample mean+std*d and
 # its clip (4); per (b, elite, t, it) the moments m1 += w*u, m2 += w*(u*u)
 # (5); per (b, t, it) std_e = sqrt(max(m2 - m1*m1, 0)) and the two
@@ -1272,6 +1283,11 @@ DUMMY_SASS_LOOPS = {
 }
 
 
+# The draw kernel's loop, a lane's element a trip: the loop with the two
+# shuffles of the column's counter base and sample index and the store.
+DRAW_SASS_LOOPS = {"fused_rollout.cu": (("scenario_normals_kernel",), {"SHFL": 2, "STG": 1})}
+
+
 def rollout_loop_count(sass: str, source: str, loops: dict = SASS_LOOPS):
     """The fast-path instructions per trip of the rollout's time loop in a
     build of ``source`` (``loops``: ``SASS_LOOPS`` or ``DUMMY_SASS_LOOPS``):
@@ -1491,6 +1507,12 @@ def rollout_bound_for(model, N, T):
     """Kernel 2's bound for N rollouts of T steps on the model."""
     S, Z = model.state_size, model.goal_size
     return bound(4 * (S * N + T * N + T * Z + N), N * T * step_ops(model))
+
+
+def draw_bound_for(B, K, W):
+    """The draw kernel's bound at (B, K, W): the normals stored and the
+    seeds and counts read once, the operations of each normal."""
+    return bound(4 * B * K * W + 16 * B, B * K * W * DRAW_OPS)
 
 
 def cem_bound_for(model, B, K, T, n_elite, iters, split=None):
@@ -1820,7 +1842,8 @@ def repair_and_suite_paths(counters, reset_counts, smi: str, clock: float,
         ("dummy S=16 mppi kernel tier", MPPI(model=wide, T=HORIZON, K=K_SAMPLES), BATCH, True,
          {"fused_mppi_step": REPAIR_EPISODE_STEPS}),
         ("dummy S=16 mppi two-stage tier", MPPI(model=wide, T=HORIZON, K=K_SAMPLES), BATCH,
-         False, {"fused_rollout_costs_tm": REPAIR_EPISODE_STEPS}),
+         False, {"fused_rollout_costs_tm": REPAIR_EPISODE_STEPS,
+                 "scenario_normals": REPAIR_EPISODE_STEPS}),
         ("dummy S=16 cem kernel tier", CEM(model=wide, T=CEM_T, K=CEM_K, n_elite=CEM_ELITE,
                                            max_iter=CEM_ITERS), CEM_B, True,
          {"fused_cem_step": REPAIR_EPISODE_STEPS}))
@@ -2081,7 +2104,8 @@ def main():
         fused_linesearch, fused_linesearch_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_linesearch import launch_config as ls_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
-        fused_mppi_step, fused_mppi_step_reference, pick_lanes)
+        fused_mppi_step, fused_mppi_step_reference, pick_lanes, scenario_normals,
+        scenario_normals_launch_config, scenario_normals_reference)
     from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import launch_config as mppi_launch_config  # noqa: E501
     from benchmarking_mpc_solvers_tpu_torch.ops.i2c_smooth import (
         i2c_filter, i2c_filter_reference, i2c_rts_smooth, i2c_rts_smooth_reference,
@@ -2098,7 +2122,7 @@ def main():
     from benchmarking_mpc_solvers_tpu_torch.ops.roofline import roofline_noise, roofline_op
     counters = (fused_mppi_step, fused_rollout_costs_tm, fused_cem_step,
                 riccati_backward_batch, fused_linesearch, fused_derivs, admm_iterate,
-                i2c_filter, i2c_rts_smooth, roofline_op, roofline_noise)
+                i2c_filter, i2c_rts_smooth, roofline_op, roofline_noise, scenario_normals)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -2171,6 +2195,28 @@ def main():
             REGISTRY[name], BATCH * K_SAMPLES, HORIZON, 2))
         rollout_check(REGISTRY[name], 4097, 23, 5)
     rollout_check(REGISTRY["cartpole_swingup"], CEM_B * CEM_K, CEM_T, 6)
+
+    # the two-stage tiers' noise draw, bit for bit with its int64 emulation
+    # on the same tensors: the noise cell's shape (MPPI's sweep row, std 1 and
+    # another scale), the CEM two-stage shape, the MPPI two-stage tier's, the
+    # plain tier's width T·(A+S) on cart-pole, ragged shapes with rows of one
+    # step and of under a warp; seeds with the high word set (negative ones
+    # too) and draw counts past 2**32
+    def draw_check(B, K, W, scale, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        seeds = torch.randint(-(2**63), 2**63 - 1, (B,), generator=g, device=dev)
+        calls = torch.randint(0, 2**40, (B,), generator=g, device=dev)
+        exact(f"scenario_normals[B={B}, K={K}, W={W}, scale={scale}]",
+              scenario_normals(seeds, calls, K, W, scale=scale),
+              scale * scenario_normals_reference(seeds, calls, K, W))
+
+    for shape in ((MPPI_SWEEP_B, MPPI_SWEEP_K, HORIZON, 1.0),
+                  (MPPI_SWEEP_B, MPPI_SWEEP_K, HORIZON, 0.7), (CEM_B, CEM_K, CEM_T, 1.0),
+                  (BATCH, K_SAMPLES, HORIZON, 1.0),
+                  (1001, 48, HORIZON * (1 + REGISTRY["cartpole_swingup"].state_size), 1.0),
+                  (37, 5, 7, 1.0), (100, 3, 1, 0.3)):
+        draw_check(*shape, seed=shape[0] + shape[2])
+    errs["scenario_normals"] = (0.0, 0.0)
 
     # CEM step, the plan and the elite masks bit for bit: the sweep shape, a
     # multi-tile ragged B, the seed 2**31 - 2; then the kernel's edges on every
@@ -2567,7 +2613,7 @@ def main():
     if res.costs.shape != (BATCH, N_STEPS):
         fail("kernel-tier episode costs misshapen")
     run_path("mppi two-stage tier", lambda: mppi_episode(False),
-             {"fused_rollout_costs_tm": cfg.n_steps})
+             {"fused_rollout_costs_tm": cfg.n_steps, "scenario_normals": cfg.n_steps})
 
     cem = CEM(model=env.model, T=CEM_T, K=CEM_K, n_elite=CEM_ELITE, max_iter=CEM_ITERS)
     cem_cfg = EpisodeConfig(n_steps=CEM_STEPS, warmstart=0, record_plans=False)
@@ -2581,7 +2627,8 @@ def main():
     run_path("cem kernel tier", cem_episode,
              {"fused_cem_step": cem_cfg.warmstart + cem_cfg.n_steps})
     run_path("cem two-stage tier", lambda: cem_episode(False),
-             {"fused_rollout_costs_tm": cem_cfg.n_steps * CEM_ITERS})
+             {"fused_rollout_costs_tm": cem_cfg.n_steps * CEM_ITERS,
+              "scenario_normals": cem_cfg.n_steps * CEM_ITERS})
 
     ilqr = ILQR(model=env.model, T=ILQR_T, max_iter=ILQR_ITERS, reference_accept=False)
     ilqr_cfg = EpisodeConfig(n_steps=ILQR_STEPS, warmstart=ILQR_WARM, record_plans=False)
@@ -2795,11 +2842,13 @@ def main():
                   f"median episode {t_sharded * 1e3:.3f} ms, run_episodes_fused "
                   f"{t_direct * 1e3:.3f} ms ({SHARDED_ROUNDS} each, in turns)", flush=True)
 
-        # (b) the plain batched tier on the mesh, equal to run_episodes_batch
+        # (b) the plain batched tier on the mesh, equal to run_episodes_batch:
+        # one draw launch a solve
         small = MPPI(model=env.model, T=10, K=16)
         small_cfg = EpisodeConfig(n_steps=3, warmstart=1, record_plans=True)
         fn = sharded_episodes(env, small, small_cfg, mesh)
-        got = run_path("mppi sharded plain tier", lambda: fn(x0s[:64], generators=[gen(1)]), {})
+        got = run_path("mppi sharded plain tier", lambda: fn(x0s[:64], generators=[gen(1)]),
+                       {"scenario_normals": small_cfg.warmstart + small_cfg.n_steps})
         same("mppi sharded plain tier", got, run_episodes_batch(
             env, small, small_cfg, x0s[:64], generator=gen(1), device=dev))
 
@@ -3041,10 +3090,11 @@ def main():
             ("dummy mppi kernel tier", dm, dm_cfg, dm_x0s, True,
              {"fused_mppi_step": N_STEPS}),
             ("dummy mppi two-stage tier", dm, dm_cfg, dm_x0s, False,
-             {"fused_rollout_costs_tm": N_STEPS}),
+             {"fused_rollout_costs_tm": N_STEPS, "scenario_normals": N_STEPS}),
             ("dummy cem kernel tier", dc, dc_cfg, dc_x0s, True, {"fused_cem_step": CEM_STEPS}),
             ("dummy cem two-stage tier", dc, dc_cfg, dc_x0s, False,
-             {"fused_rollout_costs_tm": CEM_STEPS * CEM_ITERS}))
+             {"fused_rollout_costs_tm": CEM_STEPS * CEM_ITERS,
+              "scenario_normals": CEM_STEPS * CEM_ITERS}))
         for label, sol, c, xs, use_kernel, expect in paths:
             def run(sol=sol, c=c, xs=xs, use_kernel=use_kernel):
                 return run_episodes_fused(denv, sol, c, xs, generator=gen(0),
@@ -3480,7 +3530,9 @@ def main():
     clock = max_sm_clock_mhz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     loops = {src: sass_loop(_build._target(src), src) for src in SASS_LOOPS}
-    issue, other_shapes = {}, {}
+    loops["draw"] = sass_loop(_build._target("fused_rollout.cu"), "fused_rollout.cu",
+                              DRAW_SASS_LOOPS)
+    issue, other_shapes, launch_cfgs = {}, {}, {}
 
     def issue_line(name, label, src, trips, around_ms, device_ms, bnd, cfg):
         """Prints a kernel's times beside its bound, issue floor and pipe
@@ -3491,7 +3543,7 @@ def main():
         pipe = None if counted is None else pipe_floor_ms(counted[2], trips, sms, clock)
         what = ("instruction-issue floor not measured (no cuobjdump, or no rollout loop found "
                 "in its output)" if counted is None else
-                f"the rollout loop issues {counted[0]} SASS instructions a trip on its fast path "
+                f"its loop issues {counted[0]} SASS instructions a trip on its fast path "
                 f"({counted[1]} in its body; cuobjdump), {trips} warp trips: instruction-issue "
                 f"floor {floor:.4f} ms at {sms} SMs x 4 schedulers x {clock:.0f} MHz, pipe floor "
                 f"{pipe[0]:.4f} ms ({pipe[1]}; by pipe {counted[2]})")
@@ -3554,6 +3606,24 @@ def main():
         "fused_rollout.cu", -(-N // 32) * HORIZON, ms["fused_rollout_costs_tm"],
         dev_ms["fused_rollout_costs_tm"], bounds["fused_rollout_costs_tm"],
         rollout_launch_config(model, N))
+
+    # the two-stage draw at the noise cell's shape, which is also the CEM
+    # two-stage shape (a warp trip: an element of each lane)
+    gen_d = torch.Generator(device=dev).manual_seed(5)
+    seeds_d = torch.randint(0, 2**63 - 1, (MPPI_SWEEP_B,), generator=gen_d, device=dev)
+    calls_d = torch.randint(0, 20, (MPPI_SWEEP_B,), generator=gen_d, device=dev)
+    Nd = MPPI_SWEEP_B * MPPI_SWEEP_K
+    time_kernel("scenario_normals",
+                lambda: scenario_normals(seeds_d, calls_d, MPPI_SWEEP_K, HORIZON))
+    plain_ms["scenario_normals"] = cuda_time_ms(lambda: scenario_normals_reference(
+        seeds_d, calls_d, MPPI_SWEEP_K, HORIZON), reps=3, warmup=1)
+    bounds["scenario_normals"] = draw_bound_for(MPPI_SWEEP_B, MPPI_SWEEP_K, HORIZON)
+    launch_cfgs["scenario_normals"] = scenario_normals_launch_config(Nd)
+    issue["scenario_normals"] = issue_line(
+        "scenario_normals", f"the noise cell's shape (B={MPPI_SWEEP_B}, K={MPPI_SWEEP_K}, "
+        f"W={HORIZON})", "draw", -(-Nd // 32) * HORIZON, ms["scenario_normals"],
+        dev_ms["scenario_normals"], bounds["scenario_normals"], launch_cfgs["scenario_normals"])
+    del seeds_d, calls_d
 
     def other_shape(name, label, src, trips, fn, bnd, cfg):
         around, device = cuda_time_ms(fn), device_time_ms(fn)
@@ -3831,6 +3901,8 @@ def main():
         "admm_iterate": ("admm_iterate.cu", "benchmarking_mpc_solvers_tpu/ops/qp_pallas.py:148"),
         "i2c_filter": ("i2c_smooth.cu", "benchmarking_mpc_solvers_tpu/ops/i2c_pallas.py:121"),
         "i2c_rts_smooth": ("i2c_smooth.cu", "benchmarking_mpc_solvers_tpu/ops/i2c_pallas.py:239"),
+        # no kernel: the reference's batched tiers draw per-scenario keys in XLA
+        "scenario_normals": ("fused_rollout.cu", "benchmarking_mpc_solvers_tpu/solvers/mppi.py:140"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -3845,7 +3917,8 @@ def main():
             "chain_bound_ms": chains.get(name),
             "issue_bound_ms": issue.get(name, (None, None))[0],
             "pipe_bound_ms": issue.get(name, (None, None))[1],
-            "other_shapes": other_shapes.get(name, []), "library_ms": None, "pass": True})
+            "other_shapes": other_shapes.get(name, []), "launch": launch_cfgs.get(name),
+            "library_ms": None, "pass": True})
     kernels += roofline_entries  # kernels 9 and 10, phase (l)
     for e in family_entries:  # the generic-cost and dummy instantiations, phases (g) to (i)
         src, replaces = sources[e.pop("base")]

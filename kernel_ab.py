@@ -17,6 +17,12 @@
     python3 kernel_ab.py fused_mppi.cu --against DIR -D BMPC_GENERIC_COST=1
         also this checkout's kernel 1 with every stage cost in its generic
         form (the same for fused_rollout.cu, fused_cem.cu, fused_linesearch.cu)
+    python3 kernel_ab.py draw
+        the two-stage tiers' noise draw: its plain PyTorch version (the int64
+        emulation, then the std scaling and the time-major view, as
+        MPPI.solve_batch drew before the draw kernel) against the kernel in
+        this checkout's fused_rollout.cu, at the noise cell's shape, beside
+        its bound and its loop's issue and pipe floors (``draw_ab``)
 
 Every variant is compiled with the package's flags, all at once, and is
 loaded in place of the package's library for that source while it runs, so
@@ -196,6 +202,52 @@ def linesearch_cases(dev):
                                                         return_states=True))])]
 
 
+def draw_ab(dev, B: int = 10240, K: int = 64, T: int = 50, std: float = 1.0) -> dict:
+    """The two-stage draw at (B, K, T) (the noise cell's): the plain version
+    as ``MPPI.solve_batch`` ran it before the draw kernel (the int64
+    emulation, std times it, the time-major view) against the kernel's
+    scaled draw and the same view, in turns (plain, kernel, kernel, plain),
+    each output held bit for bit against the plain one. Beside them the
+    kernel's bound (its stores at the card's memory rate, its operations at
+    the FP32 rate) and the issue and pipe floors of its loop's SASS."""
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
+        scenario_normals, scenario_normals_launch_config, scenario_normals_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(B)
+    seeds = torch.randint(0, 2**63 - 1, (B,), generator=gen, device=dev)
+    calls = torch.randint(0, 20, (B,), generator=gen, device=dev)
+    N = B * K
+
+    def plain():
+        delta = std * scenario_normals_reference(seeds, calls, K, T).reshape(B, K, T, 1)
+        return delta[..., 0].permute(2, 0, 1).reshape(T, N)
+
+    def kernel():
+        return scenario_normals(seeds, calls, K, T, scale=std).permute(2, 0, 1).reshape(T, N)
+
+    forms = {"plain (int64 emulation, std *, time-major view)": plain,
+             "kernel, scaled, time-major view": kernel}
+    if not torch.equal(kernel(), plain()):
+        raise AssertionError("the draw kernel differs from the plain version")
+    times = {label: {"around_one_call_ms": [], "device_ms": []} for label in forms}
+    order = list(forms) + list(reversed(forms))
+    for label in order:
+        times[label]["around_one_call_ms"].append(cs.cuda_time_ms(forms[label]))
+        times[label]["device_ms"].append(cs.device_time_ms(forms[label]))
+    bnd = cs.draw_bound_for(B, K, T)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = cs.max_sm_clock_mhz()
+    trips = -(-N // 32) * T
+    counted = cs.sass_loop(_build._target("fused_rollout.cu"), "fused_rollout.cu",
+                          cs.DRAW_SASS_LOOPS)
+    floors = None if counted is None else {
+        "issue_ms": counted[0] * trips / (sms * 4 * clock * 1e3),
+        "pipe_ms": cs.pipe_floor_ms(counted[2], trips, sms, clock), "sass_per_trip": counted,
+        "warp_trips": trips, "sms": sms, "clock_mhz": clock}
+    return {"shape": f"B={B}, K={K}, T={T}", "times": times, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "floors": floors, "launch": scenario_normals_launch_config(N)}
+
+
 def _model(name):
     """A registered plant; ``dummy<S>``: make_dummy_model(S, 1); ``dense<S>``:
     the dummy under dense weights drawn as chip_smoke.py's phase (m) draws
@@ -355,6 +407,15 @@ def rows_as_list(lib: ctypes.CDLL, source: str) -> None:
                                               terms.shape[0], stream)
 
     lib.fused_rollout_dummy_rows_launch = launch
+
+
+def draw_of(lib: ctypes.CDLL, this: ctypes.CDLL) -> None:
+    """A build of fused_rollout.cu from before the draw kernel is given this
+    checkout's draw entry points (``this``), so that the two-stage episodes,
+    which launch the draw, run that build's kernel 2 beside the same draw."""
+    for name in ("scenario_normals_launch", "scenario_normals_launch_config"):
+        if hasattr(this, name) and not hasattr(lib, name):
+            setattr(lib, name, getattr(this, name))
 
 
 def roofline_cases(dev):
@@ -529,7 +590,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("source", help="a file of benchmarking_mpc_solvers_tpu_torch/csrc")
+    ap.add_argument("source", help="a file of benchmarking_mpc_solvers_tpu_torch/csrc, or "
+                                   "draw (the noise draw against its plain version)")
     ap.add_argument("--against", action="append", default=[], metavar="DIR",
                     help="another checkout whose source is a variant")
     ap.add_argument("-D", dest="defines", action="append", default=[], metavar="NAME=VALUE",
@@ -538,12 +600,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this script needs a CUDA card")
         return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.source == "draw":
+        print(smi, flush=True)
+        res = draw_ab(torch.device("cuda"))
+        for label, t in res["times"].items():
+            print(f"[{smi}] the draw at {res['shape']}, {label}: around one call "
+                  f"{', '.join(f'{x:.4f}' for x in t['around_one_call_ms'])} ms; device "
+                  f"{', '.join(f'{x:.4f}' for x in t['device_ms'])} ms", flush=True)
+        print(f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}); loop floors "
+              f"{res['floors'] or 'not counted'}; launch {res['launch']}")
+        print(json.dumps({"device": smi, "source": "draw", **res}))
+        return 0
     if args.source not in CASES:
         print(f"FAIL: no cases for {args.source}; there are for {sorted(CASES)}")
         return 1
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     here = _build.CSRC / args.source
     variants = [("this checkout", here, ())]
@@ -577,6 +650,8 @@ def main() -> int:
             print(f"{label} source: {loop_count(path, args.source, cs.DUMMY_SASS_LOOPS)}",
                   flush=True)
 
+    for lib in libs[1:]:
+        draw_of(lib, libs[0])
     max_z = [max_z_of(src.parent) for _, src, _ in variants]
 
     def load(i):

@@ -1402,3 +1402,75 @@ def test_roofline_op_kernel_at_chains_off_the_unroll(dev, op):
         for inner in (cfg["unroll"] - 1, cfg["unroll"] + 1, 2 * cfg["unroll"] + 13, 100):
             got = roofline_op(op, x, inner)
             assert torch.equal(got, roofline_op_reference(op, x, inner)), (op, n, inner)
+
+
+# The two-stage tiers' noise draw (csrc/fused_rollout.cu) against the int64
+# emulation run on the same CUDA tensors, bit for bit: the noise cell's shape,
+# an odd one, rows of one step and of a warp's width, the plain tier's width
+# T·(A+S) (cart-pole), and seeds with the high word set (negative ones too)
+# and draw counts past 2**32
+@pytest.mark.parametrize("B,K,W,high_words", [
+    (10240, 64, 50, False), (37, 5, 7, False), (100, 3, 1, False), (65, 2, 32, False),
+    (1000, 64, 250, False), (513, 33, 50, True)])
+def test_scenario_normals_kernel_matches_plain_bit_for_bit(dev, B, K, W, high_words):
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
+        scenario_normals, scenario_normals_launch_config, scenario_normals_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(B + W)
+    if high_words:
+        seeds = torch.randint(-(2**63), 2**63 - 1, (B,), generator=gen, device=dev)
+        calls = torch.randint(2**32 - 3, 2**40, (B,), generator=gen, device=dev)
+    else:
+        seeds = torch.randint(0, 2**63 - 1, (B,), generator=gen, device=dev)
+        calls = torch.randint(0, 20, (B,), generator=gen, device=dev)
+    want = scenario_normals_reference(seeds, calls, K, W)
+    before = scenario_normals.launches
+    got = scenario_normals(seeds, calls, K, W)
+    assert scenario_normals.launches == before + 1
+    assert got.shape == (B, K, W) and torch.equal(got, want)
+    for scale in (1.0, 0.7):
+        assert torch.equal(scenario_normals(seeds, calls, K, W, scale=scale), scale * want), scale
+    assert scenario_normals.launches == before + 3
+    cfg = scenario_normals_launch_config(B * K)
+    assert cfg["local_bytes"] == 0 and cfg["blocks_per_sm"] >= 1, cfg
+
+
+# Two-stage MPPI (kernel 2, and the plain tier under model noise) and CEM
+# (kernel 2) with the draw kernel give the plans of the int64 emulation's
+# normals injected, bit for bit at the noise cell's B
+@pytest.mark.parametrize("agent,use_fused", [("MPPI", True), ("MPPI", False), ("CEM", True)])
+def test_two_stage_solve_batch_draws_the_plain_normals(dev, agent, use_fused):
+    from benchmarking_mpc_solvers_tpu_torch import solvers
+    from benchmarking_mpc_solvers_tpu_torch.envs import CartPoleSwingUpEnv as env
+    from benchmarking_mpc_solvers_tpu_torch.ops.fused_mppi import (
+        scenario_normals, scenario_normals_reference)
+
+    T, K = 50, 64
+    B = 10240 if use_fused else 1024
+    S = env.model.state_size
+    kw = {"MPPI": dict(std=1.0, lam=1.0, model_noise_std=0.1),
+          "CEM": dict(n_elite=8, max_iter=3)}[agent]
+    solver = getattr(solvers, agent)(model=env.model, T=T, K=K, **kw)
+    rng = np.random.default_rng(3)
+    xs = env.start_state(dev).expand(B, -1) + _t(0.1 * rng.standard_normal((B, S)), dev)
+    plans = _t(0.5 * rng.standard_normal((B, T, 1)), dev)
+    g_z = torch.zeros((T, env.model.goal_size), device=dev)
+    st = solver.init_state_batch(B, torch.Generator(device=dev).manual_seed(11), dev)
+    st = st._replace(planned_us=plans, calls=st.calls + 5)
+    before = scenario_normals.launches
+    drawn, u0, _ = solver.solve_batch(st, xs, g_z, use_fused=use_fused)
+    torch.cuda.synchronize()
+    if agent == "MPPI":
+        assert scenario_normals.launches == before + 1
+        ref = scenario_normals_reference(st.seeds, st.calls, K, T * (1 if use_fused else 1 + S))
+        delta_tm = (1.0 * ref[..., :T]).permute(2, 0, 1).reshape(T, B * K)
+        xnoise = None if use_fused else 0.1 * ref[..., T:].reshape(B, K, T, S)
+        given, u0_given, _ = solver.solve_batch(st, xs, g_z, use_fused=use_fused,
+                                                delta_tm=delta_tm, xnoise=xnoise)
+    else:
+        assert scenario_normals.launches == before + 3
+        noise = torch.stack([scenario_normals_reference(st.seeds, st.calls + i, K, T)
+                             for i in range(3)])
+        given, u0_given, _ = solver.solve_batch(st, xs, g_z, noise=noise)
+    assert torch.equal(drawn.planned_us, given.planned_us) and torch.equal(u0, u0_given)
+    assert torch.equal(drawn.calls, given.calls)

@@ -54,6 +54,47 @@ def test_scenario_normals_do_not_depend_on_slot_or_batch():
     assert abs(float(many.mean())) < 0.02 and abs(float(many.std()) - 1.0) < 0.02
 
 
+@pytest.mark.parametrize("K,T,scale", [(5, 7, 1.0), (1, 1, 0.3), (8, 30, 2.5)])
+def test_scaled_draw_is_the_scaled_normals_and_follows_the_scenario(K, T, scale):
+    """``scenario_normals(..., scale)`` is ``scale * scenario_normals`` bit
+    for bit, and keeps their independence of the slot and of B: permuting
+    the scenarios permutes the draws, and a sub-batch draws the same rows.
+    On the CPU no kernel launches."""
+    seeds = torch.tensor([3, 2**40 + 5, 2**62 + 17, 12345, -(2**50) - 9], dtype=torch.int64)
+    calls = torch.tensor([0, 4, 1, 9, 2**33 + 1], dtype=torch.int64)
+    before = scenario_normals.launches
+    scaled = scenario_normals(seeds, calls, K, T, scale=scale)
+    assert scaled.shape == (seeds.shape[0], K, T)
+    assert torch.equal(scaled, scale * scenario_normals(seeds, calls, K, T))
+    perm = torch.tensor([2, 0, 4, 3, 1])
+    assert torch.equal(scenario_normals(seeds[perm], calls[perm], K, T, scale=scale),
+                       scaled[perm])
+    assert torch.equal(scenario_normals(seeds[1:3], calls[1:3], K, T, scale=scale),
+                       scaled[1:3])
+    assert scenario_normals.launches == before
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["mppi", "cem"])
+def test_fused_tier_draws_the_scenario_normals(which):
+    """The fused tiers' draw is each scenario's normals: injecting them (as
+    MPPI's std-scaled ``delta_tm``, as CEM's ``noise``) gives the same solve
+    bit for bit, and the draw counts move alike."""
+    solver = [MPPI(model=CartPoleSwingUpModel, T=T, K=8, std=0.7), _solvers()[1]][which]
+    xs, plans, g_z = _problem()
+    st = solver.init_state_batch(B, torch.Generator().manual_seed(5), device="cpu")
+    st = st._replace(planned_us=plans, calls=torch.arange(B, dtype=torch.int64))
+    drawn, u0, _ = solver.solve_batch(st, xs, g_z)
+    if which == 0:
+        delta_tm = (0.7 * scenario_normals(st.seeds, st.calls, 8, T)).permute(2, 0, 1)
+        given, u0_given, _ = solver.solve_batch(st, xs, g_z, delta_tm=delta_tm.reshape(T, -1))
+    else:
+        noise = torch.stack([scenario_normals(st.seeds, st.calls + i, 8, T)
+                             for i in range(solver.max_iter)])
+        given, u0_given, _ = solver.solve_batch(st, xs, g_z, noise=noise)
+    assert torch.equal(drawn.planned_us, given.planned_us) and torch.equal(u0, u0_given)
+    assert torch.equal(drawn.calls, given.calls)
+
+
 @pytest.mark.parametrize("use_fused", [True, False])
 @pytest.mark.parametrize("which", [0, 1], ids=["mppi", "cem"])
 def test_solve_batch_permutation_permutes_outputs(which, use_fused):
