@@ -34,10 +34,25 @@ The reference's ``pallas_smoother`` switch resolves as there: ``None`` and
 ``True`` leave the smoother to ``use_fused``, and an explicit ``False`` runs
 ``_kf_rts``, ``use_fused=True`` included. ``solve`` is ``solve_batch`` on a
 batch of one without the kernels.
+
+``solve_batch`` runs the solve as a list of stages (``_stages``) and marks
+each iteration's with ``utils.profiling.span`` (no-ops unless the profiler
+runs): ``i2c.linearize`` (the nominal rollout, the linearisation and the
+smoother's inputs), ``i2c.smooth`` (the filter and smoother) and
+``i2c.linesearch`` (the candidates, their rollout and the choice). The
+failure guard and clip between them lie in no span; R, the prior
+covariances and the action box are made once a solve, before the stages.
+
+With ``cuda_graph=True`` a fused solve on the card without planning-model
+noise is captured once per shape, one CUDA graph a stage
+(``_StageGraphs``), and replayed under the same spans: the same launches in
+the same order, so the same plans to the bit, without the host issuing
+each of the solve's thousands of small launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -48,6 +63,7 @@ from ..device import resolve_device
 from ..ops.i2c_smooth import i2c_smooth_batch
 from ..ops.linearize import _transform_jacobian, linearize_dynamics, mT, mv
 from ..ops.rollout import best_plan_by_rollout_cost, rollout, rollout_noisy
+from ..utils.profiling import span
 from .base import Solver
 
 
@@ -98,6 +114,10 @@ class I2C(Solver):
     # and the x^10 track-edge cost punishes overshoot — it stabilizes
     # long-horizon MPC.
     prior_lag: bool = False
+    # the port's own: replay the fused solve on the card as CUDA graphs
+    # (see _StageGraphs); False, and any run that draws planning-model
+    # noise, issues each launch from the host
+    cuda_graph: bool = False
 
     # -- state ----------------------------------------------------------------
     def init_state(self, generator: torch.Generator, device="cuda", noise=None) -> I2CState:
@@ -199,20 +219,23 @@ class I2C(Solver):
         mu0 = torch.cat([xs[..., 0, :], us[..., 0, :]], dim=-1)
         return F, m, J, z0, mu0
 
+    def _smooth(self, chain, R, covs, g_z, use_fused: bool):
+        """Smoothed means (..., T, D) of a chain from ``_smoother_inputs``;
+        with ``use_fused`` (one batch dimension, ``covs`` the prior
+        covariances) through ``i2c_smooth_batch``."""
+        F, m, J, z0, mu0 = chain
+        if use_fused:
+            return i2c_smooth_batch(F, m, J.contiguous(), z0.contiguous(), R, mu0.contiguous(),
+                                    *covs, g_z)
+        return self._kf_rts(F, m, J, z0, R, mu0, g_z)
+
     def _smooth_once(self, x0, us, g_z, alpha, xnoise=None, use_fused: bool = False):
         """Smoothed control means (..., T, A) of one iteration at
-        temperature alpha; with ``use_fused`` (one batch dimension) through
-        ``i2c_smooth_batch``."""
-        S = self.model.state_size
-        F, m, J, z0, mu0 = self._smoother_inputs(x0, us, g_z, xnoise)
-        R = self._obs_noise(alpha, us.device)
-        if use_fused:
-            sig0, Q_proc = self._prior_covs(us.device)
-            mu_smooth = i2c_smooth_batch(F, m, J.contiguous(), z0.contiguous(), R,
-                                         mu0.contiguous(), sig0, Q_proc, g_z)
-        else:
-            mu_smooth = self._kf_rts(F, m, J, z0, R, mu0, g_z)
-        return mu_smooth[..., S:]
+        temperature alpha."""
+        chain = self._smoother_inputs(x0, us, g_z, xnoise)
+        covs = self._prior_covs(us.device) if use_fused else None
+        mu_smooth = self._smooth(chain, self._obs_noise(alpha, us.device), covs, g_z, use_fused)
+        return mu_smooth[..., self.model.state_size:]
 
     def _kf_rts(self, F, m, Js, z0s, R, mu0, g_z):
         """Forward KF + backward RTS over the augmented chain, the plain
@@ -250,47 +273,87 @@ class I2C(Solver):
         return torch.stack(mu_s, dim=-2)
 
     # -- outer loop ---------------------------------------------------------------
+    def _stages(self, xs, g_z, use_fused: bool, noise=None) -> list:
+        """The solve of xs (B, S) as its steps in order, each ``(span name or
+        None, step)``; a step takes and returns the carried tensors: ``(us,)``
+        between iterations, ``(us, chain)`` after the linearisation and
+        ``(us, us_new)`` after the smoother. ``noise`` (max_iter, B, T, S)
+        perturbs the nominal rollouts. R, the prior covariances and the
+        action box are made here, so that no step copies from the host."""
+        model, S, device = self.model, self.model.state_size, xs.device
+        covs = self._prior_covs(device) if use_fused else None
+        lo, hi = model.lo(device), model.hi(device)
+        # the candidates of a per-scenario goal broadcast over their own axis
+        g_cand = g_z if g_z.ndim == 2 else g_z[:, None]
+
+        def guard(carry):
+            # failure guard (cf. iLQR's Cholesky-NaN handling): if a
+            # scenario's smoother diverges (inf linearization Jacobians at
+            # far-out-of-envelope states under heavy model noise), it keeps
+            # its previous plan instead of adopting a NaN one; then the clip
+            us, us_new = carry
+            finite = torch.isfinite(us_new).flatten(1).all(dim=1)
+            return us, torch.clamp(torch.where(finite[:, None, None], us_new, us), lo, hi)
+
+        def line_search(carry):
+            # backtracked acceptance on the true rollout cost: the smoother
+            # optimizes a moment-matched surrogate and can walk uphill in
+            # true cost (on pendulum swing-up the surrogate's fixed point at
+            # T >= 25 is a swing-damping plan; cf. SQP's line search). On LQ
+            # problems the full step always wins and the fixed point is
+            # unchanged.
+            us, us_new = carry
+            cands = torch.stack([us + g * (us_new - us) for g in self.ls_steps], dim=1)
+            return (best_plan_by_rollout_cost(model, xs, g_cand, cands),)
+
+        stages = []
+        for i, alpha in enumerate(self.alphas()):
+            R = self._obs_noise(alpha, device)
+            xnoise = None if noise is None else self.model_noise_std * noise[i]
+            stages += [
+                ("i2c.linearize",
+                 lambda c, xnoise=xnoise: (c[0], self._smoother_inputs(xs, c[0], g_z, xnoise))),
+                ("i2c.smooth",
+                 lambda c, R=R: (c[0], self._smooth(c[1], R, covs, g_z, use_fused)[..., S:])),
+                (None, guard),
+                ("i2c.linesearch", line_search) if self.line_search else (None, lambda c: c[1:])]
+        return stages
+
     def solve_batch(self, state: I2CState, xs, g_z, use_fused: bool = True, noise=None):
         """One I2C solve for B scenarios xs (B, S), plans (B, T, A): all
         ``max_iter`` iterations in lock-step. With ``model_noise_std > 0``
         iteration i's nominal rollout gets ``model_noise_std``·noise[i],
         noise a standard-normal (max_iter, B, T, S) tensor, drawn from the
         state's generator unless given."""
-        model = self.model
-        us = state.planned_us
         B = xs.shape[0]
         use_fused = use_fused and self.pallas_smoother is not False
         if use_fused:
             self._check_fused(g_z)
         if self.model_noise_std > 0.0:
-            shape = (self.max_iter, B, self.T, model.state_size)
+            shape = (self.max_iter, B, self.T, self.model.state_size)
             if noise is None:
                 noise = torch.randn(shape, generator=state.generator, device=xs.device)
             elif tuple(noise.shape) != shape:
                 raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {shape}")
-        # the candidates of a per-scenario goal broadcast over their own axis
-        g_cand = g_z if g_z.ndim == 2 else g_z[:, None]
-        for i, alpha in enumerate(self.alphas()):
-            xnoise = self.model_noise_std * noise[i] if self.model_noise_std > 0.0 else None
-            us_new = self._smooth_once(xs, us, g_z, alpha, xnoise, use_fused)
-            # failure guard (cf. iLQR's Cholesky-NaN handling): if a
-            # scenario's smoother diverges (inf linearization Jacobians at
-            # far-out-of-envelope states under heavy model noise), it keeps
-            # its previous plan instead of adopting a NaN one
-            finite = torch.isfinite(us_new).flatten(1).all(dim=1)
-            us_new = torch.where(finite[:, None, None], us_new, us)
-            us_new = model.clip_action(us_new)
-            if self.line_search:
-                # backtracked acceptance on the true rollout cost: the
-                # smoother optimizes a moment-matched surrogate and can walk
-                # uphill in true cost (on pendulum swing-up the surrogate's
-                # fixed point at T >= 25 is a swing-damping plan; cf. SQP's
-                # line search). On LQ problems the full step always wins and
-                # the fixed point is unchanged.
-                cands = torch.stack([us + g * (us_new - us) for g in self.ls_steps], dim=1)
-                us_new = best_plan_by_rollout_cost(model, xs, g_cand, cands)
-            us = us_new
+        else:
+            noise = None
+            if use_fused and self.cuda_graph and xs.is_cuda:
+                us = self._graphs_for(xs, state.planned_us, g_z)(xs, state.planned_us, g_z)
+                return state._replace(planned_us=us), us[:, 0], {}
+        carry = (state.planned_us,)
+        for name, step in self._stages(xs, g_z, use_fused, noise):
+            with span(name) if name else _NO_SPAN:
+                carry = step(carry)
+        us = carry[0]
         return state._replace(planned_us=us), us[:, 0], {}
+
+    def _graphs_for(self, xs, us, g_z) -> "_StageGraphs":
+        """The captured solve of these shapes, captured on first use."""
+        graphs = self.__dict__.setdefault("_graphs", {})  # the frozen instance's own cache
+        key = (xs.device, tuple(xs.shape), tuple(us.shape), tuple(g_z.shape))
+        if key not in graphs:
+            graphs[key] = _StageGraphs(self, xs, us, g_z)
+        return graphs[key]
 
     def solve(self, state: I2CState, x, g_z, noise=None):
         """One I2C solve from state x (S,), plan (T, A): ``solve_batch`` on a
@@ -299,3 +362,43 @@ class I2C(Solver):
             state._replace(planned_us=state.planned_us[None]), x[None], g_z, use_fused=False,
             noise=None if noise is None else noise[:, None])
         return state._replace(planned_us=st.planned_us[0]), u0[0], aux
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _StageGraphs:
+    """A fused I2C solve of one shape on the card as CUDA graphs, one a step
+    of ``I2C._stages``: captured in order into one memory pool after an
+    eager pass (which loads the kernels and fills their caches), and
+    replayed in that order, each under its span. A call copies its inputs
+    into the tensors the graphs read and returns a copy of the plans they
+    write."""
+
+    def __init__(self, solver: I2C, xs, us, g_z):
+        self.xs, self.us, self.g_z = xs.clone(), us.clone(), g_z.clone()
+        self.stages = solver._stages(self.xs, self.g_z, True)
+        side = torch.cuda.Stream(xs.device)
+        side.wait_stream(torch.cuda.current_stream(xs.device))
+        with torch.cuda.stream(side):
+            carry = (self.us,)
+            for _, step in self.stages:
+                carry = step(carry)
+        torch.cuda.current_stream(xs.device).wait_stream(side)
+        self.graphs, carry, pool = [], (self.us,), None
+        for name, step in self.stages:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                carry = step(carry)
+            pool = graph.pool()
+            self.graphs.append((name, graph))
+        self.out = carry[0]
+
+    def __call__(self, xs, us, g_z):
+        self.xs.copy_(xs)
+        self.us.copy_(us)
+        self.g_z.copy_(g_z)
+        for name, graph in self.graphs:
+            with span(name) if name else _NO_SPAN:
+                graph.replay()
+        return self.out.clone()

@@ -1,0 +1,18 @@
+"""Kernel 8b (I2C's RTS smoother, ``i2c_rts_*``): the least time its work
+takes on the card (``counts.i2c.rts_work`` at the cell's B and T, D = the
+plant's features, which are (x, u)) over its mean device time in the traced
+stretch, in %."""
+
+from portbench import counts
+from portbench.counts import i2c
+
+PATTERN = r"i2c_rts_(kernel|general|wide|large)"
+
+
+def read(ctx):
+    times = ctx.trace.kernel_times(PATTERN) if ctx.trace else []
+    if not times:
+        return None
+    D = counts.plant(ctx.config["env"])["Z"]
+    least, _ = counts.least_time_s(i2c.rts_work(ctx.batch, ctx.config["solver_args"]["T"], D))
+    return 100.0 * least / (sum(times) / len(times))

@@ -1032,6 +1032,39 @@ def test_i2c_general_form_matches_plain(dev, B, T, S, A, Z, variant):
             assert cfg[k]["local_bytes"] == 0
 
 
+@pytest.mark.parametrize("name,B", [("cartpole_swingup", 1024), ("acrobot", 37)])
+def test_i2c_graphed_solve_is_the_eager_solve_bit_for_bit(dev, name, B):
+    """``cuda_graph=True`` replays the fused solve's stages as CUDA graphs:
+    the plans equal the eager solve's to the bit, on a second call with
+    other inputs too (the graphs read copies of each call's inputs), and
+    under the profiler every stage's span is recorded once an iteration."""
+    from benchmarking_mpc_solvers_tpu_torch.solvers import I2C
+    from benchmarking_mpc_solvers_tpu_torch.utils import profiling
+
+    model = REGISTRY[name]
+    T = 16
+    eager, graphed = (I2C(model=model, T=T, max_iter=3, cuda_graph=flag) for flag in (False, True))
+    g_z = torch.zeros((T, model.goal_size), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(B)
+    for call in range(2):
+        xs = 0.3 * torch.randn((B, model.state_size), generator=gen, device=dev)
+        plans = 0.5 * torch.randn((B, T, model.action_size), generator=gen, device=dev)
+        state = eager.init_state_batch(B, gen, dev)._replace(planned_us=plans)
+        want = eager.solve_batch(state, xs, g_z)
+        got = graphed.solve_batch(state, xs, g_z)  # the first call captures
+        _bits(got[0].planned_us, want[0].planned_us)
+        _bits(got[1], want[1])
+        profiling.clear_spans()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+            got = graphed.solve_batch(state, xs, g_z)
+        _bits(got[0].planned_us, want[0].planned_us)
+        totals = profiling.span_totals()
+        assert {k: v["count"] for k, v in totals.items()} == {
+            "i2c.linearize": 3, "i2c.smooth": 3, "i2c.linesearch": 3}
+        assert all(v["device_ms"] > 0 for v in totals.values())
+    assert len(graphed.__dict__["_graphs"]) == 1
+
+
 def test_i2c_general_form_device_workspace(dev):
     """The large form's device-memory workspace (taken where a block's four
     shared-memory workspaces pass 227 KB) gives the bits of the
